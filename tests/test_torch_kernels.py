@@ -1,0 +1,154 @@
+"""The port's attention kernels (src/repro_torch/kernels) against the JAX
+package's.
+
+On the CPU the port runs each kernel's plain PyTorch version; it is held
+here against ``repro.kernels.ref`` and against the Pallas kernels in
+interpret mode, on the shapes of ``tests/test_kernels.py`` plus per-row
+ranges, at 2e-5 in float32 (the fp32 bar of ``test_kernels._tol``: both
+sides compute the same float32 sums in another order).
+
+The CUDA kernels themselves run only on a card: ``test_torch_cuda.py``
+holds them against these plain versions there.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.decode_attention import decode_attention_pallas
+from repro.kernels.flash_attention import flash_attention_pallas
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.decode_attention import decode_attention_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+torch.set_num_threads(1)
+FP32 = dict(atol=2e-5, rtol=2e-5)
+
+
+def _normal(rng, shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("B,H,KH,S,D,bq,bk", [
+    (1, 2, 1, 128, 32, 64, 64),
+    (2, 4, 2, 256, 64, 128, 128),
+    (1, 8, 8, 64, 16, 32, 32),     # MHA
+])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64), (False, 0)])
+def test_flash_plain_matches_jax(B, H, KH, S, D, bq, bk, causal, window):
+    rng = np.random.default_rng(S + D + window)
+    q, k, v = (_normal(rng, (B, H, S, D)), _normal(rng, (B, KH, S, D)),
+               _normal(rng, (B, KH, S, D)))
+    got = ref.flash_attention_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=causal, window=window).numpy()
+    want = np.asarray(jref.flash_attention_reference(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window))
+    pallas = np.asarray(flash_attention_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window, block_q=bq, block_k=bk, interpret=True))
+    np.testing.assert_allclose(got, want, **FP32)
+    np.testing.assert_allclose(got, pallas, **FP32)
+
+
+def test_flash_plain_right_aligns_queries():
+    """S < T: query i sits at position i + T - S (chunked prefill)."""
+    rng = np.random.default_rng(7)
+    q, k, v = (_normal(rng, (1, 4, 24, 16)), _normal(rng, (1, 2, 40, 16)),
+               _normal(rng, (1, 2, 40, 16)))
+    got = ref.flash_attention_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=True, window=8).numpy()
+    want = np.asarray(jref.flash_attention_reference(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        window=8))
+    np.testing.assert_allclose(got, want, **FP32)
+
+
+@pytest.mark.parametrize("B,H,KH,S,D,bs", [
+    (2, 8, 2, 512, 64, 128),
+    (1, 4, 4, 256, 32, 64),
+    (4, 16, 2, 128, 16, 128),
+])
+@pytest.mark.parametrize("length,start", [(100, 0), (512, 0), (200, 60)])
+def test_decode_plain_matches_jax(B, H, KH, S, D, bs, length, start):
+    length = min(length, S)
+    rng = np.random.default_rng(S + length + start)
+    q = _normal(rng, (B, H, D))
+    kc, vc = _normal(rng, (B, S, KH, D)), _normal(rng, (B, S, KH, D))
+    got = ref.decode_attention_reference(
+        torch.from_numpy(q), torch.from_numpy(kc), torch.from_numpy(vc),
+        length, start).numpy()
+    want = np.asarray(jref.decode_attention_reference(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.int32(length),
+        jnp.int32(start)))
+    pallas = np.asarray(decode_attention_pallas(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.int32(length),
+        jnp.int32(start), block_s=bs, interpret=True))
+    np.testing.assert_allclose(got, want, **FP32)
+    np.testing.assert_allclose(got, pallas, **FP32)
+
+
+def test_decode_plain_per_row_ranges():
+    """One [start, length) per row, as the batched engine decodes: each row
+    equals the JAX kernel run on that row alone with scalar bounds, including
+    a length past the cache (an idle lane) and a local window."""
+    B, H, KH, S, D = 4, 4, 1, 256, 32
+    rng = np.random.default_rng(11)
+    q = _normal(rng, (B, H, D))
+    kc, vc = _normal(rng, (B, S, KH, D)), _normal(rng, (B, S, KH, D))
+    length = np.array([1, 77, 256, 300], np.int32)
+    start = np.maximum(length - np.array([0, 16, 64, 16]), 0).astype(np.int32)
+    start[0] = 0
+    got = ref.decode_attention_reference(
+        torch.from_numpy(q), torch.from_numpy(kc), torch.from_numpy(vc),
+        torch.from_numpy(length), torch.from_numpy(start)).numpy()
+    for b in range(B):
+        want = np.asarray(decode_attention_pallas(
+            jnp.asarray(q[b:b + 1]), jnp.asarray(kc[b:b + 1]),
+            jnp.asarray(vc[b:b + 1]), jnp.int32(length[b]),
+            jnp.int32(start[b]), block_s=128, interpret=True))
+        np.testing.assert_allclose(got[b:b + 1], want, **FP32)
+
+
+def test_ops_route_cpu_tensors_to_plain_versions():
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(_normal(rng, (1, 2, 32, 16)))
+    k = torch.from_numpy(_normal(rng, (1, 1, 32, 16)))
+    v = torch.from_numpy(_normal(rng, (1, 1, 32, 16)))
+    torch.testing.assert_close(
+        ops.flash_attention(q, k, v, causal=True, window=8),
+        ref.flash_attention_reference(q, k, v, causal=True, window=8),
+        rtol=0, atol=0)
+    qd, kc = q[:, :, 0].contiguous(), k.transpose(1, 2).contiguous()
+    vc = v.transpose(1, 2).contiguous()
+    length = torch.tensor([20], dtype=torch.int32)
+    start = torch.tensor([4], dtype=torch.int32)
+    torch.testing.assert_close(
+        ops.decode_attention(qd, kc, vc, length, start),
+        ref.decode_attention_reference(qd, kc, vc, length, start),
+        rtol=0, atol=0)
+
+
+def test_ops_reject_devices_without_an_implementation():
+    q = torch.empty((1, 2, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="no implementation"):
+        ops.flash_attention(q, q[:, :1], q[:, :1])
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """The kernels' wrappers launch or raise; they never compute a CPU
+    tensor on another path, and a refused call counts no launch."""
+    before = (decode_attention_cuda.launches, flash_attention_cuda.launches)
+    q = torch.zeros((1, 2, 8, 16))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention_cuda(q, q[:, :1].contiguous(), q[:, :1].contiguous())
+    qd, kc = torch.zeros((1, 2, 16)), torch.zeros((1, 8, 1, 16))
+    lens = torch.ones((1,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        decode_attention_cuda(qd, kc, kc, lens, lens)
+    assert (decode_attention_cuda.launches,
+            flash_attention_cuda.launches) == before
