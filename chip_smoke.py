@@ -28,6 +28,46 @@ have gone through the kernels. A profiler window over a few decode steps
 and one prefill then says where the time goes (after the counters are
 read).
 
+Slice B, the RASK decide cycle (src/repro_torch/core), adds:
+
+Phase "rask_kernels" holds the objective's forward and backward kernels
+against their plain versions (1e-5 relative and absolute, float32) on the
+|S| = 3/9/27 layouts of the paper's QR/CV/PC services (1, 3 and 9
+replicas), with models fitted by the port's own agent on the card, at
+K = 6 starts and K = 7. It times each kernel, its plain version and an
+empty kernel (the practical floor of one launch) like phase 1, and
+computes each kernel's bound from the bytes and operations of this run's
+tables (real terms only). No single PyTorch call computes this function,
+so the library column is null.
+
+Phase "autoscale" is the slice: E6's largest paper point, 9 services (3
+replicas of QR/CV/PC) on one 24-core device under e3's load mix (QR
+diurnal to 100 rps, CV diurnal to 10 rps, PC constant 50), 600 simulated
+seconds with xi = 20, the agent deciding on the card. Launch counters are
+zeroed just before and read just after; every solve must have gone
+through both kernels (33 forward and 32 backward launches a decide at the
+default budget: 32 ascent steps and the final scoring). No plan may
+exceed the capacity, and the post-exploration mean fulfillment must be
+within 0.03 of the same scenario run by the port on the CPU, whose random
+starts are drawn from the same CUDA generator. One more steady decide runs
+under ``torch.cuda.set_sync_debug_mode("warn")``, which reports every
+synchronising call: only the final device-to-host copy is expected.
+
+Phase "rask_crosscheck" then takes that agent's live stream state (the
+Gram system built by the card's rank-k pushes, one a decide; at 600 s the
+window of ~60 rows fits the 64-row ring, so no eviction or resync runs)
+and holds it against an exact CPU rebuild from the training window (1e-5
+relative). It runs one steady decide's fit and solve from that state on
+the card and, copied, on the CPU, each through the agent's own ``_tail``
+with the same warm start, load and random-start uniforms: the scores
+agree to 1e-4 relative, each side's assignment scores within 1e-4 of the
+other side's best under the other side's models, and both are feasible.
+
+Phase "decide_timing" times the steady decide at |S| = 3, 9 and 27 (the
+median and p90 of ``DecisionInfo.runtime_s`` over the solved cycles after
+the first), and phase "rask_trace" runs ``torch.profiler`` over 3 steady
+decides at |S| = 9: device busy ms, idle share and CUDA launches a decide.
+
 Prints the card's name and power limit, one JSON line per phase, a
 ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
@@ -88,22 +128,27 @@ def time_ms(fns, iters):
     Call ms: CUDA events around the loop, which is what a caller waits,
     host overhead included when the host is the slower side. Device ms: the
     same loop queued behind a device spin that outlasts the host's queueing,
-    so the calls run back to back and the events time the card alone."""
+    so the calls run back to back and the events time the card alone. The
+    device's launch queue holds about a thousand kernels: a plain version
+    of many small launches fills it behind the spin and blocks the host, so
+    the device loop then times fewer calls."""
     for fn in fns:
         fn()
     torch.cuda.synchronize()
     call, queued = _events_ms(fns, iters)
     per_ms, _ = _events_ms([lambda: torch.cuda._sleep(1 << 20)], 1)
     cycles_per_ms = (1 << 20) / per_ms
-    for _ in range(3):
+    while True:
         spin_ms = 2e3 * queued + 1.0
         device, queued_now = _events_ms(fns, iters,
                                         int(spin_ms * cycles_per_ms))
         if 1e3 * queued_now < spin_ms:   # every call was queued in time
             return device, call
-        queued = queued_now
-    raise RuntimeError("the host could not queue the timed calls ahead of "
-                       "the device")
+        if iters == 1:
+            raise RuntimeError("the host could not queue the timed calls "
+                               "ahead of the device")
+        iters = max(1, iters // 2)
+        _, queued = _events_ms(fns, iters)
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -412,46 +457,62 @@ def phase_serve(dev):
     return res, engine
 
 
-def phase_trace(engine, steps=3):
-    """Where a decode step's time goes: ``torch.profiler`` over a few steps
-    of the phase-3 engine (its lanes now idle, which decode as before) and
-    over one 1024-token prefill. Device busy time is the sum of the kernels'
-    self time; the rest of the wall clock the device idles."""
+_LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaLaunchKernelExC")
+
+
+def profile_window(label, fn, n):
+    """``torch.profiler`` over ``n`` calls of ``fn`` (after one warm call).
+
+    Device busy time is the summed duration of the device's own events
+    (kernels, copies, memsets). A CPU op's device time repeats the kernels
+    it launched, so CPU ops are left out of that sum; the rest of the wall
+    clock the device idles. Also counts the kernel launch calls a call."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     def dev_us(e):          # the attribute's name moved in torch 2.4
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
-    def window(label, fn, n):
-        fn()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-            wall_us = 1e6 * (time.perf_counter() - t0) / n
-        ka = prof.key_averages()
-        busy = sum(dev_us(e) for e in ka) / n
-        top_dev = sorted(ka, key=dev_us, reverse=True)[:8]
-        top_cpu = sorted(ka, key=lambda e: e.self_cpu_time_total,
-                         reverse=True)[:8]
-        return {"window": label, "wall_ms": wall_us / 1e3,
-                "device_busy_ms": busy / 1e3,
-                "device_idle_share": max(0.0, 1.0 - busy / wall_us),
-                "top_device_ms": [[e.key, dev_us(e) / n / 1e3, e.count // n]
-                                  for e in top_dev],
-                "top_host_self_ms": [[e.key, e.self_cpu_time_total / n / 1e3,
-                                      e.count // n] for e in top_cpu]}
+        wall_us = 1e6 * (time.perf_counter() - t0) / n
+    ka = prof.key_averages()
+    dev = [e for e in ka if e.device_type != DeviceType.CPU]
+    host = [e for e in ka if e.device_type == DeviceType.CPU]
+    busy = sum(dev_us(e) for e in dev) / n
+    top_dev = sorted(dev, key=dev_us, reverse=True)[:8]
+    top_cpu = sorted(host, key=lambda e: e.self_cpu_time_total,
+                     reverse=True)[:8]
+    return {"window": label, "wall_ms": wall_us / 1e3,
+            "device_busy_ms": busy / 1e3,
+            "device_idle_share": max(0.0, 1.0 - busy / wall_us),
+            "launches": sum(e.count for e in host
+                            if e.key in _LAUNCH_KEYS) / n,
+            "top_device_ms": [[e.key, dev_us(e) / n / 1e3, e.count / n]
+                              for e in top_dev],
+            "top_host_self_ms": [[e.key, e.self_cpu_time_total / n / 1e3,
+                                  e.count / n] for e in top_cpu]}
 
+
+def phase_trace(engine, steps=3):
+    """Where a decode step's time goes: ``profile_window`` over a few steps
+    of the phase-3 engine (its lanes now idle, which decode as before) and
+    over one 1024-token prefill."""
     toks = torch.zeros((1, 1024), dtype=torch.long, device=engine.device)
     res = {"phase": "trace",
-           "decode_step": window("decode_step", engine.step, steps),
-           "prefill_1024": window("prefill_1024", lambda: engine.model.prefill(
-               engine.params, {"tokens": toks}, max_seq=engine.cfg.max_seq,
-               length=1000), 1)}
+           "decode_step": profile_window("decode_step", engine.step, steps),
+           "prefill_1024": profile_window(
+               "prefill_1024", lambda: engine.model.prefill(
+                   engine.params, {"tokens": toks},
+                   max_seq=engine.cfg.max_seq, length=1000), 1)}
     log(json.dumps(res))
     return res
 
@@ -465,6 +526,367 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+# -- slice B: the RASK decide cycle -------------------------------------------------
+
+RASK_SOURCE = "src/repro_torch/kernels/csrc/rask_objective.cu"
+RASK_TOL = 1e-5           # float32 on both sides; sums in another order
+
+
+def _rask_env(replicas, patterns=None, seed=0):
+    from repro_torch.env import EdgeEnvironment, paper_profiles
+    return EdgeEnvironment(list(paper_profiles().values()),
+                           {"cores": 8.0 * replicas}, patterns=patterns,
+                           replicas=replicas, seed=seed)
+
+
+def _rask_agent(env, dev, cls=None, seed=0):
+    from repro_torch.core import RASKAgent, RaskConfig
+    from repro_torch.env import paper_knowledge
+    cls = cls or RASKAgent
+    return cls(env.platform, paper_knowledge(), RaskConfig(xi=20), seed=seed,
+               device=dev)
+
+
+def _steady_ms(hist):
+    """Median and p90 ms of the solved decides after the first."""
+    import numpy as np
+    ms = [1e3 * h.runtime_s for h in hist if not h.explored][1:]
+    return {"decides": len(ms), "median_ms": statistics.median(ms),
+            "p90_ms": float(np.percentile(ms, 90)), "min_ms": min(ms)}
+
+
+def phase_decide_timing(dev):
+    """The paper triple with 1, 3 and 9 replicas on 8 cores each, default
+    loads, 400 s (20 explored + 20 solved cycles) on the card. Returns the
+    timings and the agents (their fitted models feed rask_kernels)."""
+    res, agents = {"phase": "decide_timing"}, {}
+    for replicas in (1, 3, 9):
+        env = _rask_env(replicas)
+        agent = _rask_agent(env, dev)
+        t0 = time.perf_counter()
+        hist = env.run(agent, duration_s=400.0)
+        row = _steady_ms(hist)
+        row.update(services=3 * replicas, dim=agent.problem.dim,
+                   wall_s=time.perf_counter() - t0,
+                   first_solve_compile_s=[h.compile_s for h in hist
+                                          if not h.explored][0])
+        res[f"S{3 * replicas}"] = row
+        agents[3 * replicas] = (env, agent)
+    log(json.dumps(res))
+    return res, agents
+
+
+def _objective_args(env, agent, K, seed):
+    """The objective's inputs as the solver gives them: the agent's tables
+    and fitted models, K projected random candidates, the current load."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    dev = agent.device
+    p, sm = agent.problem, agent.stacked
+    A = np.stack([p.random_assignment(rng, agent.capacity)
+                  for _ in range(K)])
+    rps = agent._rps_vector(agent.platform.window_states(env.t - 5, env.t))
+    t = p.tables
+    args = (torch.from_numpy(A).to(dev), t.rel_gather, sm.w, sm.exponents,
+            sm.term_mask, sm.x_scale, t.slo_kind, t.slo_service,
+            t.slo_weight, t.slo_target, t.slo_pidx, t.slo_ridx,
+            torch.from_numpy(rps).to(dev))
+    return args, dict(n_services=len(p.specs), max_degree=sm.max_degree)
+
+
+def _objective_work(args, n_services, backward):
+    """(bytes, flops) one call needs on these inputs: every input read once
+    and the output written once; the flops of the real terms only (padded
+    terms have mask 0) — features, powers, term products, phi, sums."""
+    A, rel, w, E, tm = args[:5]
+    K, D = A.shape
+    R, T, F = E.shape
+    Q, S = args[6].shape[0], n_services
+    nbytes = 4 * sum(t.numel() for t in args) + 4 * K * (D if backward else S)
+    if backward:
+        nbytes += 4 * K * S                              # the cotangent
+    real = (tm > 0)
+    n_real = int(real.sum())
+    powers = int((E * real[..., None]).sum())             # x^e products
+    fwd = R * F + powers + n_real * (F + 2) + 5 * Q + Q
+    if not backward:
+        return nbytes, K * fwd
+    bwd = fwd + powers + n_real * (F * (F - 1) + 4 * F + 1) + 6 * Q \
+        + 2 * R * F + Q + R * F
+    return nbytes, K * bwd
+
+
+def phase_rask_kernels(dev, agents):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rask_objective import (
+        empty_launch_cuda, rask_objective_backward_cuda,
+        rask_objective_forward_cuda)
+
+    rows = []
+    for S, (env, agent) in sorted(agents.items()):
+        for K in (6, 7):
+            args, kw = _objective_args(env, agent, K, seed=S + K)
+            A = args[0]
+            g = torch.Generator(dev).manual_seed(S + K)
+            ct = torch.randn((K, S), generator=g, device=dev)
+            fwd = rask_objective_forward_cuda(*args, n_services=S)
+            bwd = rask_objective_backward_cuda(A, ct, *args[1:],
+                                               n_services=S)
+            want_f = ref.rask_objective_reference(*args, **kw)
+            want_b = ref.rask_objective_grad(A, ct, *args[1:], **kw)
+            torch.cuda.synchronize()
+            for name, got, want, backward in (
+                    ("rask_objective", fwd, want_f, False),
+                    ("rask_objective_grad", bwd, want_b, True)):
+                err = (got - want).abs().max().item()
+                bar = RASK_TOL * (1.0 + want.abs().max().item())
+                check(bool(torch.isfinite(got).all()),
+                      f"{name} S{S} K{K}: non-finite output")
+                check(err <= bar, f"{name} S{S} K{K}: error {err} > {bar}")
+                nbytes, flops = _objective_work(args, S, backward)
+                row = {"kernel": name, "case": f"S{S}_K{K}", "K": K,
+                       "services": S, "dim": A.shape[1],
+                       "relations": args[3].shape[0],
+                       "terms": args[3].shape[1], "slos": args[6].shape[0],
+                       "max_abs_err": err, "tolerance": bar,
+                       "bytes": nbytes, "flops": flops,
+                       "bound": bound_ms(nbytes, flops, "float32")}
+                if backward:
+                    row["ms"], row["call_ms"] = time_ms([
+                        lambda: rask_objective_backward_cuda(
+                            A, ct, *args[1:], n_services=S)], 200)
+                    row["plain_ms"], row["plain_call_ms"] = time_ms([
+                        lambda: ref.rask_objective_grad(A, ct, *args[1:],
+                                                        **kw)], 50)
+                else:
+                    row["ms"], row["call_ms"] = time_ms([
+                        lambda: rask_objective_forward_cuda(
+                            *args, n_services=S)], 200)
+                    row["plain_ms"], row["plain_call_ms"] = time_ms([
+                        lambda: ref.rask_objective_reference(*args, **kw)],
+                        50)
+                row["library_ms"] = None     # no single PyTorch call
+                rows.append(row)
+                log(f"{name} S{S} K{K}: {row}")
+    empty_ms, empty_call_ms = time_ms([lambda: empty_launch_cuda(dev)], 200)
+    res = {"phase": "rask_kernels", "cases": rows,
+           "empty_launch_ms": empty_ms, "empty_launch_call_ms": empty_call_ms}
+    log(json.dumps({"empty_launch_ms": empty_ms,
+                    "empty_launch_call_ms": empty_call_ms}))
+    return res
+
+
+def phase_rask_crosscheck(env, agent):
+    """One steady decide's fit + solve at |S| = 9, card and CPU, from the
+    autoscale agent's live stream state (the card's rank-k pushes, copied
+    to the CPU), its warm start, the current
+    load and the same injected uniforms, each through the agent's own
+    ``_tail``. The live accumulators are also held against an exact CPU
+    rebuild from the training window, and each side's assignment is scored
+    by the other side's models."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch.core.regression import BatchedFitPlan, StreamState
+    from repro_torch.core.solver import SolverProblem, score_candidates
+
+    cfg, cpu = agent.cfg, torch.device("cpu")
+    live = agent._stream["state"]
+    data = agent._collect_fit_data()
+    rows = [len(Y) for _, Y in data]
+    check(max(rows) <= agent._row_capacity,
+          f"rask_crosscheck: window {max(rows)} outgrew the ring")
+    relations = [dict(n_features=len(f), degree=agent._degree(sid),
+                      x_scale=scale)
+                 for sid, _, f, scale in agent._rel_static]
+    cpu_plan = BatchedFitPlan(relations, agent._row_capacity,
+                              ridge=cfg.ridge, device=cpu)
+    exact = cpu_plan.stream_rebuild(data)
+    acc_err = {k: float((getattr(live, k).cpu() - getattr(exact, k)).abs()
+                        .amax() / getattr(exact, k).abs().amax().clamp(
+                            min=1e-30)) for k in ("gram", "xty")}
+
+    x0 = torch.from_numpy(agent._cached_x)
+    rps = torch.from_numpy(
+        agent._rps_vector(agent.platform.window_states(env.t - 5, env.t)))
+    u = torch.from_numpy(np.random.default_rng(7).random(
+        (cfg.pgd_starts - 3, agent.problem.dim)).astype(np.float32))
+    sides = {"card": (agent, agent._fit_plan, live),
+             "cpu": (None, cpu_plan, StreamState(*(t.cpu() for t in live)))}
+    out = {}
+    for key, (src, plan, state) in sides.items():
+        twin = copy.copy(agent)
+        if src is None:
+            twin.device = cpu
+            twin.problem = SolverProblem(agent.problem.specs, device=cpu)
+            twin._gen = torch.Generator(cpu)
+        where = twin.device
+        twin._start_uniforms = lambda seed, where=where: u.to(where)
+        sm = plan.stacked(plan.stream_fit_arrays(state))
+        res = twin._tail(sm, x0.to(where), 0, rps.to(where)).cpu().numpy()
+        d = agent.problem.dim
+        out[key] = (res[:d], float(res[2 * d]), twin.problem, sm)
+
+    # each side's assignment under the other side's models
+    cross = {}
+    for key, other in (("card", "cpu"), ("cpu", "card")):
+        _, _, prob, sm = out[other]
+        a = torch.from_numpy(out[key][0][None]).to(sm.w.device)
+        cross[key] = float(score_candidates(a, prob.tables, sm,
+                                            rps.to(sm.w.device),
+                                            len(prob.specs))[0])
+    p = agent.problem
+    feasible = {}
+    for k, (a, *_) in out.items():
+        feasible[k] = bool(np.all(a >= p.lower - 1e-5)
+                           and np.all(a <= p.upper + 1e-5)
+                           and a[p.resource_mask].astype(np.float64).sum()
+                           <= agent.capacity)
+
+    def rel(x, y):
+        return abs(x - y) / max(abs(y), 1e-12)
+
+    s_gpu, s_cpu = out["card"][1], out["cpu"][1]
+    res = {"phase": "rask_crosscheck", "services": len(p.specs),
+           "window_rows": rows, "stream_pushes": agent._stream["pushes"],
+           "accumulator_rel_err": acc_err, "accumulator_tolerance": 1e-5,
+           "score_card": s_gpu, "score_cpu": s_cpu,
+           "score_rel_diff": rel(s_gpu, s_cpu),
+           "card_assignment_cpu_score": cross["card"],
+           "cpu_assignment_card_score": cross["cpu"],
+           "cross_score_rel_diff": max(rel(cross["card"], s_cpu),
+                                       rel(cross["cpu"], s_gpu)),
+           "tolerance": 1e-4,
+           "assignment_max_abs_diff": float(np.abs(out["card"][0]
+                                                   - out["cpu"][0]).max()),
+           "feasible": feasible}
+    log(json.dumps(res))
+    check(max(acc_err.values()) <= 1e-5,
+          f"rask_crosscheck: live accumulators vs rebuild {acc_err}")
+    check(res["score_rel_diff"] <= 1e-4,
+          f"rask_crosscheck: scores {s_gpu} vs {s_cpu}")
+    check(res["cross_score_rel_diff"] <= 1e-4,
+          f"rask_crosscheck: assignments score apart {cross}")
+    check(all(feasible.values()), f"rask_crosscheck: infeasible {feasible}")
+    return res
+
+
+def _e3_mix():
+    from repro_torch.env import constant, diurnal
+    return {"qr-detector": diurnal(100.0), "cv-analyzer": diurnal(10.0),
+            "pc-visualizer": constant(50.0)}
+
+
+def phase_autoscale(dev):
+    import warnings
+
+    import numpy as np
+
+    from repro_torch.core import RASKAgent
+    from repro_torch.kernels.rask_objective import (
+        rask_objective_backward_cuda, rask_objective_forward_cuda)
+
+    seconds, replicas, cap = 600.0, 3, 24.0
+    env = _rask_env(replicas, _e3_mix())
+    agent = _rask_agent(env, dev)
+    torch.cuda.synchronize()
+    rask_objective_forward_cuda.launches = 0
+    rask_objective_backward_cuda.launches = 0
+    t0 = time.perf_counter()
+    hist = env.run(agent, duration_s=seconds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"rask_objective": rask_objective_forward_cuda.launches,
+                "rask_objective_grad": rask_objective_backward_cuda.launches}
+
+    solved = [h for h in hist if not h.explored]
+    n = len(solved)
+    check(n == len(hist) - 20, f"autoscale: {n} solved of {len(hist)}")
+    steps = agent.cfg.pgd_iters        # one backward a step, one scoring
+    check(launches["rask_objective"] == (steps + 1) * n,
+          f"autoscale: forward launches {launches} for {n} solves")
+    check(launches["rask_objective_grad"] == steps * n,
+          f"autoscale: backward launches {launches} for {n} solves")
+    worst = max(sum(v.get("cores", 0.0) for v in h.receipt.applied().values())
+                for h in hist)
+    check(worst <= cap + 1e-6, f"autoscale: {worst} cores of {cap}")
+    post = float(np.mean([h.fulfillment for h in solved]))
+
+    # the same scenario on the CPU, its starts drawn from the same CUDA
+    # generator stream as the card's agent
+    class CudaStarts(RASKAgent):
+        def _start_uniforms(self, seed):
+            g = torch.Generator(dev).manual_seed(seed)
+            self._gen.manual_seed(seed)
+            return torch.rand((self.cfg.pgd_starts - 3, self.problem.dim),
+                              generator=g, device=dev).cpu()
+
+    cpu_env = _rask_env(replicas, _e3_mix())
+    cpu_agent = _rask_agent(cpu_env, torch.device("cpu"), cls=CudaStarts)
+    cpu_hist = cpu_env.run(cpu_agent, duration_s=seconds)
+    cpu_post = float(np.mean([h.fulfillment for h in cpu_hist
+                              if not h.explored]))
+
+    # one more steady decide, every synchronising call reported
+    obs = agent.observe(env.t)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            agent.decide(obs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # one warning a synchronising call; the mode's own notice is not one
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "called a synchronizing" in str(w.message)]
+
+    res = {"phase": "autoscale", "services": 3 * replicas, "cores": cap,
+           "seconds": seconds, "xi": 20, "cycles": len(hist),
+           "solved": n, "launches": launches,
+           "kernel_launches_per_decide": {k: v / n for k, v in
+                                          launches.items()},
+           "decide": _steady_ms(hist), "wall_s": wall,
+           "post_explore_fulfillment": post,
+           "post_explore_fulfillment_cpu": cpu_post,
+           "fulfillment_gap": abs(post - cpu_post), "tolerance": 0.03,
+           "max_cores_applied": worst, "syncs_in_one_decide": len(syncs),
+           "sync_messages": syncs[:4],
+           "first_solve_compile_s": solved[0].compile_s}
+    log(json.dumps(res))
+    check(abs(post - cpu_post) <= 0.03,
+          f"autoscale: fulfillment {post} on the card vs {cpu_post} on CPU")
+    check(len(syncs) <= 1, f"autoscale: {len(syncs)} syncs in one decide")
+    return res, env, agent
+
+
+def phase_rask_trace(env, agent, decides=3):
+    """``profile_window`` over a few steady decides of the autoscale agent
+    (after its counters were read)."""
+    obs = iter([agent.observe(env.t) for _ in range(decides + 1)])
+    res = {"phase": "rask_trace", "services": len(agent.services),
+           "decides": decides,
+           **profile_window("decide", lambda: agent.decide(next(obs)),
+                            decides)}
+    log(json.dumps(res))
+    return res
+
+
+def rask_entry(kernels, name, launches, replaces):
+    """One ``kernels`` entry: timed on the main path's shape (|S| = 9,
+    K = 6), error the worst of every case."""
+    rows = [r for r in kernels["cases"] if r["kernel"] == name]
+    rep = next(r for r in rows if r["case"] == "S9_K6")
+    ms, by = rep["bound"]
+    return {"name": name, "route": "cuda", "source": RASK_SOURCE,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "case": "S9_K6", "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+            "bound_ms": ms, "bound_by": by, "library_ms": None,
+            "call_ms": rep["call_ms"],
+            "empty_launch_ms": kernels["empty_launch_ms"]}
 
 
 # -- the summary ------------------------------------------------------------------
@@ -527,6 +949,17 @@ def main(argv=None):
     trace = phase_trace(engine)
     print(json.dumps(trace), flush=True)
 
+    timing, agents = phase_decide_timing(dev)
+    print(json.dumps(timing), flush=True)
+    rask_kernels = phase_rask_kernels(dev, agents)
+    print(json.dumps(rask_kernels), flush=True)
+    auto, auto_env, auto_agent = phase_autoscale(dev)
+    print(json.dumps(auto), flush=True)
+    rask_cross = phase_rask_crosscheck(auto_env, auto_agent)
+    print(json.dumps(rask_cross), flush=True)
+    rask_trace = phase_rask_trace(auto_env, auto_agent)
+    print(json.dumps(rask_trace), flush=True)
+
     kernels = {"kernels": [
         kernel_entry(rows, "decode_attention", "local",
                      serve["launches"]["decode_attention"],
@@ -535,7 +968,13 @@ def main(argv=None):
         kernel_entry(rows, "flash_attention", "S1024_w512",
                      serve["launches"]["flash_attention"],
                      "src/repro_torch/kernels/csrc/flash_attention.cu",
-                     "src/repro/kernels/flash_attention.py:79")]}
+                     "src/repro/kernels/flash_attention.py:79"),
+        rask_entry(rask_kernels, "rask_objective",
+                   auto["launches"]["rask_objective"],
+                   "src/repro/kernels/rask_objective.py:79"),
+        rask_entry(rask_kernels, "rask_objective_grad",
+                   auto["launches"]["rask_objective_grad"],
+                   "src/repro/kernels/rask_objective.py:135")]}
     print(json.dumps(kernels), flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -543,7 +982,10 @@ def main(argv=None):
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"gpu": smi, "device": device, "build": build, "kernel_cases": rows,
-             "crosscheck": cross, "serve": serve, "trace": trace, **kernels},
+             "crosscheck": cross, "serve": serve, "trace": trace,
+             "decide_timing": timing, "rask_kernels": rask_kernels,
+             "rask_crosscheck": rask_cross, "autoscale": auto,
+             "rask_trace": rask_trace, **kernels},
             indent=1))
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

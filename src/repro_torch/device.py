@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -18,3 +19,17 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``device``, without making the host wait.
+
+    On the card the array is copied into fresh pinned memory and sent with
+    ``non_blocking=True``: a copy from pageable memory would synchronise
+    the stream. PyTorch's pinned-memory cache does not hand the buffer out
+    again before the copy has run. On the CPU it is a plain copy, so the
+    caller may reuse its array at once."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type == "cpu":
+        return t.clone()
+    return t.pin_memory().to(device, non_blocking=True)
