@@ -68,6 +68,35 @@ median and p90 of ``DecisionInfo.runtime_s`` over the solved cycles after
 the first), and phase "rask_trace" runs ``torch.profiler`` over 3 steady
 decides at |S| = 9: device busy ms, idle share and CUDA launches a decide.
 
+Slice C, mamba2-370m served by the port (src/repro_torch/models/ssm.py),
+adds:
+
+Phase "ssd_kernels" holds the SSD scan kernel against its plain version
+on the card at the slice's shapes (b = 1, 32 heads of 64, state 128,
+chunk 128, l = 128, 384 and 1024) plus b = 2 with a non-zero initial
+state (l = 256), in float32 (test_ssd_sweep's atol 1e-4, rtol 1e-3) and
+bf16 (1e-1), and times the kernel and the plain version like phase 1. The
+bound is the larger of the bytes moved (x, dt, A, B, C, y, the initial
+and final states) over 3.35 TB/s and the flops of the chunked algorithm
+on these shapes (C B^T once per chunk, the lower triangles only) over the
+dtype's peak. No single PyTorch call computes the scan, so the library
+column is null.
+
+Phase "ssm_crosscheck" runs mamba2-370m at full width (d_model 1024,
+vocab 50280), cut to 2 layers, in float32: a 300-token prefill (padded to
+384 inside each layer: three chunks, two carries and a dt = 0 tail) and 4
+decode steps on the card against the same weights on the CPU.
+
+Phase "ssm_serve" is the slice: mamba2-370m at full width in bf16,
+random weights from a seeded generator, behind the ServingEngine (4
+slots, max_seq 2048, context 1024, exact-length prefill), serving 8
+requests with prompts {100, 300, 700, 1000} x 2 and 16 new tokens each.
+Launch counters are zeroed just before and read just after: the SSD
+kernel must have run once per layer per admitted prompt, and no plain
+version of a kernel may have run on the card. Phase "ssm_trace" runs
+``profile_window`` over 3 decode steps of that engine and one 1000-token
+prefill.
+
 Prints the card's name and power limit, one JSON line per phase, a
 ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
@@ -321,10 +350,7 @@ def phase_crosscheck(dev):
                               local_global_period=2, dtype="float32")
     model = build(cfg)
     params = model.init(torch.Generator(dev).manual_seed(1))
-    cpu_params = {
-        "embed": params["embed"].cpu(),
-        "final_norm": {"scale": params["final_norm"]["scale"].cpu()},
-        "layers": [_to_cpu(lp) for lp in params["layers"]]}
+    cpu_params = _to_cpu(params)
     toks = np.random.default_rng(2).integers(0, cfg.vocab, (1, 300))
     gl, gc = model.prefill(params, {"tokens": torch.from_numpy(toks).to(dev)},
                            max_seq=512)
@@ -348,8 +374,11 @@ def phase_crosscheck(dev):
 
 
 def _to_cpu(tree):
-    return {k: _to_cpu(v) if isinstance(v, dict) else v.cpu()
-            for k, v in tree.items()}
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.cpu()
 
 
 # -- phase 3: the slice -------------------------------------------------------------
@@ -377,6 +406,10 @@ class FiniteLogits:
 
     def init_cache(self, *a, **kw):
         return self.model.init_cache(*a, **kw)
+
+    @property
+    def supports_padded_prefill(self):
+        return self.model.supports_padded_prefill
 
 
 def phase_serve(dev):
@@ -502,17 +535,21 @@ def profile_window(label, fn, n):
                                   e.count / n] for e in top_cpu]}
 
 
-def phase_trace(engine, steps=3):
+def phase_trace(engine, name="trace", steps=3):
     """Where a decode step's time goes: ``profile_window`` over a few steps
-    of the phase-3 engine (its lanes now idle, which decode as before) and
-    over one 1024-token prefill."""
-    toks = torch.zeros((1, 1024), dtype=torch.long, device=engine.device)
-    res = {"phase": "trace",
+    of a serving phase's engine (its lanes now idle, which decode as
+    before) and over one 1000-token prompt's prefill (padded to the 1024
+    bucket where the model takes padded prompts)."""
+    padded = engine.model.supports_padded_prefill
+    toks = torch.zeros((1, 1024 if padded else 1000), dtype=torch.long,
+                       device=engine.device)
+    length = 1000 if padded else None
+    res = {"phase": name,
            "decode_step": profile_window("decode_step", engine.step, steps),
-           "prefill_1024": profile_window(
-               "prefill_1024", lambda: engine.model.prefill(
+           f"prefill_{toks.shape[1]}": profile_window(
+               f"prefill_{toks.shape[1]}", lambda: engine.model.prefill(
                    engine.params, {"tokens": toks},
-                   max_seq=engine.cfg.max_seq, length=1000), 1)}
+                   max_seq=engine.cfg.max_seq, length=length), 1)}
     log(json.dumps(res))
     return res
 
@@ -889,11 +926,254 @@ def rask_entry(kernels, name, launches, replaces):
             "empty_launch_ms": kernels["empty_launch_ms"]}
 
 
+# -- slice C: mamba2-370m -----------------------------------------------------------
+
+SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+SSD_TOL = {"float32": dict(atol=1e-4, rtol=1e-3),     # test_ssd_sweep's
+           "bfloat16": dict(atol=1e-1, rtol=1e-1)}
+
+
+def ssd_cases(dev, dtype):
+    """The scan's inputs at the slice's shapes (32 heads of 64, state 128,
+    chunk 128), with test_ssd_sweep's distributions: the prompt lengths of
+    phase "ssm_serve" rounded up to the chunk, and b = 2 with a non-zero
+    initial state."""
+    g = torch.Generator(dev).manual_seed(13)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    out = []
+    for b, l, with_state in ((1, 128, False), (1, 384, False),
+                             (1, 1024, False), (2, 256, True)):
+        h, p, n = 32, 64, 128
+        args = [randn(b, l, h, p) * 0.5,
+                torch.nn.functional.softplus(randn(b, l, h)),
+                -torch.exp(randn(h) * 0.3),
+                randn(b, l, n) * 0.5, randn(b, l, n) * 0.5]
+        init = randn(b, h, p, n) * 0.5 if with_state else None
+        name = f"b{b}_l{l}" + ("_init" if with_state else "")
+        out.append((name, [t.to(dtype) for t in args],
+                    None if init is None else init.to(dtype)))
+    return out
+
+
+def _ssd_work(args, init, chunk):
+    """(bytes, flops) of one scan on these inputs: every input read once and
+    both outputs written once; the chunked algorithm's flops with C B^T
+    formed once per (row, chunk) (B and C are shared by the heads) and
+    only the lower triangles of C B^T and of its product with x dt."""
+    x, dt, A, B, C = args
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    ck = min(chunk, l)
+    nc = l // ck
+    tri = ck * (ck + 1) // 2
+    es = x.element_size()
+    nbytes = es * (2 * x.numel() + dt.numel() + A.numel() + B.numel()
+                   + C.numel() + b * h * p * n * (2 if init is not None
+                                                  else 1))
+    per_head = (2 * tri                  # L = exp(segsum), G = CB o L
+                + 2 * tri * p            # G (x dt)
+                + 2 * ck * p * n         # C S^T
+                + 2 * ck * p * n         # (x dt decay)^T B
+                + 2 * p * n              # S exp(cs_last) + ...
+                + 3 * ck * p + 2 * ck)   # x dt, decay weights, scan
+    flops = nc * b * (2 * tri * n + h * per_head)
+    return nbytes, flops
+
+
+def phase_ssd_kernels(dev):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_cuda
+
+    rows, chunk = [], 128
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        tol = SSD_TOL[dname]
+        for name, args, init in ssd_cases(dev, dtype):
+            y, fin = ssd_cuda(*args, chunk=chunk, initial_state=init)
+            wy, wfin = ref.ssd_reference(*args, chunk=chunk,
+                                         initial_state=init)
+            torch.cuda.synchronize()
+            errs = {}
+            for key, got, want in (("y", y, wy), ("final_state", fin, wfin)):
+                got, want = got.float(), want.float()
+                check(bool(torch.isfinite(got).all()),
+                      f"ssd {name} {dname}: non-finite {key}")
+                excess = ((got - want).abs() - tol["atol"]
+                          - tol["rtol"] * want.abs()).max().item()
+                errs[key] = (got - want).abs().max().item()
+                check(excess <= 0, f"ssd {name} {dname}: {key} off by "
+                      f"{errs[key]} (past atol {tol['atol']} + rtol "
+                      f"{tol['rtol']} |plain| by {excess})")
+            nbytes, flops = _ssd_work(args, init, chunk)
+            row = {"kernel": "ssd_scan", "case": name, "dtype": dname,
+                   "max_abs_err": max(errs.values()), "errors": errs,
+                   "tolerance": tol, "bytes": nbytes, "flops": flops,
+                   "bound": bound_ms(nbytes, flops, dname)}
+            row["ms"], row["call_ms"] = time_ms([
+                lambda: ssd_cuda(*args, chunk=chunk, initial_state=init)],
+                20)
+            row["plain_ms"], row["plain_call_ms"] = time_ms([
+                lambda: ref.ssd_reference(*args, chunk=chunk,
+                                          initial_state=init)], 10)
+            row["library_ms"] = None     # no single PyTorch call
+            rows.append(row)
+            log(f"ssd {name} {dname}: {row}")
+    return {"phase": "ssd_kernels", "cases": rows}
+
+
+def phase_ssm_crosscheck(dev):
+    import numpy as np
+
+    from repro_torch.configs import get
+    from repro_torch.models import build
+
+    # 1e-3: float32 on the card (no TF32) and on the CPU, the same
+    # arithmetic in other summation orders (the scan's kernel against its
+    # plain version ~1e-6 relative); logits are O(1) after 2 layers, so
+    # 1e-3 catches a wrong carry, pad, cast or conv window
+    tol = 1e-3
+    cfg = dataclasses.replace(get("mamba2-370m"), n_layers=2,
+                              dtype="float32")
+    model = build(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(3))
+    cpu_params = _to_cpu(params)
+    toks = np.random.default_rng(4).integers(0, cfg.vocab, (1, 300))
+    gl, gc = model.prefill(params, {"tokens": torch.from_numpy(toks).to(dev)},
+                           max_seq=512)
+    cl, cc = model.prefill(cpu_params, {"tokens": torch.from_numpy(toks)},
+                           max_seq=512)
+    errs = [(gl.cpu() - cl).abs().max().item()]
+    state_err = (gc["ssm"].cpu() - cc["ssm"]).abs().max().item()
+    same = [int(gl.argmax()) == int(cl.argmax())]
+    for _ in range(4):
+        nxt = cl.argmax(-1)[:, None]
+        gl, gc = model.decode(params, nxt.to(dev), gc)
+        cl, cc = model.decode(cpu_params, nxt, cc)
+        errs.append((gl.cpu() - cl).abs().max().item())
+        same.append(int(gl.argmax()) == int(cl.argmax()))
+    res = {"phase": "ssm_crosscheck", "model": cfg.name, "layers": 2,
+           "d_model": cfg.d_model, "vocab": cfg.vocab, "prompt": 300,
+           "scan_length": 384, "decode_steps": 4, "max_abs_err": max(errs),
+           "per_step_err": errs, "prefill_state_err": state_err,
+           "tolerance": tol, "argmax_agree": all(same)}
+    log(json.dumps(res))
+    check(max(errs) <= tol, f"ssm cross-check: logits differ by {max(errs)}")
+    check(all(same), "ssm cross-check: argmax tokens differ")
+    return res
+
+
+class PlainOnCard:
+    """Counts calls of the kernels' plain versions with CUDA tensors while
+    active (``ops`` reaches them through the ``ref`` module)."""
+    NAMES = ("ssd_reference", "flash_attention_reference",
+             "decode_attention_reference", "rask_objective_reference",
+             "rask_objective_grad")
+
+    def __enter__(self):
+        from repro_torch.kernels import ref
+        self.ref, self.saved = ref, {}
+        self.calls = dict.fromkeys(self.NAMES, 0)
+        for name in self.NAMES:
+            fn = self.saved[name] = getattr(ref, name)
+
+            def counted(*a, _fn=fn, _name=name, **kw):
+                if a[0].device.type == "cuda":
+                    self.calls[_name] += 1
+                return _fn(*a, **kw)
+            setattr(ref, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.ref, name, fn)
+
+
+def phase_ssm_serve(dev):
+    import numpy as np
+
+    from repro_torch.configs import get
+    from repro_torch.kernels.ssd_scan import ssd_cuda
+    from repro_torch.models import build
+    from repro_torch.serve.engine import (EngineConfig, Request,
+                                          ServingEngine)
+
+    cfg = get("mamba2-370m")                   # full width, bf16
+    model = FiniteLogits(build(cfg))
+    params = model.model.init(torch.Generator(dev).manual_seed(0))
+    n_params = sum(p.numel() for p in _leaves(params))
+    ecfg = EngineConfig(slots=4, max_seq=2048, context=1024, chips=16.0)
+    check(int(ecfg.chips * ecfg.tokens_per_chip_step) >= 1024,
+          "budget must admit a 1024-token prompt")
+    engine = ServingEngine(model, params, ecfg, device=dev)
+    rng = np.random.default_rng(0)
+    lengths = [100, 300, 700, 1000] * 2
+    reqs = [Request(i, rng.integers(0, cfg.vocab, n).astype(np.int32),
+                    max_new_tokens=16) for i, n in enumerate(lengths)]
+    for r in reqs:
+        engine.submit(r)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    step_ms = []
+    with PlainOnCard() as plain:
+        ssd_cuda.launches = 0
+        t0 = time.perf_counter()
+        while len(engine.completed) < len(reqs) and engine.steps < 500:
+            engine.step()
+            step_ms.append(1e3 * engine.last_step_s)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"ssd_scan": ssd_cuda.launches}
+    admitted = len(engine.completed) + len(engine.active)
+
+    check(len(engine.completed) == len(reqs), "not every request completed")
+    for r in engine.completed:
+        check(len(r.generated) == 16, f"request {r.rid}: "
+              f"{len(r.generated)} tokens")
+        check(all(0 <= t < cfg.vocab for t in r.generated),
+              f"request {r.rid}: token out of vocab")
+    check(bool(model.flag), "non-finite logits")
+    check(launches["ssd_scan"] == cfg.n_layers * admitted,
+          f"ssd launches {launches} vs {admitted} prompts")
+    check(not any(plain.calls.values()),
+          f"plain versions ran on the card: {plain.calls}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    prefill_ms = {}
+    for n in (100, 300, 700, 1000):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, n))).to(dev)
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            model.model.prefill(params, {"tokens": toks},
+                                max_seq=ecfg.max_seq)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t))
+        prefill_ms[str(n)] = statistics.median(times[1:])
+    tokens = sum(len(r.generated) for r in engine.completed)
+    res = {"phase": "ssm_serve", "model": cfg.name, "params": n_params,
+           "dtype": cfg.dtype, "requests": len(reqs),
+           "prompt_lengths": lengths, "new_tokens_each": 16,
+           "prompts_admitted": admitted, "engine_steps": engine.steps,
+           "tokens_generated": tokens, "wall_s": wall,
+           "tokens_per_s": tokens / wall,
+           "decode_tokens_per_s": engine.tokens_out / wall,
+           "decode_step_ms_median": statistics.median(step_ms),
+           "decode_step_ms_min": min(step_ms),
+           "prefill_ms_by_length": prefill_ms, "launches": launches,
+           "plain_calls_on_card": plain.calls, "peak_mem_gb": peak}
+    log(json.dumps(res))
+    return res, engine
+
+
 # -- the summary ------------------------------------------------------------------
 
 def kernel_entry(rows, name, case, launches, source, replaces):
-    """One ``kernels`` entry, timed on the case that most launches of the
-    path resemble (bf16, local layers: 22 of 26), error the worst bf16."""
+    """One ``kernels`` entry, timed on the bf16 case that most launches of
+    the path resemble, error the worst bf16 case."""
     rep = next(r for r in rows if r["kernel"] == name and r["case"] == case
                and r["dtype"] == "bfloat16")
     ms, by = rep["bound"]
@@ -906,7 +1186,8 @@ def kernel_entry(rows, name, case, launches, source, replaces):
                                     if r["kernel"] == name
                                     and r["dtype"] == "float32"),
             "case": case, "ms": rep["ms"], "plain_ms": rep["plain_ms"],
-            "bound_ms": ms, "bound_by": by, "library_ms": rep["library_ms"]}
+            "bound_ms": ms, "bound_by": by, "library_ms": rep["library_ms"],
+            "call_ms": rep["call_ms"]}
 
 
 def main(argv=None):
@@ -948,6 +1229,7 @@ def main(argv=None):
     print(json.dumps(serve), flush=True)
     trace = phase_trace(engine)
     print(json.dumps(trace), flush=True)
+    del engine
 
     timing, agents = phase_decide_timing(dev)
     print(json.dumps(timing), flush=True)
@@ -960,7 +1242,17 @@ def main(argv=None):
     rask_trace = phase_rask_trace(auto_env, auto_agent)
     print(json.dumps(rask_trace), flush=True)
 
+    ssd_kernels = phase_ssd_kernels(dev)
+    print(json.dumps(ssd_kernels), flush=True)
+    ssm_cross = phase_ssm_crosscheck(dev)
+    print(json.dumps(ssm_cross), flush=True)
+    ssm_serve, ssm_engine = phase_ssm_serve(dev)
+    print(json.dumps(ssm_serve), flush=True)
+    ssm_trace = phase_trace(ssm_engine, name="ssm_trace")
+    print(json.dumps(ssm_trace), flush=True)
+
     kernels = {"kernels": [
+        # local layers: 22 of 26
         kernel_entry(rows, "decode_attention", "local",
                      serve["launches"]["decode_attention"],
                      "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -974,7 +1266,11 @@ def main(argv=None):
                    "src/repro/kernels/rask_objective.py:79"),
         rask_entry(rask_kernels, "rask_objective_grad",
                    auto["launches"]["rask_objective_grad"],
-                   "src/repro/kernels/rask_objective.py:135")]}
+                   "src/repro/kernels/rask_objective.py:135"),
+        # the longest prompt of the slice, l = 1024
+        kernel_entry(ssd_kernels["cases"], "ssd_scan", "b1_l1024",
+                     ssm_serve["launches"]["ssd_scan"], SSD_SOURCE,
+                     "src/repro/kernels/ssd_scan.py:79")]}
     print(json.dumps(kernels), flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -985,7 +1281,9 @@ def main(argv=None):
              "crosscheck": cross, "serve": serve, "trace": trace,
              "decide_timing": timing, "rask_kernels": rask_kernels,
              "rask_crosscheck": rask_cross, "autoscale": auto,
-             "rask_trace": rask_trace, **kernels},
+             "rask_trace": rask_trace, "ssd_kernels": ssd_kernels,
+             "ssm_crosscheck": ssm_cross, "ssm_serve": ssm_serve,
+             "ssm_trace": ssm_trace, **kernels},
             indent=1))
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

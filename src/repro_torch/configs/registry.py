@@ -1,16 +1,18 @@
 """Architecture registry of the port: only the configs whose family it runs.
 
-The port runs the dense decoder program, so the registry holds gemma3-1b.
-Other families join as their slices are ported (ROADMAP Queue 1).
+The port runs the dense decoder program and the ssm program, so the
+registry holds gemma3-1b and mamba2-370m. Other families join as their
+slices are ported (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
 from typing import Dict
 
 from ..models.config import ModelConfig
-from . import gemma3_1b
+from . import gemma3_1b, mamba2_370m
 
-ARCHS: Dict[str, ModelConfig] = {c.CONFIG.name: c.CONFIG for c in (gemma3_1b,)}
+ARCHS: Dict[str, ModelConfig] = {c.CONFIG.name: c.CONFIG
+                                 for c in (gemma3_1b, mamba2_370m)}
 
 
 def get(arch_id: str) -> ModelConfig:

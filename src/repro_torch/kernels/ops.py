@@ -1,6 +1,6 @@
 """The kernel entry points the port calls, with the layouts of
-``repro/kernels/ops.py``: attention for the model, the RASK objective for
-the solver.
+``repro/kernels/ops.py``: attention and the SSD scan for the models, the
+RASK objective for the solver.
 
 The tensor's device picks the implementation and nothing else does: a CUDA
 tensor goes to the hand-written kernel (which launches or raises), a CPU
@@ -15,6 +15,7 @@ from . import ref
 from .decode_attention import decode_attention_cuda
 from .flash_attention import flash_attention_cuda
 from .rask_objective import RaskObjective
+from .ssd_scan import ssd_cuda
 
 
 def _route(t: torch.Tensor, name: str) -> bool:
@@ -41,6 +42,17 @@ def decode_attention(q, k_cache, v_cache, length, start):
         return decode_attention_cuda(q, k_cache, v_cache, length, start)
     return ref.decode_attention_reference(q, k_cache, v_cache, length,
                                           start=start)
+
+
+def ssd(x, dt, A, B, C, *, chunk: int = 128, initial_state=None):
+    """Mamba-2 chunked SSD scan: x (b,l,h,p), dt (b,l,h), A (h,), B/C
+    (b,l,n) -> (y (b,l,h,p), final_state (b,h,p,n)). Shapes and dtype flow:
+    ``ref.ssd_reference``."""
+    if _route(x, "ssd"):
+        return ssd_cuda(x, dt, A, B, C, chunk=chunk,
+                        initial_state=initial_state)
+    return ref.ssd_reference(x, dt, A, B, C, chunk=chunk,
+                             initial_state=initial_state)
 
 
 class _PlainRaskObjective(torch.autograd.Function):

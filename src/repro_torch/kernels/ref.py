@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the port's kernels (the ``ref.py`` contract of
-``repro/kernels/ref.py``): the two attention oracles, the RASK objective
-(``rask_objective_reference``) and its analytic VJP (``rask_objective_grad``,
-transcribed from ``repro/kernels/rask_objective.py``).
+``repro/kernels/ref.py``): the two attention oracles, the Mamba-2 chunked
+SSD scan (``ssd_reference``) and its one-step recurrence
+(``ssd_decode_reference``), the RASK objective (``rask_objective_reference``)
+and its analytic VJP (``rask_objective_grad``, transcribed from
+``repro/kernels/rask_objective.py``).
 
 These are the semantics of record, transcribed from the JAX oracles: masked
 scores take -1e30 (not -inf), the softmax runs in float32, and the
@@ -14,6 +16,8 @@ results are the same sums (``index_add_`` on a card adds in no fixed
 order, which moves the last bits only).
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
@@ -60,6 +64,132 @@ def decode_attention_reference(q, k_cache, v_cache, length, start=0):
     probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
     out = torch.einsum("bkgs,bskd->bkgd", probs, v_cache)
     return out.reshape(B, H, D)
+
+
+# -- Mamba-2 SSD (state-space duality) chunked scan ----------------------------
+
+CUMSUM_RUN = 16     # rows a cumulative sum runs through before it carries
+
+
+def _rounded_prefix(x, dtype):
+    """Sequential partial sums over the last axis of float32 ``x``, each
+    rounded to ``dtype`` (returned as float32)."""
+    acc = x[..., 0]
+    out = [acc]
+    for i in range(1, x.shape[-1]):
+        acc = (acc + x[..., i]).to(dtype).float()
+        out.append(acc)
+    return torch.stack(out, dim=-1)
+
+
+def _cumsum(x):
+    """Cumulative sum over the last axis, rounded where ``repro``'s rounds.
+
+    In float32 it is a plain cumulative sum. In a lower precision every
+    partial sum rounds to x's dtype: sequentially within runs of 16
+    entries, then across the runs' totals, then once more where a run adds
+    its offset. That is how XLA's CPU cumsum rounds a bf16 vector of up to
+    a few hundred entries, so ``repro``'s bf16 scan. The rounding points
+    matter: over a 128-row chunk the cumulative decay reaches ~-100, where
+    one bf16 step is 0.5, and exp(cs_i - cs_j) moves by tens of percent
+    with them (the CUDA kernel's scan rounds at the same points).
+    """
+    if x.dtype == torch.float32:
+        return torch.cumsum(x, dim=-1)
+    T = x.shape[-1]
+    runs = -(-T // CUMSUM_RUN)
+    xf = torch.nn.functional.pad(x.float(), (0, runs * CUMSUM_RUN - T))
+    within = _rounded_prefix(xf.reshape(*x.shape[:-1], runs, CUMSUM_RUN),
+                             x.dtype)
+    offsets = _rounded_prefix(within[..., -1], x.dtype)
+    offsets = torch.cat([torch.zeros_like(offsets[..., :1]),
+                         offsets[..., :-1]], dim=-1)
+    cs = (within + offsets[..., None]).to(x.dtype)
+    return cs.reshape(*x.shape[:-1], runs * CUMSUM_RUN)[..., :T]
+
+
+def _segsum(x):
+    """(..., T) -> (..., T, T) lower-triangular segment sums cs_i - cs_j,
+    -inf above the diagonal, so that ``exp`` gives 0 there (the upper
+    triangle's ``exp(+large) * 0`` would be NaN)."""
+    T = x.shape[-1]
+    cs = _cumsum(x)
+    ss = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((T, T), dtype=torch.bool, device=x.device))
+    return ss.masked_fill(~mask, float("-inf"))
+
+
+def ssd_reference(x, dt, A, B, C, *, chunk: int = 128,
+                  initial_state: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD (Mamba-2, arXiv:2405.21060 Listing 1) with dt folded in.
+
+    x:  (b, l, h, p)   input sequences per head
+    dt: (b, l, h)      positive step sizes (softplus'd upstream)
+    A:  (h,)           negative per-head decay
+    B:  (b, l, n)      input projection (single group, shared across heads)
+    C:  (b, l, n)      output projection
+    Returns (y: (b,l,h,p), final_state: (b,h,p,n)), both in x's dtype.
+
+    The dtype flow is ``repro``'s: the chunk-local products run in the
+    input dtype, the inter-chunk recurrence in float32.
+    """
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    if l % chunk:
+        raise ValueError(f"sequence {l} not divisible by chunk {chunk}")
+    c = l // chunk
+
+    dA = dt * A[None, None, :]                      # (b, l, h)
+    xd = x * dt[..., None]                          # dt-weighted input
+
+    xd = xd.reshape(b, c, chunk, h, p)
+    dA = dA.reshape(b, c, chunk, h).permute(0, 3, 1, 2)        # (b,h,c,s)
+    Bc = B.reshape(b, c, chunk, n)
+    Cc = C.reshape(b, c, chunk, n)
+    dA_cs = _cumsum(dA)                                         # (b,h,c,s)
+
+    # 1. intra-chunk (diagonal blocks)
+    L = torch.exp(_segsum(dA))                                  # (b,h,c,s,s)
+    Y_diag = torch.einsum("bcsn,bczn,bhcsz,bczhp->bcshp", Cc, Bc, L, xd)
+
+    # 2. chunk-final states
+    decay_states = torch.exp(dA_cs[..., -1:] - dA_cs)           # (b,h,c,s)
+    states = torch.einsum("bczn,bhcz,bczhp->bchpn", Bc, decay_states, xd)
+
+    # 3. inter-chunk recurrence in float32
+    chunk_decay = torch.exp(dA_cs[..., -1]).float()             # (b,h,c)
+    if initial_state is None:
+        initial_state = torch.zeros((b, h, p, n), dtype=x.dtype,
+                                    device=x.device)
+    carry = initial_state.float()
+    prev = []                                       # state entering chunk i
+    for i in range(c):
+        prev.append(carry)
+        carry = carry * chunk_decay[:, :, i, None, None] \
+            + states[:, i].float()
+    prev_states = torch.stack(prev, dim=1)                      # (b,c,h,p,n)
+
+    # 4. state -> output
+    state_decay = torch.exp(dA_cs)                              # (b,h,c,s)
+    Y_off = torch.einsum("bcsn,bchpn,bhcs->bcshp", Cc,
+                         prev_states.to(x.dtype), state_decay.to(x.dtype))
+
+    y = (Y_diag + Y_off).reshape(b, l, h, p)
+    return y.to(x.dtype), carry.to(x.dtype)
+
+
+def ssd_decode_reference(x, dt, A, B, C, state):
+    """One recurrent SSD step, in the dtype of its inputs.
+
+    x: (b,h,p); dt: (b,h); A: (h,); B,C: (b,n); state: (b,h,p,n).
+    h_t = exp(dt A) h_{t-1} + dt * x (x) B ;  y = h_t . C
+    """
+    dA = torch.exp(dt * A[None, :])                             # (b,h)
+    upd = (dt[..., None] * x)[..., None] * B[:, None, None, :]  # (b,h,p,n)
+    state = state * dA[..., None, None] + upd
+    y = torch.einsum("bhpn,bn->bhp", state, C)
+    return y.to(x.dtype), state
 
 
 # -- RASK batched objective (autoscaler Eq. (4) inner evaluation) -------------

@@ -3,10 +3,12 @@ seeded synthetic requests (the counterpart of ``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --full          # card
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu    # plain
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m --full
 
 Without ``--full`` the registry config is cut to its ``.smoke()`` size in
 float32, as in the JAX driver; ``--full`` runs it as registered (gemma3-1b:
-26 layers, d_model 1152, vocab 262144, bf16). Weights are random, drawn
+26 layers, d_model 1152, vocab 262144, bf16; mamba2-370m: 48 layers,
+d_model 1024, vocab 50280, bf16). Weights are random, drawn
 from a seeded ``torch.Generator`` on the device. The device defaults to
 ``cuda``, and a missing card is an error.
 """

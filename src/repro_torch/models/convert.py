@@ -8,6 +8,10 @@ Layout differences handled here:
     keeps a list of per-layer dicts;
   * a separate JAX vocab head is (d_model, vocab); the port's is
     (vocab, d_model), like the tied embedding.
+
+Every leaf takes ``cfg.dtype`` except the Mamba-2 ``A_log`` and
+``dt_bias``, which stay float32 as ``repro/models/ssm.py`` keeps them. Only
+``"w"`` leaves are transposed (the Mamba-2 ``conv_w`` is (K, C) in both).
 """
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ import torch
 
 from .config import ModelConfig
 from .transformer import Params
+
+FLOAT32_LEAVES = ("A_log", "dt_bias")
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -35,14 +41,15 @@ def _layer(tree: Mapping[str, Any], i: int, dtype, device):
         elif key == "w":
             out[key] = _tensor(np.asarray(val)[i].T, dtype, device)
         else:
-            out[key] = _tensor(np.asarray(val)[i], dtype, device)
+            leaf_dtype = torch.float32 if key in FLOAT32_LEAVES else dtype
+            out[key] = _tensor(np.asarray(val)[i], leaf_dtype, device)
     return out
 
 
 def params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
                       device="cpu") -> Params:
-    """``tree``: the JAX decoder's parameter pytree with numpy leaves
-    (e.g. ``jax.tree.map(np.asarray, model.init(key))``)."""
+    """``tree``: the parameter pytree of the JAX decoder or ssm program
+    with numpy leaves (e.g. ``jax.tree.map(np.asarray, model.init(key))``)."""
     dtype = getattr(torch, cfg.dtype)
     params = {
         "embed": _tensor(tree["embed"], dtype, device),

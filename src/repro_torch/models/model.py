@@ -6,8 +6,9 @@
   decode(params, tokens, cache) -> (logits, cache)
   init_cache(batch, max_seq, device) -> zeroed cache
 
-The port runs the dense decoder program. Every other family raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+The port runs the dense decoder program and the ssm program (Mamba-2).
+Every other family raises ``NotImplementedError`` naming the ROADMAP item
+that ports it.
 """
 from __future__ import annotations
 
@@ -23,8 +24,8 @@ Params = Dict[str, Any]
 
 _NOT_PORTED = {
     "moe": "ROADMAP Queue 1, slice D (MoE: qwen2-moe, dbrx)",
-    "ssm": "ROADMAP Queue 1, slice C (models/ssm.py with the ssd_scan kernel)",
-    "hybrid": "ROADMAP Queue 1, slice C (hybrid: jamba, with ssd_scan)",
+    "hybrid": "ROADMAP Queue 1, item 13b (hybrid: jamba, after "
+              "models/moe.py)",
     "encdec": "ROADMAP Queue 1, slice D (encoder-decoder: whisper)",
 }
 
@@ -38,7 +39,7 @@ class Model:
             raise NotImplementedError(
                 f"family {self.cfg.family!r} is not ported yet: "
                 f"{_NOT_PORTED[self.cfg.family]}")
-        if self.cfg.family != "dense":
+        if self.cfg.family not in ("dense", "ssm"):
             raise ValueError(self.cfg.family)
         if self.cfg.mixed_cache or self.cfg.logit_cap:
             raise NotImplementedError(
@@ -46,18 +47,37 @@ class Model:
                 "port runs sets them)")
 
     def init(self, gen: torch.Generator) -> Params:
+        if self.cfg.family == "ssm":
+            return T.init_ssm(gen, self.cfg)
         return T.init_decoder(gen, self.cfg)
 
     def prefill(self, params: Params, batch, max_seq: int, length=None):
         """``batch = {"tokens": (B,S)}``; ``length`` supports right-padded
-        prompts (the decoder is causal, so padding changes nothing)."""
-        return T.decoder_prefill(params, self.cfg, batch["tokens"], max_seq,
+        prompts on the decoder (it is causal, so padding changes nothing).
+        The ssm program is recurrent and would fold pad tokens into its
+        state, so it rejects ``length``."""
+        cfg = self.cfg
+        if length is not None and not self.supports_padded_prefill:
+            raise ValueError(
+                f"family {cfg.family!r} runs a recurrent prefill; padded "
+                "prompts would corrupt its state (no `length` support)")
+        if cfg.family == "ssm":
+            return T.ssm_prefill(params, cfg, batch["tokens"], max_seq)
+        return T.decoder_prefill(params, cfg, batch["tokens"], max_seq,
                                  length=length)
 
+    @property
+    def supports_padded_prefill(self) -> bool:
+        return self.cfg.family == "dense"
+
     def decode(self, params: Params, tokens, cache):
+        if self.cfg.family == "ssm":
+            return T.ssm_decode(params, self.cfg, tokens, cache)
         return T.decoder_decode(params, self.cfg, tokens, cache)
 
     def init_cache(self, batch: int, max_seq: int, device):
+        if self.cfg.family == "ssm":
+            return T.ssm_init_cache(self.cfg, batch, max_seq, device)
         return T.decoder_init_cache(self.cfg, batch, max_seq, device)
 
 

@@ -1,6 +1,6 @@
 """The decoder program (dense LMs, including gemma3's local:global
-interleave): the counterpart of the decoder half of
-``repro/models/transformer.py``.
+interleave) and the ssm program (Mamba-2 stacks): the counterparts of
+those programs in ``repro/models/transformer.py``.
 
 JAX scans one homogeneous layer body over stacked parameters and carries
 each layer's window as a traced scalar. PyTorch runs eagerly, so the port
@@ -8,8 +8,10 @@ keeps a list of per-layer parameter dicts, loops over them in Python, and
 gives each layer its window as a plain int, which lets prefill go through
 the flash kernel on every layer.
 
-The cache is ``{"k", "v": (L, B, S_max, KH, D), "pos": (B,) int64}``: one
-write cursor per row (JAX keeps a scalar and vmaps rows in the engine).
+The decoder's cache is ``{"k", "v": (L, B, S_max, KH, D), "pos": (B,)
+int64}``: one write cursor per row (JAX keeps a scalar and vmaps rows in
+the engine). The ssm program's cache is ``{"conv": (L, B, K-1, C), "ssm":
+(L, B, h, p, n), "pos": (B,) int64}`` in the model dtype, as in ``repro``.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 from .config import ModelConfig
 from .layers import (attention, init_attention, init_mlp, init_norm, mlp,
                      norm, rope_angles)
+from .ssm import init_mamba, mamba_decode, mamba_prefill, mamba_state_shapes
 
 Params = Dict[str, Any]
 
@@ -142,4 +145,85 @@ def decoder_decode(params: Params, cfg: ModelConfig, tokens, cache):
                               cache_pos=pos)
     x = norm(params["final_norm"], x)
     new_cache = {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+    return _logits(params, x[:, -1]), new_cache
+
+
+# ===========================================================================
+# ssm program (mamba2 -- attention-free stack)
+# ===========================================================================
+
+def init_ssm(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """Random weights with ``repro``'s scales, drawn from ``gen``."""
+    dtype, dev = _dtype(cfg), gen.device
+    params = {
+        "embed": (torch.randn((cfg.vocab, cfg.d_model), generator=gen,
+                              device=dev) * 0.02).to(dtype),
+        "layers": [{"ln": init_norm(cfg.d_model, dtype, dev),
+                    "mamba": init_mamba(gen, cfg, dtype)}
+                   for _ in range(cfg.n_layers)],
+        "final_norm": init_norm(cfg.d_model, dtype, dev),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = (torch.randn((cfg.vocab, cfg.d_model), generator=gen,
+                                      device=dev)
+                          * cfg.d_model ** -0.5).to(dtype)
+    return params
+
+
+def ssm_forward(params: Params, cfg: ModelConfig, tokens):
+    """Teacher-forced forward. tokens: (B,S) -> (logits (B,S,V), states):
+    one (conv_state, ssm_state) per layer."""
+    x, states = _ssm_hidden(params, cfg, tokens)
+    return _logits(params, x), states
+
+
+def _ssm_hidden(params: Params, cfg: ModelConfig, tokens):
+    x = params["embed"][tokens].to(_dtype(cfg))
+    states = []
+    for lp in params["layers"]:
+        h, state = mamba_prefill(lp["mamba"], norm(lp["ln"], x), cfg)
+        x = x + h
+        states.append(state)
+    return norm(params["final_norm"], x), states
+
+
+def ssm_init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                   device) -> Dict[str, torch.Tensor]:
+    del max_seq                    # a recurrent state does not grow
+    conv_s, ssm_s = mamba_state_shapes(cfg, batch)
+    return {"conv": torch.zeros((cfg.n_layers,) + conv_s, dtype=_dtype(cfg),
+                                device=device),
+            "ssm": torch.zeros((cfg.n_layers,) + ssm_s, dtype=_dtype(cfg),
+                               device=device),
+            "pos": torch.zeros((batch,), dtype=torch.long, device=device)}
+
+
+def ssm_prefill(params: Params, cfg: ModelConfig, tokens, max_seq: int):
+    """Run the exact-length prompt, return (last-position logits (B,V),
+    cache). Only the last position goes through the vocab projection."""
+    del max_seq
+    B, S = tokens.shape
+    x, states = _ssm_hidden(params, cfg, tokens)
+    cache = {"conv": torch.stack([c for c, _ in states]),
+             "ssm": torch.stack([s for _, s in states]),
+             "pos": torch.full((B,), S, dtype=torch.long,
+                               device=tokens.device)}
+    return _logits(params, x[:, -1]), cache
+
+
+def ssm_decode(params: Params, cfg: ModelConfig, tokens, cache):
+    """One decode step for every row. tokens: (B,1); returns (logits (B,V),
+    cache). Each layer's states are written back into the cache tensors in
+    place, which are returned with the cursors advanced by one."""
+    x = params["embed"][tokens].to(_dtype(cfg))
+    for i, lp in enumerate(params["layers"]):
+        h, (conv, state) = mamba_decode(
+            lp["mamba"], norm(lp["ln"], x), cfg,
+            (cache["conv"][i], cache["ssm"][i]))
+        cache["conv"][i] = conv
+        cache["ssm"][i] = state
+        x = x + h
+    x = norm(params["final_norm"], x)
+    new_cache = {"conv": cache["conv"], "ssm": cache["ssm"],
+                 "pos": cache["pos"] + 1}
     return _logits(params, x[:, -1]), new_cache

@@ -7,14 +7,18 @@ the chip-scaled token budget allows, with the elasticity parameters the LM
 profiles advertise (``chips``, ``context``, ``rung``), exactly as in the
 JAX engine.
 
-Device-resident state: one stacked cache ``(L, slots, max_seq, KH, D)``
-with a ``(slots,)`` write cursor, updated in place. JAX vmaps a batch-1
-decode over the slot axis; the port decodes all slots as ONE batch whose
-rows each carry their own position and length (rope, cache write and the
-decode kernel are all per row). Finished slots free-run: their lane keeps
-decoding, the host stops reading it, and their cache write clamps to
-``max_seq - 1`` so it never touches another lane. Prompts are right-padded
-to power-of-two buckets and prefilled with their true length.
+Device-resident state: one stacked cache with a slot axis after the layer
+axis and a ``(slots,)`` write cursor, updated in place: ``(L, slots,
+max_seq, KH, D)`` keys and values for the decoder, ``(L, slots, K-1, C)``
+conv and ``(L, slots, h, p, n)`` SSM states for a Mamba-2 stack. JAX vmaps
+a batch-1 decode over the slot axis; the port decodes all slots as ONE
+batch whose rows each carry their own position and length (rope, cache
+write and the decode kernel are all per row). Finished slots free-run:
+their lane keeps decoding, the host stops reading it, and a KV write
+clamps to ``max_seq - 1`` so it never touches another lane. Where the
+model takes padded prompts (``supports_padded_prefill``: the decoder)
+they are right-padded to power-of-two buckets and prefilled with their
+true length; a recurrent model prefills the exact length, as in JAX.
 
 ``last_step_s`` / ``step_ewma_s`` are measured wall-clock per decode step,
 ending in the step's one device-to-host copy of the next tokens.
@@ -123,8 +127,8 @@ class _EngineBase:
 
 
 class ServingEngine(_EngineBase):
-    """Stacked-KV continuous batching: one in-place cache, one batched
-    decode step for all slots, bucketed prefill.
+    """Stacked-cache continuous batching: one in-place cache, one batched
+    decode step for all slots, bucketed prefill where the model takes it.
 
     ``device`` defaults to ``cuda`` and raises when no card is present;
     pass ``device="cpu"`` to run the plain PyTorch path. ``params`` must
@@ -141,6 +145,7 @@ class ServingEngine(_EngineBase):
         self._cache = model.init_cache(cfg.slots, cfg.max_seq, self.device)
         self._last = torch.zeros((cfg.slots,), dtype=torch.long,
                                  device=self.device)
+        self._buckets = model.supports_padded_prefill
 
     def _admit(self) -> None:
         budget = int(self.cfg.chips * self.cfg.tokens_per_chip_step)
@@ -154,15 +159,19 @@ class ServingEngine(_EngineBase):
                 continue                  # not enough budget this step
             self.queue.pop(0)
             budget -= n
-            toks = np.zeros((1, bucket_length(n, self.cfg.max_seq)), np.int64)
+            width = bucket_length(n, self.cfg.max_seq) if self._buckets \
+                else n
+            toks = np.zeros((1, width), np.int64)
             toks[0, :n] = prompt
             t0 = time.perf_counter()
             logits, one = self.model.prefill(
                 self.params, {"tokens": torch.from_numpy(toks).to(self.device)},
-                max_seq=self.cfg.max_seq, length=n)
+                max_seq=self.cfg.max_seq,
+                length=n if self._buckets else None)
             first = torch.argmax(logits[0])
-            self._cache["k"][:, slot] = one["k"][:, 0]
-            self._cache["v"][:, slot] = one["v"][:, 0]
+            for key, big in self._cache.items():
+                if key != "pos":
+                    big[:, slot] = one[key][:, 0]
             self._cache["pos"][slot] = n
             self._last[slot] = first
             first = int(first)            # host sync: end of the admission

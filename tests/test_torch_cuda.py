@@ -10,7 +10,8 @@ edges the kernels mask themselves: ragged S and T, right-aligned queries,
 a head dimension that is no power of two, per-row ranges, a length past
 the cache. Tolerances are those of ``tests/test_kernels.py::_tol``: 2e-5
 in float32 (same sums, other order), 5e-2 in bf16 (inputs and outputs
-rounded to bf16).
+rounded to bf16); the SSD scan's are ``test_ssd_sweep``'s (1e-4/1e-3 in
+float32, 1e-1 in bf16).
 """
 import numpy as np
 import pytest
@@ -24,6 +25,7 @@ from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.rask_objective import (
     rask_objective_backward_cuda, rask_objective_forward_cuda)
+from repro_torch.kernels.ssd_scan import ssd_cuda
 
 
 @pytest.fixture
@@ -175,3 +177,100 @@ def test_rask_objective_kernel_refuses_bad_input(cuda_device):
     with pytest.raises(ValueError, match="CUDA tensors"):
         rask_objective_forward_cuda(args[0].cpu(), *args[1:],
                                     n_services=kw["n_services"])
+
+
+def _ssd_inputs(dev, dtype, b, l, h, p, n, with_state, seed):
+    """test_ssd_sweep's distributions: x, B, C ~ N(0, 0.25), dt =
+    softplus(N(0, 1)), A = -exp(0.3 N(0, 1))."""
+    g = torch.Generator(dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    x = randn(b, l, h, p) * 0.5
+    dt = torch.nn.functional.softplus(randn(b, l, h))
+    A = -torch.exp(randn(h) * 0.3)
+    B, C = randn(b, l, n) * 0.5, randn(b, l, n) * 0.5
+    init = randn(b, h, p, n) * 0.5 if with_state else None
+    out = [t.to(dtype) for t in (x, dt, A, B, C)]
+    return out, None if init is None else init.to(dtype)
+
+
+def _ssd_tol(dtype):
+    return dict(atol=1e-1, rtol=1e-1) if dtype == torch.bfloat16 \
+        else dict(atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,h,p,n,chunk,with_state", [
+    (1, 64, 2, 16, 8, 16, False),
+    (2, 128, 4, 32, 16, 32, True),
+    (1, 256, 8, 64, 128, 128, False),     # production-like head
+    (1, 384, 32, 64, 128, 128, False),    # mamba2-370m: three chunks
+    (2, 256, 32, 64, 128, 128, True),
+    (1, 20, 2, 24, 16, 128, True),        # ck = l = 20: ragged chunk and P
+])
+def test_ssd_kernel_matches_plain(cuda_device, dtype, b, l, h, p, n, chunk,
+                                  with_state):
+    args, init = _ssd_inputs(cuda_device, dtype, b, l, h, p, n, with_state,
+                             seed=l + n)
+    launches = ssd_cuda.launches
+    y, fin = ssd_cuda(*args, chunk=chunk, initial_state=init)
+    ck = min(chunk, l)
+    want_y, want_fin = ref.ssd_reference(*args, chunk=ck,
+                                         initial_state=init)
+    torch.cuda.synchronize()
+    assert ssd_cuda.launches == launches + 1
+    assert y.dtype == fin.dtype == dtype
+    torch.testing.assert_close(y.float(), want_y.float(), **_ssd_tol(dtype))
+    torch.testing.assert_close(fin.float(), want_fin.float(),
+                               **_ssd_tol(dtype))
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_refuses_bad_input(cuda_device):
+    (x, dt, A, B, C), _ = _ssd_inputs(cuda_device, torch.float32, 1, 64, 2,
+                                      16, 8, False, seed=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_cuda(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A, B, C,
+                 chunk=16)
+    with pytest.raises(ValueError, match="dtype"):
+        ssd_cuda(x, dt.bfloat16(), A, B, C, chunk=16)
+    with pytest.raises(ValueError, match="shape"):
+        ssd_cuda(x, dt, A, B[:, :32], C, chunk=16)
+    with pytest.raises(ValueError, match="divisible"):
+        ssd_cuda(x, dt, A, B, C, chunk=48)
+    with pytest.raises(ValueError, match="at most"):      # state of 256
+        ssd_cuda(x, dt, A, B.repeat(1, 1, 32), C.repeat(1, 1, 32), chunk=16)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ssd_cuda(x.cpu(), dt, A, B, C, chunk=16)
+
+
+@pytest.mark.cuda
+def test_smoke_mamba2_engine_goes_through_the_kernel(cuda_device):
+    """A smoke-size mamba2 behind the engine on the card: one kernel launch
+    per layer per admitted prompt, every request served in full."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.models import build
+    from repro_torch.serve.engine import EngineConfig, Request, ServingEngine
+    cfg = dataclasses.replace(get("mamba2-370m").smoke(), dtype="float32")
+    model = build(cfg)
+    params = model.init(torch.Generator(cuda_device).manual_seed(0))
+    engine = ServingEngine(model, params, EngineConfig(
+        slots=3, max_seq=64, context=48, chips=4.0), device=cuda_device)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(0, cfg.vocab, n).astype(np.int32),
+                    max_new_tokens=4) for i, n in enumerate([5, 17, 40, 33])]
+    for r in reqs:
+        engine.submit(r)
+    launches = ssd_cuda.launches
+    for _ in range(50):
+        engine.step()
+        if len(engine.completed) == len(reqs):
+            break
+    torch.cuda.synchronize()
+    assert len(engine.completed) == len(reqs)
+    assert all(len(r.generated) == 4 for r in engine.completed)
+    assert ssd_cuda.launches - launches == cfg.n_layers * len(reqs)

@@ -190,3 +190,19 @@ def test_init_is_seeded_and_on_the_generator_device():
     w = a["layers"][0]["attn"]["wq"]["w"]
     assert w.shape == (cfg.n_heads * cfg.d_head, cfg.d_model)
     assert w.device.type == "cpu" and w.dtype == torch.float32
+
+
+def test_ssm_family_builds_and_hybrid_names_its_roadmap_item():
+    """The port runs the dense and ssm programs; the hybrid (jamba) waits
+    for the MoE FFN and names its ROADMAP item."""
+    from repro_torch.configs import ARCHS
+    assert sorted(ARCHS) == ["gemma3-1b", "mamba2-370m"]
+    assert build(get("mamba2-370m")).cfg.family == "ssm"
+    assert build(get("gemma3-1b")).supports_padded_prefill
+    assert not build(get("mamba2-370m")).supports_padded_prefill
+    cfg = ModelConfig(name="tiny-hybrid", family="hybrid", n_layers=2,
+                      d_model=8, n_heads=2, n_kv_heads=1, d_head=4, d_ff=8,
+                      vocab=16, ssm_state=4, attn_period=2, n_experts=2,
+                      top_k=1, moe_every=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*hybrid"):
+        build(cfg)

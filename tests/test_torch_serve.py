@@ -1,10 +1,15 @@
 """The port's continuous-batching engine (src/repro_torch/serve) against
-the JAX package's, on the gemma3-1b ``.smoke()`` config in float32.
+the JAX package's, on the gemma3-1b and mamba2-370m ``.smoke()`` configs
+in float32.
 
 Invariants under test:
  * seeded token streams equal those of ``repro``'s ``ServingEngine`` with
    the Pallas decode kernel in interpret mode, prompts longer than the
    16-token window, more requests than slots;
+ * for mamba2 (a recurrent cache of conv and SSM states), seeded token
+   streams equal ``repro``'s with the SSD scan's Pallas kernel in interpret
+   mode: exact-length prefill, 5- to 40-token prompts, more requests than
+   slots;
  * an idle lane free-running past ``max_seq`` changes no live stream;
  * the engine runs on the card unless told otherwise, and raises when
    there is none;
@@ -27,7 +32,7 @@ from repro.serve import engine as jax_engine
 import repro_torch
 from repro_torch.configs import get
 from repro_torch.launch import serve as launch_serve
-from repro_torch.models import build
+from repro_torch.models import Model, build
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serve.engine import (EngineConfig, Request, ServingEngine,
                                       bucket_length)
@@ -77,6 +82,42 @@ def test_streams_match_reference_engine(models):
                              device="cpu"),
                _requests(Request, cfg.vocab, lengths, max_new, 0, n=7))
     assert got == want
+
+
+@pytest.fixture(scope="module")
+def mamba_models():
+    jcfg = dataclasses.replace(jax_get("mamba2-370m").smoke(),
+                               dtype="float32", ssm_impl="pallas_interpret")
+    jmodel = jax_build(jcfg)
+    jparams = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
+    cfg = dataclasses.replace(get("mamba2-370m").smoke(), dtype="float32")
+    params = params_from_numpy(cfg, jax.tree.map(np.asarray, jparams))
+    return jmodel, jparams, build(cfg), params, cfg
+
+
+def test_mamba2_streams_match_reference_engine(mamba_models, monkeypatch):
+    """Exact-length prefill (no buckets) of 5- to 40-token prompts, 7
+    requests through 3 slots; every cache leaf of a slot is replaced at
+    admission, and idle lanes keep decoding."""
+    jmodel, jparams, model, params, cfg = mamba_models
+    lengths, max_new = [5, 40, 17, 26, 9], [5, 3, 6]
+    ecfg = dict(slots=3, max_seq=64, context=48, chips=4.0)
+    jeng = jax_engine.ServingEngine(jmodel, jparams,
+                                    jax_engine.EngineConfig(**ecfg))
+    want = _run(jeng, _requests(jax_engine.Request, cfg.vocab, lengths,
+                                max_new, 3, n=7))
+    widths = []
+    prefill = Model.prefill
+
+    def spy(self, params, batch, *args, **kw):
+        widths.append(batch["tokens"].shape[1])
+        return prefill(self, params, batch, *args, **kw)
+    monkeypatch.setattr(Model, "prefill", spy)
+    got = _run(ServingEngine(model, params, EngineConfig(**ecfg),
+                             device="cpu"),
+               _requests(Request, cfg.vocab, lengths, max_new, 3, n=7))
+    assert got == want
+    assert sorted(widths) == sorted(lengths[i % 5] for i in range(7))
 
 
 def test_idle_lane_past_max_seq_changes_no_live_stream(models):
@@ -135,6 +176,15 @@ def test_launcher_serves_on_cpu():
     engine = launch_serve.main(["--device", "cpu", "--requests", "3",
                                 "--prompt-len", "20", "--max-new", "4"])
     assert len(engine.completed) == 3
+    assert all(len(r.generated) == 4 for r in engine.completed)
+
+
+def test_launcher_serves_mamba2_on_cpu():
+    engine = launch_serve.main(["--arch", "mamba2-370m", "--device", "cpu",
+                                "--requests", "5", "--prompt-len", "21",
+                                "--max-new", "4", "--slots", "2"])
+    assert engine.model.cfg.name == "mamba2-370m-smoke"
+    assert len(engine.completed) == 5
     assert all(len(r.generated) == 4 for r in engine.completed)
 
 
