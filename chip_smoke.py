@@ -4,11 +4,16 @@
     python3 chip_smoke.py [--out report.json]
 
 Phase 0 builds every CUDA kernel from src/repro_torch/kernels/csrc with nvcc
-(sm_90a), one nvcc per source, all at once.
+(sm_90a), one nvcc per source, all at once, and reports each kernel's
+registers and spills as ptxas gave them.
 
 Phase 1 holds each kernel against its plain PyTorch version on the card, on
 the shapes the serving path gives it, in float32 (tolerance 2e-5) and bf16
-(5e-2), the tolerances of tests/test_kernels.py. It times the kernel, the
+(5e-2), the tolerances of tests/test_kernels.py; the flash kernel also on
+8 query heads to a kv head and on a 17-token prompt. Each flash case
+records its variant: bf16 runs the wgmma kernel ("tensor_core",
+flash_attention_sm90.cu), float32 the CUDA-core one ("cuda_core",
+flash_attention.cu). It times the kernel, the
 plain version and ``scaled_dot_product_attention`` (the library yardstick,
 which the port never calls): device time (CUDA events around calls queued
 behind a device spin, so the host does not pace them) and call time. It computes each kernel's bound: the larger of the bytes
@@ -17,14 +22,16 @@ it must move over 3.35 TB/s and its flops over the peak rate for its type
 
 Phase 2 cross-checks gemma3-1b at full width (d_model 1152, vocab 262144),
 cut to 2 layers (one local, one global), in float32: a 300-token prefill
-and 4 decode steps on the card against the same weights on the CPU.
+and 4 decode steps on the card against the same weights on the CPU; the
+prefill must launch the float32 (CUDA-core) flash kernel once a layer.
 
 Phase 3 is the slice: gemma3-1b at full width in bf16, random weights from
 a seeded generator, behind the continuous-batching ServingEngine (4 slots,
 max_seq 2048, context 1024), serving 8 requests of 100 to 1000 prompt
 tokens and 16 new tokens each. Launch counters are zeroed just before and
 read just after; every layer of every decode step and every prefill must
-have gone through the kernels. A profiler window over a few decode steps
+have gone through the kernels, every flash launch through the bf16
+tensor-core kernel. A profiler window over a few decode steps
 and one prefill then says where the time goes (after the counters are
 read).
 
@@ -74,8 +81,12 @@ adds:
 Phase "ssd_kernels" holds the SSD scan kernel against its plain version
 on the card at the slice's shapes (b = 1, 32 heads of 64, state 128,
 chunk 128, l = 128, 384 and 1024) plus b = 2 with a non-zero initial
-state (l = 256), in float32 (test_ssd_sweep's atol 1e-4, rtol 1e-3) and
-bf16 (1e-1), and times the kernel and the plain version like phase 1. The
+state (l = 256 and 768), in float32 (test_ssd_sweep's atol 1e-4, rtol
+1e-3) and bf16 (1e-1), and times the kernel and the plain version like
+phase 1; each case records its variant (bf16 on the tensor cores, float32
+on the CUDA cores). A profiler window over 20 calls at l = 1024 in bf16
+splits a call into its three launches (chunk_state, state_passing,
+chunk_scan). The
 bound is the larger of the bytes moved (x, dt, A, B, C, y, the initial
 and final states) over 3.35 TB/s and the flops of the chunked algorithm
 on these shapes (C B^T once per chunk, the lower triangles only) over the
@@ -98,7 +109,8 @@ version of a kernel may have run on the card. Phase "ssm_trace" runs
 prefill.
 
 Prints the card's name and power limit, one JSON line per phase, a
-``{"kernels": [...]}`` line, and as the last line
+``{"kernels": [...]}`` line (one entry a kernel, the float32 flash kernel
+its own), and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
 Without a card, or without the repository beside it, it exits 2 and prints
 no result.
@@ -216,15 +228,22 @@ def decode_cases(dev, dtype):
 def flash_cases(dev, dtype):
     """The flash kernel's inputs on the serving path: one prompt, 4 query
     heads on 1 kv head, d_head 256, at the 128/512/1024 buckets, local
-    (window 512) and global (no window)."""
+    (window 512) and global (no window); then two edges the bf16 kernel
+    packs differently: 8 query heads on 1 kv head (8 heads of 8 positions
+    a CTA) and two rows of a 17-token prompt (S < 64)."""
     g = torch.Generator(dev).manual_seed(12)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
     out = []
     for S in (128, 512, 1024):
         for window in (512, 0):
-            q = torch.randn((1, 4, S, 256), generator=g, device=dev).to(dtype)
-            k = torch.randn((1, 1, S, 256), generator=g, device=dev).to(dtype)
-            v = torch.randn((1, 1, S, 256), generator=g, device=dev).to(dtype)
-            out.append((f"S{S}_w{window}", q, k, v, window))
+            out.append((f"S{S}_w{window}", randn(1, 4, S, 256),
+                        randn(1, 1, S, 256), randn(1, 1, S, 256), window))
+    out.append(("G8_S200_w0", randn(1, 8, 200, 64), randn(1, 1, 200, 64),
+                randn(1, 1, 200, 64), 0))
+    out.append(("B2_S17_w8", randn(2, 2, 17, 64), randn(2, 1, 17, 64),
+                randn(2, 1, 17, 64), 8))
     return out
 
 
@@ -307,14 +326,16 @@ def phase_kernels(dev):
             nbytes = (2 * q.numel() + 2 * k.numel()) * es
             flops = 4 * B * H * D * pairs
             row = {"kernel": "flash_attention", "case": name, "dtype": dname,
-                   "max_abs_err": err, "bound": bound_ms(nbytes, flops, dname)}
+                   "variant": "tensor_core" if dtype == torch.bfloat16
+                   else "cuda_core", "max_abs_err": err,
+                   "bound": bound_ms(nbytes, flops, dname)}
             row["ms"], row["call_ms"] = time_ms([
                 lambda: flash_attention_cuda(q, k, v, causal=True,
                                              window=window)], 20)
             row["plain_ms"], row["plain_call_ms"] = time_ms([
                 lambda: ref.flash_attention_reference(
                     q, k, v, causal=True, window=window)], 10)
-            kk, vv = k.expand(B, H, T, D), v.expand(B, H, T, D)
+            kk, vv = k.expand(B, H, T, D), v.expand(B, H, T, D)   # KH = 1
             if window:
                 def sdpa():
                     return F.scaled_dot_product_attention(q, kk, vv,
@@ -339,6 +360,8 @@ def phase_crosscheck(dev):
     import numpy as np
 
     from repro_torch.configs import get
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     reset_launches)
     from repro_torch.models import build
 
     # 1e-3: the same float32 arithmetic on the card (no TF32) and the CPU
@@ -352,8 +375,10 @@ def phase_crosscheck(dev):
     params = model.init(torch.Generator(dev).manual_seed(1))
     cpu_params = _to_cpu(params)
     toks = np.random.default_rng(2).integers(0, cfg.vocab, (1, 300))
+    reset_launches()
     gl, gc = model.prefill(params, {"tokens": torch.from_numpy(toks).to(dev)},
                            max_seq=512)
+    launches = dict(flash_attention_cuda.variant_launches)
     cl, cc = model.prefill(cpu_params, {"tokens": torch.from_numpy(toks)},
                            max_seq=512)
     errs = [(gl.cpu() - cl).abs().max().item()]
@@ -366,8 +391,11 @@ def phase_crosscheck(dev):
         same.append(int(gl.argmax()) == int(cl.argmax()))
     res = {"phase": "crosscheck", "layers": ["local", "global"],
            "prompt": 300, "decode_steps": 4, "max_abs_err": max(errs),
-           "per_step_err": errs, "tolerance": tol, "argmax_agree": all(same)}
+           "per_step_err": errs, "tolerance": tol, "argmax_agree": all(same),
+           "flash_launches": launches}
     log(json.dumps(res))
+    check(launches == {"tensor_core": 0, "cuda_core": cfg.n_layers},
+          f"cross-check: float32 prefill flash launches {launches}")
     check(max(errs) <= tol, f"cross-check: logits differ by {max(errs)}")
     check(all(same), "cross-check: argmax tokens differ")
     return res
@@ -417,7 +445,8 @@ def phase_serve(dev):
 
     from repro_torch.configs import get
     from repro_torch.kernels.decode_attention import decode_attention_cuda
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     reset_launches)
     from repro_torch.models import build
     from repro_torch.serve.engine import (EngineConfig, Request,
                                           ServingEngine, bucket_length)
@@ -439,7 +468,7 @@ def phase_serve(dev):
     torch.cuda.synchronize()
 
     decode_attention_cuda.launches = 0
-    flash_attention_cuda.launches = 0
+    reset_launches()
     step_ms = []
     t0 = time.perf_counter()
     while len(engine.completed) < len(reqs) and engine.steps < 500:
@@ -449,6 +478,7 @@ def phase_serve(dev):
     wall = time.perf_counter() - t0
     launches = {"decode_attention": decode_attention_cuda.launches,
                 "flash_attention": flash_attention_cuda.launches}
+    flash_variants = dict(flash_attention_cuda.variant_launches)
 
     check(len(engine.completed) == len(reqs), "not every request completed")
     for r in engine.completed:
@@ -461,6 +491,10 @@ def phase_serve(dev):
           f"decode launches {launches} vs {engine.steps} steps")
     check(launches["flash_attention"] == cfg.n_layers * len(reqs),
           f"flash launches {launches} vs {len(reqs)} prompts")
+    check(flash_variants == {"tensor_core": launches["flash_attention"],
+                             "cuda_core": 0},
+          f"bf16 flash launches outside the tensor-core kernel: "
+          f"{flash_variants}")
 
     prefill_ms = {}
     for n in (100, 300, 1000):
@@ -485,6 +519,7 @@ def phase_serve(dev):
            "decode_step_ms_median": statistics.median(step_ms),
            "decode_step_ms_min": min(step_ms),
            "prefill_ms_by_bucket": prefill_ms, "launches": launches,
+           "flash_variant_launches": flash_variants,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     log(json.dumps(res))
     return res, engine
@@ -937,14 +972,15 @@ def ssd_cases(dev, dtype):
     """The scan's inputs at the slice's shapes (32 heads of 64, state 128,
     chunk 128), with test_ssd_sweep's distributions: the prompt lengths of
     phase "ssm_serve" rounded up to the chunk, and b = 2 with a non-zero
-    initial state."""
+    initial state (two and six chunks)."""
     g = torch.Generator(dev).manual_seed(13)
 
     def randn(*shape):
         return torch.randn(shape, generator=g, device=dev)
     out = []
     for b, l, with_state in ((1, 128, False), (1, 384, False),
-                             (1, 1024, False), (2, 256, True)):
+                             (1, 1024, False), (2, 256, True),
+                             (2, 768, True)):
         h, p, n = 32, 64, 128
         args = [randn(b, l, h, p) * 0.5,
                 torch.nn.functional.softplus(randn(b, l, h)),
@@ -1008,6 +1044,8 @@ def phase_ssd_kernels(dev):
                       f"{tol['rtol']} |plain| by {excess})")
             nbytes, flops = _ssd_work(args, init, chunk)
             row = {"kernel": "ssd_scan", "case": name, "dtype": dname,
+                   "variant": "tensor_core" if dtype == torch.bfloat16
+                   else "cuda_core",
                    "max_abs_err": max(errs.values()), "errors": errs,
                    "tolerance": tol, "bytes": nbytes, "flops": flops,
                    "bound": bound_ms(nbytes, flops, dname)}
@@ -1020,7 +1058,39 @@ def phase_ssd_kernels(dev):
             row["library_ms"] = None     # no single PyTorch call
             rows.append(row)
             log(f"ssd {name} {dname}: {row}")
-    return {"phase": "ssd_kernels", "cases": rows}
+            if name == "b1_l1024" and dtype == torch.bfloat16:
+                breakdown = ssd_launch_breakdown(
+                    lambda: ssd_cuda(*args, chunk=chunk, initial_state=init))
+    return {"phase": "ssd_kernels", "cases": rows,
+            "launch_breakdown_b1_l1024_bf16": breakdown}
+
+
+def ssd_launch_breakdown(fn, calls=20):
+    """Device ms a call of each of the scan's kernels (chunk_state,
+    state_passing, chunk_scan), from ``torch.profiler`` over ``calls``
+    calls after a warm one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        for part in ("chunk_state", "state_passing", "chunk_scan"):
+            if part in e.key:
+                out[part] = {"ms": us / calls / 1e3,
+                             "launches": e.count / calls}
+    check(set(out) == {"chunk_state", "state_passing", "chunk_scan"},
+          f"ssd profile: kernels {sorted(out)}")
+    return out
 
 
 def phase_ssm_crosscheck(dev):
@@ -1171,20 +1241,17 @@ def phase_ssm_serve(dev):
 
 # -- the summary ------------------------------------------------------------------
 
-def kernel_entry(rows, name, case, launches, source, replaces):
-    """One ``kernels`` entry, timed on the bf16 case that most launches of
-    the path resemble, error the worst bf16 case."""
-    rep = next(r for r in rows if r["kernel"] == name and r["case"] == case
-               and r["dtype"] == "bfloat16")
+def kernel_entry(rows, kernel, case, launches, source, replaces,
+                 dtype="bfloat16", name=None):
+    """One ``kernels`` entry for ``kernel``'s ``dtype`` cases, timed on the
+    case that most launches of the path resemble, error the worst case of
+    that dtype."""
+    mine = [r for r in rows if r["kernel"] == kernel and r["dtype"] == dtype]
+    rep = next(r for r in mine if r["case"] == case)
     ms, by = rep["bound"]
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in rows
-                               if r["kernel"] == name
-                               and r["dtype"] == "bfloat16"),
-            "max_abs_err_fp32": max(r["max_abs_err"] for r in rows
-                                    if r["kernel"] == name
-                                    and r["dtype"] == "float32"),
+    return {"name": name or kernel, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "dtype": dtype,
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
             "case": case, "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": ms, "bound_by": by, "library_ms": rep["library_ms"],
             "call_ms": rep["call_ms"]}
@@ -1218,7 +1285,8 @@ def main(argv=None):
     build_dir = _build.build_all()
     build = {"phase": "build", "dir": str(build_dir),
              "sources": [s.name for s in _build.sources()],
-             "seconds": time.perf_counter() - t}
+             "seconds": time.perf_counter() - t,
+             "ptxas": _build.ptxas_usage(build_dir)}
     print(json.dumps(build), flush=True)
 
     rows = phase_kernels(dev)
@@ -1258,9 +1326,15 @@ def main(argv=None):
                      "src/repro_torch/kernels/csrc/decode_attention.cu",
                      "src/repro/kernels/decode_attention.py:70"),
         kernel_entry(rows, "flash_attention", "S1024_w512",
-                     serve["launches"]["flash_attention"],
-                     "src/repro_torch/kernels/csrc/flash_attention.cu",
+                     serve["flash_variant_launches"]["tensor_core"],
+                     "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
                      "src/repro/kernels/flash_attention.py:79"),
+        # float32 prompts (phase "crosscheck" prefills one)
+        kernel_entry(rows, "flash_attention", "S1024_w512",
+                     cross["flash_launches"]["cuda_core"],
+                     "src/repro_torch/kernels/csrc/flash_attention.cu",
+                     "src/repro/kernels/flash_attention.py:79",
+                     dtype="float32", name="flash_attention_fp32"),
         rask_entry(rask_kernels, "rask_objective",
                    auto["launches"]["rask_objective"],
                    "src/repro/kernels/rask_objective.py:79"),

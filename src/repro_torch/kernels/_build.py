@@ -4,11 +4,13 @@ Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process (all started
 together) into a shared library with a plain C interface::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o lib<name>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o lib<name>.so csrc/<name>.cu
 
 The libraries go to ``kernels/build/<hash>/``, keyed by a hash of every
 source under ``csrc/`` and the flags, so an edited source builds anew and an
-unchanged one is built once. A failed build raises with nvcc's output:
+unchanged one is built once. Beside each goes ``lib<name>.log``, nvcc's
+output, where ptxas reports every kernel's registers and spills
+(``ptxas_usage`` reads it). A failed build raises with nvcc's output:
 nothing falls back to another implementation.
 """
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -26,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # element type codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -79,10 +82,33 @@ def build_all() -> Path:
         if proc.returncode != 0:
             failures.append(f"$ {' '.join(cmd)}\n{log}")
             continue
+        (out_dir / f"lib{src.stem}.log").write_text(log)
         os.replace(tmp, out_dir / f"lib{src.stem}.so")   # atomic publish
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
     return out_dir
+
+
+def ptxas_usage(build_dir: Path) -> Dict[str, List[dict]]:
+    """Per library, each kernel entry's registers and spill bytes, as
+    ptxas reported them when the library was built."""
+    out = {}
+    for log in sorted(build_dir.glob("lib*.log")):
+        entries = []
+        for line in log.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                entries.append({"entry": m.group(1)})
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m and entries:
+                entries[-1]["spill_store_bytes"] = int(m.group(1))
+                entries[-1]["spill_load_bytes"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entries:
+                entries[-1]["registers"] = int(m.group(1))
+        out[log.stem[3:]] = entries
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,6 +1,8 @@
-// Flash attention (prefill): causal and/or sliding-window grouped-query
-// attention, q (B, H, S, D) against k, v (B, KH, T, D), query positions
-// right-aligned at offset T - S, forward only.
+// Flash attention (prefill) in float32: causal and/or sliding-window
+// grouped-query attention, q (B, H, S, D) against k, v (B, KH, T, D), query
+// positions right-aligned at offset T - S, forward only. bf16 goes to the
+// tensor-core kernel of flash_attention_sm90.cu; wgmma takes no float32
+// operands, and TF32 would miss the float32 bar of 2e-5.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py
 // ::flash_attention_pallas (body _fa_kernel). That kernel runs a grid
@@ -11,10 +13,8 @@
 //
 // What bounds it on the H100: operations. At a 1024-token gemma3-1b prompt
 // (D = 256, G = 4) each K/V element read feeds hundreds of flops, above the
-// card's ~295 flops/byte balance point, so the ceiling is the arithmetic
-// rate. This first version computes on the CUDA cores in float32 (no
-// tensor cores yet), so it is far from the bf16 tensor-core bound; wgmma,
-// TMA and warp specialisation are later work.
+// card's ~295 flops/byte balance point, so the ceiling is the float32
+// arithmetic rate of the CUDA cores (67 TFLOP/s).
 //
 // What the design does:
 //  * One CTA per (q block of BQ = 32 rows, head, batch row); the kv-block
@@ -215,19 +215,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
 
 // Plain C interface, loaded with ctypes by kernels/flash_attention.py.
 // Returns a cudaError_t code (0 = launched).
+// float32 tensors only.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int B, int H, int KH, int S, int T,
-                               int D, int causal, int window, int dtype,
-                               void* stream) {
+                               int D, int causal, int window, void* stream) {
   using namespace repro_torch;
   if (D > kMaxD || H % KH != 0 || T < S) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32)
-    return launch<float>(q, k, v, o, B, H, KH, S, T, D, causal, window, s);
-  if (dtype == kBFloat16)
-    return launch<__nv_bfloat16>(q, k, v, o, B, H, KH, S, T, D, causal,
-                                 window, s);
-  return (int)cudaErrorInvalidValue;
+  return launch<float>(q, k, v, o, B, H, KH, S, T, D, causal, window,
+                       static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

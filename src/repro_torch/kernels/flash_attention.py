@@ -1,11 +1,19 @@
-"""Wrapper of the CUDA flash-attention kernel (``csrc/flash_attention.cu``).
+"""Wrapper of the CUDA flash-attention kernels.
 
 Counterpart of ``repro/kernels/flash_attention.py::flash_attention_pallas``:
 causal and/or sliding-window grouped-query attention with query positions
 right-aligned at offset T - S, forward only. Unlike the TPU kernel, S and T
-need not be multiples of a block: the kernel masks the ragged edges. The
-source note in the ``.cu`` file says what bounds it on the H100 and why its
-tiles have the sizes they have.
+need not be multiples of a block: the kernels mask the ragged edges. The
+dtype picks the kernel, and nothing else does:
+
+* bf16: ``csrc/flash_attention_sm90.cu``, ``wgmma`` on TMA-fed tiles
+  (variant ``"tensor_core"``); it needs D % 8 == 0 (TMA's 16-byte rows).
+  Where it splits a long kv range across CTAs, the wrapper allocates the
+  float32 partial rows it merges.
+* float32: ``csrc/flash_attention.cu``, on the CUDA cores (variant
+  ``"cuda_core"``); ``wgmma`` takes no float32 operands.
+
+The source notes say what bounds each on the H100 and how it is tiled.
 
 Plain version: ``kernels/ref.py::flash_attention_reference``.
 """
@@ -21,12 +29,23 @@ from . import _build
 MAX_D = 256
 
 
+# variant -> library, and the name of its C entry point
+_ENTRY = {"tensor_core": "flash_attention_sm90",
+          "cuda_core": "flash_attention"}
+
+
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention")
-    fn = lib.flash_attention
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
-        + [ctypes.c_void_p]
+def _lib(variant: str) -> ctypes.CDLL:
+    lib = _build.load(_ENTRY[variant])
+    fn = getattr(lib, _ENTRY[variant])
+    if variant == "tensor_core":     # + the split kv range's scratch, splits
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 \
+            + [ctypes.c_void_p]
+        lib.flash_attention_sm90_splits.argtypes = [ctypes.c_int] * 8
+        lib.flash_attention_sm90_splits.restype = ctypes.c_int
+    else:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
+            + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -56,16 +75,44 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: needs D <= {MAX_D} and T >= S")
     if window < 0:
         raise ValueError("flash_attention: window must be >= 0")
+    variant = "tensor_core" if q.dtype == torch.bfloat16 else "cuda_core"
+    if variant == "tensor_core" and D % 8:
+        raise ValueError(f"flash_attention: the bf16 kernel needs D % 8 == 0 "
+                         f"(TMA's 16-byte rows), got D = {D}")
     out = torch.empty_like(q)
-    lib = _lib()
-    code = lib.flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, H, KH, S, T, D, int(bool(causal)), int(window),
-        _build.DTYPE_CODES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check_launch(lib, "flash_attention", code)
+    lib = _lib(variant)
+    entry = _ENTRY[variant]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if variant == "tensor_core":
+        splits = lib.flash_attention_sm90_splits(
+            B, H, KH, S, T, int(bool(causal)), int(window), q.device.index)
+        part = ml = None
+        if splits > 1:       # float32 partial rows and their (max, sum)
+            part = torch.empty((splits, B, H, S, D), dtype=torch.float32,
+                               device=q.device)
+            ml = torch.empty((splits, B, H, S, 2), dtype=torch.float32,
+                             device=q.device)
+        code = lib.flash_attention_sm90(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(),
+            None if ml is None else ml.data_ptr(),
+            B, H, KH, S, T, D, int(bool(causal)), int(window), splits, stream)
+    else:
+        code = lib.flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, H, KH, S, T, D, int(bool(causal)), int(window), stream)
+    _build.check_launch(lib, entry, code)
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.variant_launches[variant] += 1
     return out
 
 
+def reset_launches() -> None:
+    """Set the total and every per-variant launch count to 0."""
+    flash_attention_cuda.launches = 0
+    for v in flash_attention_cuda.variant_launches:
+        flash_attention_cuda.variant_launches[v] = 0
+
+
 flash_attention_cuda.launches = 0
+flash_attention_cuda.variant_launches = dict.fromkeys(_ENTRY, 0)

@@ -1,10 +1,11 @@
 """Wrapper of the CUDA SSD scan kernel (``csrc/ssd_scan.cu``).
 
 Counterpart of ``repro/kernels/ssd_scan.py::ssd_pallas``: the Mamba-2
-chunked SSD scan with dt folded in, walking the chunks in order and
-carrying the (P, N) float32 state from one chunk to the next. The source
+chunked SSD scan with dt folded in, as three launches on the current
+stream: the chunks' local states (chunk-parallel), the float32 state
+passed across chunks, and each chunk's output (chunk-parallel). The source
 note in the ``.cu`` file says what bounds the kernel on the H100 and how it
-is split across CTAs.
+is split across CTAs. One call counts one launch.
 
 Plain version: ``kernels/ref.py::ssd_reference``.
 """
@@ -18,16 +19,16 @@ import torch
 
 from . import _build
 
-MAX_CHUNK = 128      # rows of a chunk (the kernel's register micro-tiles)
-MAX_STATE = 128      # state width N
+MAX_CHUNK = 128      # rows of a chunk (8 warps x 16 rows)
+MAX_STATE = 128      # state width N (the shared memory of a chunk of 128)
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ssd_scan")
-    lib.ssd_scan.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
+    lib.ssd_scan.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 \
         + [ctypes.c_void_p]
-    lib.ssd_scan_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.ssd_scan_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.ssd_scan_smem_limit.argtypes = [ctypes.c_int]
     for fn in (lib.ssd_scan, lib.ssd_scan_smem_bytes,
                lib.ssd_scan_smem_limit):
@@ -80,20 +81,26 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"{MAX_CHUNK} and a state of at most {MAX_STATE}, "
                          f"got {ck} and {n}")
     lib = _lib()
-    smem = lib.ssd_scan_smem_bytes(ck, n)
+    code_t = _build.DTYPE_CODES[x.dtype]
+    smem = lib.ssd_scan_smem_bytes(ck, n, p, code_t)
     limit = _smem_limit(dev.index)
     if smem > limit:
-        raise ValueError(f"ssd: chunk {ck} and state {n} need {smem} bytes "
-                         f"of shared memory per CTA; this card allows "
-                         f"{limit}")
+        raise ValueError(f"ssd: chunk {ck}, state {n} and head dim {p} need "
+                         f"{smem} bytes of shared memory per CTA; this card "
+                         f"allows {limit}")
     y = torch.empty_like(x)
     fin = torch.empty((b, h, p, n), dtype=x.dtype, device=dev)
+    cs = torch.empty((b, h, l), dtype=torch.float32, device=dev)
+    states = torch.empty((b, l // ck, h, p, n), dtype=torch.float32,
+                         device=dev)
+    prev = torch.empty((b, l // ck, h, p, n), dtype=x.dtype, device=dev)
     code = lib.ssd_scan(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
         C.data_ptr(),
         None if initial_state is None else initial_state.data_ptr(),
-        y.data_ptr(), fin.data_ptr(), b, l, h, p, n, ck,
-        _build.DTYPE_CODES[x.dtype],
+        y.data_ptr(), fin.data_ptr(), cs.data_ptr(), states.data_ptr(),
+        prev.data_ptr(),
+        b, l, h, p, n, ck, code_t,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(lib, "ssd_scan", code)
     ssd_cuda.launches += 1

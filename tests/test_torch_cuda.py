@@ -49,6 +49,12 @@ def _tol(dtype):
     (1, 8, 8, 64, 64, 16, False, 0),
     (1, 4, 1, 40, 97, 32, True, 24),       # right-aligned, ragged T
     (1, 2, 1, 129, 129, 200, False, 33),   # D not a power of two
+    (1, 4, 1, 1024, 1024, 256, True, 512),  # the serving path: local layer
+    (1, 4, 1, 1024, 1024, 256, True, 0),   # global layer
+    (1, 4, 1, 128, 128, 256, True, 512),   # the shortest bucket
+    (1, 8, 1, 200, 200, 64, True, 0),      # G = 8: 8 heads a CTA
+    (2, 2, 1, 17, 17, 64, True, 8),        # S < 64, two batch rows
+    (1, 2, 1, 700, 900, 64, False, 0),     # kv range split 3 ways, ragged
 ])
 def test_flash_kernel_matches_plain(cuda_device, dtype, B, H, KH, S, T, D,
                                     causal, window):
@@ -62,6 +68,40 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, B, H, KH, S, T, D,
     torch.cuda.synchronize()
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "tensor_core"),
+                                           (torch.float32, "cuda_core")])
+def test_flash_dtype_picks_the_kernel(cuda_device, dtype, variant):
+    """bf16 runs the wgmma kernel, float32 the CUDA-core kernel; each call
+    counts one launch in the total and one in its variant."""
+    q = torch.randn((1, 4, 64, 64), device=cuda_device).to(dtype)
+    k = torch.randn((1, 1, 64, 64), device=cuda_device).to(dtype)
+    total = flash_attention_cuda.launches
+    by_variant = dict(flash_attention_cuda.variant_launches)
+    flash_attention_cuda(q, k, k, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == total + 1
+    by_variant[variant] += 1
+    assert flash_attention_cuda.variant_launches == by_variant
+
+
+@pytest.mark.cuda
+def test_flash_bf16_refuses_rows_tma_cannot_load(cuda_device):
+    """TMA needs 16-byte rows: the bf16 kernel refuses D % 8 != 0 and
+    counts no launch; float32 takes such a D."""
+    q = torch.randn((1, 2, 32, 12), device=cuda_device)
+    total = flash_attention_cuda.launches
+    with pytest.raises(ValueError, match="D % 8"):
+        flash_attention_cuda(q.bfloat16(), q[:, :1].bfloat16(),
+                             q[:, :1].bfloat16())
+    assert flash_attention_cuda.launches == total
+    got = flash_attention_cuda(q, q[:, :1].contiguous(),
+                               q[:, :1].contiguous())
+    want = ref.flash_attention_reference(q, q[:, :1], q[:, :1])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **_tol(torch.float32))
 
 
 @pytest.mark.cuda
@@ -209,6 +249,8 @@ def _ssd_tol(dtype):
     (1, 384, 32, 64, 128, 128, False),    # mamba2-370m: three chunks
     (2, 256, 32, 64, 128, 128, True),
     (1, 20, 2, 24, 16, 128, True),        # ck = l = 20: ragged chunk and P
+    (1, 1024, 32, 64, 128, 128, False),   # mamba2-370m: the longest prompt
+    (2, 768, 32, 64, 128, 128, True),     # six chunks, two rows, a state
 ])
 def test_ssd_kernel_matches_plain(cuda_device, dtype, b, l, h, p, n, chunk,
                                   with_state):

@@ -21,7 +21,8 @@ from repro.kernels.decode_attention import decode_attention_pallas
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 reset_launches)
 
 torch.set_num_threads(1)
 FP32 = dict(atol=2e-5, rtol=2e-5)
@@ -152,3 +153,43 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         decode_attention_cuda(qd, kc, kc, lens, lens)
     assert (decode_attention_cuda.launches,
             flash_attention_cuda.launches) == before
+
+
+def test_flash_reset_launches_zeroes_every_count():
+    """The total and the per-variant counts (bf16 wgmma kernel, float32
+    CUDA-core kernel) start from 0 together, as chip_smoke.py needs."""
+    saved = (flash_attention_cuda.launches,
+             dict(flash_attention_cuda.variant_launches))
+    try:
+        flash_attention_cuda.launches = 3
+        flash_attention_cuda.variant_launches.update(tensor_core=2,
+                                                     cuda_core=1)
+        reset_launches()
+        assert flash_attention_cuda.launches == 0
+        assert flash_attention_cuda.variant_launches == {
+            "tensor_core": 0, "cuda_core": 0}
+    finally:
+        flash_attention_cuda.launches = saved[0]
+        flash_attention_cuda.variant_launches.update(saved[1])
+
+
+def test_ptxas_usage_reads_registers_and_spills(tmp_path):
+    """The build keeps nvcc's output beside each library; ``ptxas_usage``
+    turns ptxas's lines into each kernel entry's registers and spills (what
+    chip_smoke.py reports from its build)."""
+    from repro_torch.kernels import _build
+    (tmp_path / "libk.log").write_text(
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_Z3twoPf' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z3twoPf\n"
+        "    16 bytes stack frame, 12 bytes spill stores, 8 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 128 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_Z3onev' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 32 registers, used 0 barriers\n")
+    assert _build.ptxas_usage(tmp_path) == {"k": [
+        {"entry": "_Z3twoPf", "spill_store_bytes": 12, "spill_load_bytes": 8,
+         "registers": 128},
+        {"entry": "_Z3onev", "spill_store_bytes": 0, "spill_load_bytes": 0,
+         "registers": 32}]}
