@@ -16,9 +16,15 @@ flash_attention_sm90.cu), float32 the CUDA-core one ("cuda_core",
 flash_attention.cu). It times the kernel, the
 plain version and ``scaled_dot_product_attention`` (the library yardstick,
 which the port never calls): device time (CUDA events around calls queued
-behind a device spin, so the host does not pace them) and call time. It computes each kernel's bound: the larger of the bytes
-it must move over 3.35 TB/s and its flops over the peak rate for its type
-(989 TFLOP/s bf16, 67 TFLOP/s float32), from the H100 SXM data sheet.
+behind a device spin, so the host does not pace them) and call time
+(``call_ms``: the same events around calls queued as a caller queues them,
+host overhead included where the host is the slower side). It computes
+each kernel's bound: the larger of the bytes it must move over 3.35 TB/s
+and its flops over the peak rate for its type (989 TFLOP/s bf16, 67
+TFLOP/s float32), from the H100 SXM data sheet. Each decode case also
+counts, with ``torch.profiler``, the CUDA kernels one call launches
+(``kernels_per_call``): it must be 1 (the cluster combines its partials
+inside the one launch).
 
 Phase 2 cross-checks gemma3-1b at full width (d_model 1152, vocab 262144),
 cut to 2 layers (one local, one global), in float32: a 300-token prefill
@@ -45,7 +51,9 @@ K = 6 starts and K = 7. It times each kernel, its plain version and an
 empty kernel (the practical floor of one launch) like phase 1, and
 computes each kernel's bound from the bytes and operations of this run's
 tables (real terms only). No single PyTorch call computes this function,
-so the library column is null.
+so the library column is null. Each row also records its device time over
+the empty launch's (``ms_over_empty_launch``) and, from the profiler, the
+CUDA kernels one call launches (``kernels_per_call``, which must be 1).
 
 Phase "autoscale" is the slice: E6's largest paper point, 9 services (3
 replicas of QR/CV/PC) on one 24-core device under e3's load mix (QR
@@ -199,6 +207,33 @@ def bound_ms(nbytes, flops, dtype):
         else "operations"
 
 
+_LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaLaunchKernelExC")
+
+
+def kernels_per_call(fn, calls=10):
+    """CUDA kernels one call of ``fn`` launches, counted by
+    ``torch.profiler`` over ``calls`` calls after a warm one: the launch
+    API calls it records a call (every launch, whatever its kind), and the
+    names of the kernels the device ran (the device side may drop an
+    event now and then, so it names and does not count)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    launches = sum(e.count for e in events if e.device_type == DeviceType.CPU
+                   and e.key in _LAUNCH_KEYS)
+    names = sorted(e.key for e in events if e.device_type != DeviceType.CPU
+                   and not e.key.startswith(("Memcpy", "Memset")))
+    return launches / calls, names
+
+
 # -- phase 1: kernels against their plain versions ------------------------------
 
 def decode_cases(dev, dtype):
@@ -289,6 +324,12 @@ def phase_kernels(dev):
                 (lambda c=c: decode_attention_cuda(c[0], c[1], c[2], length,
                                                    start)) for c in copies],
                 50)
+            row["kernels_per_call"], row["kernel_names"] = \
+                kernels_per_call(lambda: decode_attention_cuda(
+                    q, k, v, length, start))
+            check(row["kernels_per_call"] == 1,
+                  f"decode {name} {dname}: {row['kernels_per_call']} "
+                  f"kernels a call ({row['kernel_names']}), want 1")
             row["plain_ms"], row["plain_call_ms"] = time_ms([
                 (lambda c=c: ref.decode_attention_reference(
                     c[0], c[1], c[2], length, start)) for c in copies], 20)
@@ -525,9 +566,6 @@ def phase_serve(dev):
     return res, engine
 
 
-_LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx",
-                "cudaLaunchKernelExC")
-
 
 def profile_window(label, fn, n):
     """``torch.profiler`` over ``n`` calls of ``fn`` (after one warm call).
@@ -726,23 +764,31 @@ def phase_rask_kernels(dev, agents):
                        "bytes": nbytes, "flops": flops,
                        "bound": bound_ms(nbytes, flops, "float32")}
                 if backward:
-                    row["ms"], row["call_ms"] = time_ms([
-                        lambda: rask_objective_backward_cuda(
-                            A, ct, *args[1:], n_services=S)], 200)
+                    def call():
+                        return rask_objective_backward_cuda(
+                            A, ct, *args[1:], n_services=S)
                     row["plain_ms"], row["plain_call_ms"] = time_ms([
                         lambda: ref.rask_objective_grad(A, ct, *args[1:],
                                                         **kw)], 50)
                 else:
-                    row["ms"], row["call_ms"] = time_ms([
-                        lambda: rask_objective_forward_cuda(
-                            *args, n_services=S)], 200)
+                    def call():
+                        return rask_objective_forward_cuda(
+                            *args, n_services=S)
                     row["plain_ms"], row["plain_call_ms"] = time_ms([
                         lambda: ref.rask_objective_reference(*args, **kw)],
                         50)
+                row["ms"], row["call_ms"] = time_ms([call], 200)
+                row["kernels_per_call"], row["kernel_names"] = \
+                    kernels_per_call(call)
+                check(row["kernels_per_call"] == 1,
+                      f"{name} S{S} K{K}: {row['kernels_per_call']} kernels "
+                      f"a call ({row['kernel_names']}), want 1")
                 row["library_ms"] = None     # no single PyTorch call
                 rows.append(row)
                 log(f"{name} S{S} K{K}: {row}")
     empty_ms, empty_call_ms = time_ms([lambda: empty_launch_cuda(dev)], 200)
+    for row in rows:
+        row["ms_over_empty_launch"] = row["ms"] / empty_ms
     res = {"phase": "rask_kernels", "cases": rows,
            "empty_launch_ms": empty_ms, "empty_launch_call_ms": empty_call_ms}
     log(json.dumps({"empty_launch_ms": empty_ms,
@@ -958,7 +1004,9 @@ def rask_entry(kernels, name, launches, replaces):
             "case": "S9_K6", "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": ms, "bound_by": by, "library_ms": None,
             "call_ms": rep["call_ms"],
-            "empty_launch_ms": kernels["empty_launch_ms"]}
+            "kernels_per_call": rep["kernels_per_call"],
+            "empty_launch_ms": kernels["empty_launch_ms"],
+            "ms_over_empty_launch": rep["ms_over_empty_launch"]}
 
 
 # -- slice C: mamba2-370m -----------------------------------------------------------
@@ -1249,12 +1297,15 @@ def kernel_entry(rows, kernel, case, launches, source, replaces,
     mine = [r for r in rows if r["kernel"] == kernel and r["dtype"] == dtype]
     rep = next(r for r in mine if r["case"] == case)
     ms, by = rep["bound"]
-    return {"name": name or kernel, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches, "dtype": dtype,
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "case": case, "ms": rep["ms"], "plain_ms": rep["plain_ms"],
-            "bound_ms": ms, "bound_by": by, "library_ms": rep["library_ms"],
-            "call_ms": rep["call_ms"]}
+    entry = {"name": name or kernel, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches, "dtype": dtype,
+             "max_abs_err": max(r["max_abs_err"] for r in mine),
+             "case": case, "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+             "bound_ms": ms, "bound_by": by,
+             "library_ms": rep["library_ms"], "call_ms": rep["call_ms"]}
+    if "kernels_per_call" in rep:           # counted for decode attention
+        entry["kernels_per_call"] = rep["kernels_per_call"]
+    return entry
 
 
 def main(argv=None):

@@ -127,6 +127,13 @@ def check_launch(lib: ctypes.CDLL, name: str, code: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({code})")
 
 
+def current_stream(device: torch.device) -> int:
+    """The handle of ``device``'s current CUDA stream, for a launch: the
+    raw handle, without building the ``torch.cuda.Stream`` object that
+    ``torch.cuda.current_stream(device).cuda_stream`` builds per call."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
     """Check that every tensor is contiguous and on the current CUDA
     device; return that device."""

@@ -5,7 +5,9 @@ one new token per row attends, with grouped-query heads, to the cache slots
 [start, length) of its row. Unlike the TPU kernel, ``length`` and ``start``
 are per-row (B,) int32 vectors, since the batched engine decodes every slot
 at its own length in one launch. The source note in the ``.cu`` file says
-what bounds the kernel on the H100 and how it is split across CTAs.
+what bounds the kernel on the H100 and how a cluster of CTAs splits a row
+and combines it (one launch a call, no scratch: only the output is
+allocated).
 
 Plain version: ``kernels/ref.py::decode_attention_reference``.
 """
@@ -18,7 +20,7 @@ import torch
 
 from . import _build
 
-SPLIT_CHUNK = 32     # cache slots per CTA (the flash-decoding split)
+MAX_CLUSTER = 16     # CTAs a (row, kv head): the flash-decoding split
 MAX_D = 256
 MAX_G = 8
 
@@ -27,10 +29,27 @@ MAX_G = 8
 def _lib() -> ctypes.CDLL:
     lib = _build.load("decode_attention")
     fn = lib.decode_attention
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 \
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _sm_count(device_index: int) -> int:
+    props = torch.cuda.get_device_properties(device_index)
+    return props.multi_processor_count
+
+
+def cluster_size(pairs: int, sm_count: int) -> int:
+    """CTAs to split each of ``pairs`` (row, kv head) ranges across: the
+    largest power of two up to 16 that keeps the grid within one wave of
+    the card's SMs (one CTA an SM: the ring takes most of its shared
+    memory), at least 1."""
+    c = 1
+    while 2 * c <= MAX_CLUSTER and 2 * c * pairs <= sm_count:
+        c *= 2
+    return c
 
 
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
@@ -62,20 +81,14 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
         if t.dtype != torch.int32 or t.shape != (B,):
             raise ValueError(f"decode_attention: {name} must be int32 of "
                              f"shape ({B},)")
-    G = H // KH
-    n_split = -(-S // SPLIT_CHUNK)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    o_part = torch.empty((B, KH, n_split, G, D), **f32)
-    m_part = torch.empty((B, KH, n_split, G), **f32)
-    l_part = torch.empty((B, KH, n_split, G), **f32)
     out = torch.empty_like(q)
     lib = _lib()
     code = lib.decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        length.data_ptr(), start.data_ptr(), o_part.data_ptr(),
-        m_part.data_ptr(), l_part.data_ptr(), out.data_ptr(),
-        B, H, KH, S, D, SPLIT_CHUNK, n_split, _build.DTYPE_CODES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        length.data_ptr(), start.data_ptr(), out.data_ptr(),
+        B, H, KH, S, D, cluster_size(B * KH, _sm_count(q.device.index)),
+        _build.DTYPE_CODES[q.dtype],
+        _build.current_stream(q.device))
     _build.check_launch(lib, "decode_attention", code)
     decode_attention_cuda.launches += 1
     return out

@@ -43,24 +43,50 @@ def _lib() -> ctypes.CDLL:
 
 
 @functools.cache
-def _smem_limit(device_index: int) -> int:
-    return _lib().rask_objective_smem_limit(device_index)
+def _shape_checks(name: str, device_index: int, D: int, R: int, F: int,
+                  T: int, Q: int, S: int, backward: bool) -> None:
+    """The checks that depend only on the sizes and the card, made once per
+    (name, device, sizes, direction): a steady decide's call then makes no
+    ctypes call besides its launch. Raises ValueError (never cached)."""
+    lib = _lib()
+    max_f = lib.rask_objective_max_features()
+    if F > max_f:
+        raise ValueError(f"{name}: {F} features per relation; the kernel "
+                         f"takes at most {max_f}")
+    if min(D, R, F, T, Q, S) <= 0:
+        raise ValueError(f"{name}: empty table (D={D}, R={R}, F={F}, T={T}, "
+                         f"Q={Q}, S={S})")
+    smem = lib.rask_objective_smem_bytes(D, R, F, T, Q, S, int(backward))
+    limit = lib.rask_objective_smem_limit(device_index)
+    if smem > limit:
+        raise ValueError(
+            f"{name}: the tables need {smem} bytes of shared memory per CTA "
+            f"(D={D}, R={R}, F={F}, T={T}, Q={Q}, S={S}); this card allows "
+            f"{limit}")
+
+
+_TABLES = ("rel_gather", "w", "exponents", "term_mask", "x_scale",
+           "slo_kind", "slo_service", "slo_weight", "slo_target", "slo_pidx",
+           "slo_ridx", "rps")
+_TABLE_DTYPES = tuple(torch.int32 if key in _INDEX_TABLES else torch.float32
+                      for key in _TABLES)
 
 
 def _dims(name: str, A, rel_gather, w, exponents, term_mask, x_scale,
           slo_kind, slo_service, slo_weight, slo_target, slo_pidx, slo_ridx,
-          rps, n_services: int, backward: bool):
-    """Check what the kernel takes; return (K, D, R, F, T, Q, S)."""
-    tables = dict(rel_gather=rel_gather, w=w, exponents=exponents,
-                  term_mask=term_mask, x_scale=x_scale, slo_kind=slo_kind,
-                  slo_service=slo_service, slo_weight=slo_weight,
-                  slo_target=slo_target, slo_pidx=slo_pidx,
-                  slo_ridx=slo_ridx, rps=rps)
-    dev = _build.require_cuda(name, A, *tables.values())
-    for key, t in tables.items():
-        want = torch.int32 if key in _INDEX_TABLES else torch.float32
-        if t.dtype != want:
-            raise ValueError(f"{name}: {key} must be {want}, got {t.dtype}")
+          rps, n_services: int, backward: bool, ct=None):
+    """Check what the kernel takes (and the cotangent's device, for the
+    backward); return (K, D, R, F, T, Q, S). Each check compares all
+    tables at once and names the first that fails."""
+    tables = (rel_gather, w, exponents, term_mask, x_scale, slo_kind,
+              slo_service, slo_weight, slo_target, slo_pidx, slo_ridx, rps)
+    dev = _build.require_cuda(name, A, *tables,
+                              *(() if ct is None else (ct,)))
+    dtypes = tuple(t.dtype for t in tables)
+    if dtypes != _TABLE_DTYPES:
+        key, got, want = next(x for x in zip(_TABLES, dtypes, _TABLE_DTYPES)
+                              if x[1] != x[2])
+        raise ValueError(f"{name}: {key} must be {want}, got {got}")
     if A.dtype != torch.float32 or A.dim() != 2:
         raise ValueError(f"{name}: A must be (K, D) float32")
     K, D = A.shape
@@ -69,33 +95,16 @@ def _dims(name: str, A, rel_gather, w, exponents, term_mask, x_scale,
     R, T, F = exponents.shape
     Q = slo_kind.shape[0]
     S = int(n_services)
-    shapes = dict(rel_gather=(R, F), w=(R, T), term_mask=(R, T),
-                  x_scale=(R, F), slo_kind=(Q,), slo_service=(Q,),
-                  slo_weight=(Q,), slo_target=(Q,), slo_pidx=(Q,),
-                  slo_ridx=(Q,), rps=(S,))
-    for key, shape in shapes.items():
-        if tuple(tables[key].shape) != shape:
-            raise ValueError(f"{name}: {key} has shape "
-                             f"{tuple(tables[key].shape)}, want {shape}")
-    lib = _lib()
-    if F > lib.rask_objective_max_features():
-        raise ValueError(f"{name}: {F} features per relation; the kernel "
-                         f"takes at most {lib.rask_objective_max_features()}")
-    if min(D, R, F, T, Q, S) <= 0:
-        raise ValueError(f"{name}: empty table (D={D}, R={R}, F={F}, T={T}, "
-                         f"Q={Q}, S={S})")
-    smem = lib.rask_objective_smem_bytes(D, R, F, T, Q, S, int(backward))
-    limit = _smem_limit(dev.index)
-    if smem > limit:
-        raise ValueError(
-            f"{name}: the tables need {smem} bytes of shared memory per CTA "
-            f"(D={D}, R={R}, F={F}, T={T}, Q={Q}, S={S}); this card allows "
-            f"{limit}")
+    shapes = tuple(t.shape for t in tables)
+    want = ((R, F), (R, T), (R, T, F), (R, T), (R, F), (Q,), (Q,), (Q,),
+            (Q,), (Q,), (Q,), (S,))
+    if shapes != want:
+        key, got, shape = next(x for x in zip(_TABLES, shapes, want)
+                               if x[1] != x[2])
+        raise ValueError(f"{name}: {key} has shape {tuple(got)}, want "
+                         f"{shape}")
+    _shape_checks(name, dev.index, D, R, F, T, Q, S, backward)
     return K, D, R, F, T, Q, S
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def rask_objective_forward_cuda(A, rel_gather, w, exponents, term_mask,
@@ -118,7 +127,8 @@ def rask_objective_forward_cuda(A, rel_gather, w, exponents, term_mask,
         exponents.data_ptr(), term_mask.data_ptr(), x_scale.data_ptr(),
         slo_kind.data_ptr(), slo_service.data_ptr(), slo_weight.data_ptr(),
         slo_target.data_ptr(), slo_pidx.data_ptr(), slo_ridx.data_ptr(),
-        rps.data_ptr(), out.data_ptr(), K, D, R, F, T, Q, S, _stream(A))
+        rps.data_ptr(), out.data_ptr(), K, D, R, F, T, Q, S,
+        _build.current_stream(A.device))
     _build.check_launch(lib, "rask_objective", code)
     rask_objective_forward_cuda.launches += 1
     return out
@@ -133,8 +143,7 @@ def rask_objective_backward_cuda(A, ct, rel_gather, w, exponents, term_mask,
     K, D, R, F, T, Q, S = _dims(
         "rask_objective_grad", A, rel_gather, w, exponents, term_mask,
         x_scale, slo_kind, slo_service, slo_weight, slo_target, slo_pidx,
-        slo_ridx, rps, n_services, backward=True)
-    _build.require_cuda("rask_objective_grad", A, ct)
+        slo_ridx, rps, n_services, backward=True, ct=ct)
     if ct.dtype != torch.float32 or tuple(ct.shape) != (K, S):
         raise ValueError(f"rask_objective_grad: ct must be ({K}, {S}) "
                          f"float32")
@@ -147,7 +156,8 @@ def rask_objective_backward_cuda(A, ct, rel_gather, w, exponents, term_mask,
         exponents.data_ptr(), term_mask.data_ptr(), x_scale.data_ptr(),
         slo_kind.data_ptr(), slo_service.data_ptr(), slo_weight.data_ptr(),
         slo_target.data_ptr(), slo_pidx.data_ptr(), slo_ridx.data_ptr(),
-        rps.data_ptr(), dA.data_ptr(), K, D, R, F, T, Q, S, _stream(A))
+        rps.data_ptr(), dA.data_ptr(), K, D, R, F, T, Q, S,
+        _build.current_stream(A.device))
     _build.check_launch(lib, "rask_objective", code)
     rask_objective_backward_cuda.launches += 1
     return dA
@@ -161,8 +171,7 @@ def empty_launch_cuda(device: torch.device) -> None:
     """Launch one empty CTA on ``device``'s current stream (the practical
     floor of a launch, timed by ``chip_smoke.py``); counts nothing."""
     lib = _lib()
-    code = lib.rask_objective_empty(torch.cuda.current_stream(device)
-                                    .cuda_stream)
+    code = lib.rask_objective_empty(_build.current_stream(device))
     _build.check_launch(lib, "rask_objective", code)
 
 

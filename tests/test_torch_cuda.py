@@ -107,7 +107,11 @@ def test_flash_bf16_refuses_rows_tma_cannot_load(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("H,KH,S,D", [(4, 1, 2048, 256), (16, 2, 100, 64),
-                                      (8, 8, 64, 16)])
+                                      (8, 8, 64, 16),
+                                      # D % 16 != 0: bf16 on the CUDA
+                                      # cores; 37: rows copied by plain
+                                      # loads (not 16-byte multiples)
+                                      (4, 1, 300, 40), (12, 2, 130, 37)])
 def test_decode_kernel_matches_plain(cuda_device, dtype, H, KH, S, D):
     B = 4
     g = torch.Generator(cuda_device).manual_seed(S + D)
@@ -122,6 +126,52 @@ def test_decode_kernel_matches_plain(cuda_device, dtype, H, KH, S, D):
     want = ref.decode_attention_reference(q, kc, vc, length, start)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,B,H,KH,S,D,lengths,starts", [
+    # a full cache: every CTA of the cluster streams 256 slots, more than
+    # one pass of its ring (3 stages of 32 in float32)
+    (torch.float32, 2, 4, 1, 2048, 256, [2048, 1500], [0, 0]),
+    # rows shorter than one CTA's share (5 and 17 slots: some CTAs of the
+    # cluster get none) starting mid-cache, two kv heads of 4 query heads
+    (torch.float32, 3, 8, 2, 1100, 128, [300, 1029, 517], [0, 1024, 500]),
+    (torch.bfloat16, 3, 8, 2, 1100, 128, [300, 1029, 517], [0, 1024, 500]),
+])
+def test_decode_kernel_ranges(cuda_device, dtype, B, H, KH, S, D, lengths,
+                              starts):
+    g = torch.Generator(cuda_device).manual_seed(B * S + D)
+    q = torch.randn((B, H, D), generator=g, device=cuda_device).to(dtype)
+    kc = torch.randn((B, S, KH, D), generator=g, device=cuda_device).to(dtype)
+    vc = torch.randn((B, S, KH, D), generator=g, device=cuda_device).to(dtype)
+    length = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    start = torch.tensor(starts, dtype=torch.int32, device=cuda_device)
+    launches = decode_attention_cuda.launches
+    got = decode_attention_cuda(q, kc, vc, length, start)
+    want = ref.decode_attention_reference(q, kc, vc, length, start)
+    torch.cuda.synchronize()
+    assert decode_attention_cuda.launches == launches + 1
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_is_deterministic(cuda_device, dtype):
+    """The cluster combines its partials in rank order, without atomics:
+    two calls on the same inputs give the same bits."""
+    g = torch.Generator(cuda_device).manual_seed(7)
+    q = torch.randn((4, 4, 256), generator=g, device=cuda_device).to(dtype)
+    kc = torch.randn((4, 2048, 1, 256), generator=g,
+                     device=cuda_device).to(dtype)
+    vc = torch.randn_like(kc)
+    length = torch.tensor([108, 308, 708, 2048], dtype=torch.int32,
+                          device=cuda_device)
+    start = torch.tensor([0, 0, 196, 1536], dtype=torch.int32,
+                         device=cuda_device)
+    a = decode_attention_cuda(q, kc, vc, length, start)
+    b = decode_attention_cuda(q, kc, vc, length, start)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 def _objective_case(replicas, K, seed, dev):
@@ -206,6 +256,113 @@ def test_rask_objective_autograd_goes_through_both_kernels(cuda_device):
     want = ref.rask_objective_grad(args[0], torch.ones_like(seg), *args[1:],
                                    **kw)
     torch.testing.assert_close(g, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_rask_objective_backward_is_deterministic(cuda_device):
+    """Fixed-order sums, no atomics: a decide is reproducible bit for bit."""
+    args, kw = _objective_case(3, 6, 31, cuda_device)
+    ct = torch.randn((6, kw["n_services"]), device=cuda_device,
+                     generator=torch.Generator(cuda_device).manual_seed(3))
+    a = rask_objective_backward_cuda(args[0], ct, *args[1:],
+                                     n_services=kw["n_services"])
+    b = rask_objective_backward_cuda(args[0], ct, *args[1:],
+                                     n_services=kw["n_services"])
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def _wide_case(dev, K=5, D=12, R=4, F=8, T=9, seed=0):
+    """A synthetic table at the kernel's most features a relation (8), with
+    indices repeated inside a relation and across relations, padded terms
+    and every SLO kind; values near 1 keep the degree-2 products of 8
+    features in range."""
+    rng = np.random.default_rng(seed)
+    rel = rng.integers(0, D, (R, F)).astype(np.int32)
+    rel[0, :3] = [1, 1, 0]                       # repeats in one relation
+    rel[1, :2] = [1, 0]
+    E = rng.integers(0, 3, (R, T, F)).astype(np.int32)
+    E[:, 0] = 0                                  # the constant term
+    tm = (rng.random((R, T)) < 0.8).astype(np.float32)
+    tm[:, 0] = 1.0
+    w = (rng.standard_normal((R, T)) * tm).astype(np.float32)
+    xs = rng.uniform(0.5, 2.0, (R, F)).astype(np.float32)
+    S = 3
+    kind = np.array([0, 1, 2, 0, 1, 2, 0], np.int32)
+    Q = kind.size
+    svc = np.array([0, 0, 1, 1, 2, 2, 2], np.int32)
+    pidx = rng.integers(0, D, Q).astype(np.int32)
+    ridx = rng.integers(0, R, Q).astype(np.int32)
+    weight = rng.uniform(0.2, 1.0, Q).astype(np.float32)
+    target = rng.uniform(0.5, 3.0, Q).astype(np.float32)
+    rps = rng.uniform(0.5, 2.0, S).astype(np.float32)
+    A = rng.uniform(0.5, 1.5, (K, D)).astype(np.float32)
+    args = tuple(torch.from_numpy(x).to(dev) for x in (
+        A, rel, w, E, tm, xs, kind, svc, weight, target, pidx, ridx, rps))
+    return args, dict(n_services=S, max_degree=2)
+
+
+@pytest.mark.cuda
+def test_rask_objective_kernels_take_eight_features(cuda_device):
+    args, kw = _wide_case(cuda_device)
+    ct = torch.randn((args[0].shape[0], kw["n_services"]),
+                     device=cuda_device,
+                     generator=torch.Generator(cuda_device).manual_seed(1))
+    got = rask_objective_forward_cuda(*args, n_services=kw["n_services"])
+    gdA = rask_objective_backward_cuda(args[0], ct, *args[1:],
+                                       n_services=kw["n_services"])
+    want = ref.rask_objective_reference(*args, **kw)
+    wdA = ref.rask_objective_grad(args[0], ct, *args[1:], **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(gdA, wdA, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["slo_pidx", "rel_gather"])
+def test_rask_objective_index_outside_its_table_gives_nan(cuda_device,
+                                                          table):
+    """An index outside its table reads NaN, and the NaN reaches exactly the
+    outputs that index feeds. The plain version, which cannot read past a
+    table, gets the same inputs with a NaN column appended to A and the
+    index pointed at it. A parameter SLO whose index is out of range makes
+    its service's fulfilment NaN; its cotangent is 0 (the subgradient of
+    min at a NaN ratio, as repro's jnp.where gives), so the backward stays
+    finite. A relation feature out of range makes NaN in the gradient of
+    every index its relation's other features gather."""
+    args, kw = _objective_case(1, 6, 41, cuda_device)
+    A = args[0]
+    D = A.shape[1]
+    bad = [t.clone() for t in args]
+    pos = {"slo_pidx": 10, "rel_gather": 1}[table]
+    if table == "slo_pidx":
+        q = int(torch.nonzero(args[6] == 0)[0])   # a parameter SLO
+        bad[pos][q] = D
+    else:
+        bad[pos][1, 0] = D                        # relation 1, feature 0
+    ct = torch.randn((A.shape[0], kw["n_services"]), device=cuda_device,
+                     generator=torch.Generator(cuda_device).manual_seed(2))
+    got = rask_objective_forward_cuda(*bad, n_services=kw["n_services"])
+    gdA = rask_objective_backward_cuda(A, ct, *bad[1:],
+                                       n_services=kw["n_services"])
+    A_nan = torch.cat([A, torch.full_like(A[:, :1], float("nan"))], dim=1)
+    want = ref.rask_objective_reference(A_nan, *bad[1:], **kw)
+    wdA = ref.rask_objective_grad(A_nan, ct, *bad[1:], **kw)[:, :D]
+    torch.cuda.synchronize()
+    if table == "slo_pidx":
+        svc = int(args[7][q])
+        assert torch.isnan(want[:, svc]).all()
+        assert not torch.isnan(want[:, [s for s in range(want.shape[1])
+                                        if s != svc]]).any()
+        assert torch.isfinite(wdA).all()
+    else:
+        assert torch.isnan(wdA).any() and not torch.isnan(wdA).all()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isnan(gdA), torch.isnan(wdA))
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5,
+                               equal_nan=True)
+    torch.testing.assert_close(gdA, wdA, atol=1e-5, rtol=1e-5,
+                               equal_nan=True)
 
 
 @pytest.mark.cuda

@@ -173,6 +173,21 @@ def test_flash_reset_launches_zeroes_every_count():
         flash_attention_cuda.variant_launches.update(saved[1])
 
 
+@pytest.mark.parametrize("pairs,sms,want", [
+    (4, 132, 16),     # gemma3-1b's 4 slots x 1 kv head on an H100
+    (6, 132, 16),     # 96 CTAs
+    (9, 132, 8),      # 16 would need 144 CTAs: more than one wave
+    (32, 132, 4),
+    (200, 132, 1),    # more pairs than SMs: no split
+    (1, 8, 8),
+])
+def test_decode_cluster_size_fills_one_wave(pairs, sms, want):
+    """The decode kernel's cluster: the largest power of two up to 16 whose
+    grid (pairs x cluster CTAs, one an SM) fits the card's SMs."""
+    from repro_torch.kernels.decode_attention import cluster_size
+    assert cluster_size(pairs, sms) == want
+
+
 def test_ptxas_usage_reads_registers_and_spills(tmp_path):
     """The build keeps nvcc's output beside each library; ``ptxas_usage``
     turns ptxas's lines into each kernel entry's registers and spills (what

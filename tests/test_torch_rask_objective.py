@@ -136,3 +136,48 @@ def test_padded_features_and_terms_contribute_nothing():
     got = ops.rask_objective(*_torch(wide), **kw).numpy()
     want = ops.rask_objective(*_torch(args), **kw).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def test_cuda_wrapper_checks_each_shape_against_the_card_once(monkeypatch):
+    """The CUDA wrappers' size-only checks (features a relation, empty
+    tables, shared memory against the card's opt-in limit) ask the kernel
+    library once per (name, device, sizes, direction), so a steady decide's
+    call makes no ctypes call besides its launch; a refused shape raises on
+    every call."""
+    from repro_torch.kernels import rask_objective as ro
+    calls = []
+
+    class Lib:
+        def rask_objective_max_features(self):
+            calls.append("max_features")
+            return 8
+
+        def rask_objective_smem_bytes(self, D, R, F, T, Q, S, backward):
+            calls.append("smem_bytes")
+            return 1000 * D + backward
+
+        def rask_objective_smem_limit(self, device):
+            calls.append("smem_limit")
+            return 50_000
+
+    monkeypatch.setattr(ro, "_lib", Lib)
+    ro._shape_checks.cache_clear()
+    try:
+        dims = (21, 9, 3, 10, 21, 9)
+        for _ in range(3):
+            ro._shape_checks("rask_objective_grad", 0, *dims, True)
+        assert calls == ["max_features", "smem_bytes", "smem_limit"]
+        ro._shape_checks("rask_objective", 0, *dims, False)
+        assert len(calls) == 6
+        for _ in range(2):
+            with pytest.raises(ValueError, match="51001 bytes of shared "
+                                                 "memory.*allows 50000"):
+                ro._shape_checks("rask_objective_grad", 0, 51, 9, 3, 10, 21,
+                                 9, True)
+        with pytest.raises(ValueError, match="9 features per relation; the "
+                                             "kernel takes at most 8"):
+            ro._shape_checks("rask_objective", 0, 21, 9, 9, 10, 21, 9, False)
+        with pytest.raises(ValueError, match="empty table"):
+            ro._shape_checks("rask_objective", 0, 21, 9, 3, 10, 0, 9, False)
+    finally:
+        ro._shape_checks.cache_clear()
