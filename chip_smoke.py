@@ -11,9 +11,10 @@ Phase 1 holds each kernel against its plain PyTorch version on the card, on
 the shapes the serving path gives it, in float32 (tolerance 2e-5) and bf16
 (5e-2), the tolerances of tests/test_kernels.py; the flash kernel also on
 8 query heads to a kv head and on a 17-token prompt. Each flash case
-records its variant: bf16 runs the wgmma kernel ("tensor_core",
-flash_attention_sm90.cu), float32 the CUDA-core one ("cuda_core",
-flash_attention.cu). It times the kernel, the
+records its variant: bf16 runs the wgmma kernel ("wgmma",
+flash_attention_sm90.cu), float32 the split-TF32 one ("tf32x3",
+flash_attention.cu, three TF32 tensor-core products for each float32
+one). It times the kernel, the
 plain version and ``scaled_dot_product_attention`` (the library yardstick,
 which the port never calls): device time (CUDA events around calls queued
 behind a device spin, so the host does not pace them) and call time
@@ -24,12 +25,16 @@ and its flops over the peak rate for its type (989 TFLOP/s bf16, 67
 TFLOP/s float32), from the H100 SXM data sheet. Each decode case also
 counts, with ``torch.profiler``, the CUDA kernels one call launches
 (``kernels_per_call``): it must be 1 (the cluster combines its partials
-inside the one launch).
+inside the one launch). Each float32 flash case counts them too: 1, or 2
+where the kernel splits the kv range (``kv_splits`` > 1) and a merge
+kernel follows; and it records a second bound beside the float32 FMA one,
+the tensor-core time of the work the kernel issues (3 x flops over
+494.7 TFLOP/s dense TF32, ``bound_tf32x3``).
 
 Phase 2 cross-checks gemma3-1b at full width (d_model 1152, vocab 262144),
 cut to 2 layers (one local, one global), in float32: a 300-token prefill
 and 4 decode steps on the card against the same weights on the CPU; the
-prefill must launch the float32 (CUDA-core) flash kernel once a layer.
+prefill must launch the float32 (split-TF32) flash kernel once a layer.
 
 Phase 3 is the slice: gemma3-1b at full width in bf16, random weights from
 a seeded generator, behind the continuous-batching ServingEngine (4 slots,
@@ -37,7 +42,7 @@ max_seq 2048, context 1024), serving 8 requests of 100 to 1000 prompt
 tokens and 16 new tokens each. Launch counters are zeroed just before and
 read just after; every layer of every decode step and every prefill must
 have gone through the kernels, every flash launch through the bf16
-tensor-core kernel. A profiler window over a few decode steps
+wgmma kernel. A profiler window over a few decode steps
 and one prefill then says where the time goes (after the counters are
 read).
 
@@ -60,8 +65,10 @@ replicas of QR/CV/PC) on one 24-core device under e3's load mix (QR
 diurnal to 100 rps, CV diurnal to 10 rps, PC constant 50), 600 simulated
 seconds with xi = 20, the agent deciding on the card. Launch counters are
 zeroed just before and read just after; every solve must have gone
-through both kernels (33 forward and 32 backward launches a decide at the
-default budget: 32 ascent steps and the final scoring). No plan may
+through both kernels (one forward and 32 backward launches a decide at
+the default budget: each of the 32 ascent steps takes the backward kernel
+alone, through ``ops.rask_objective_vjp``, and the forward scores the
+finals). No plan may
 exceed the capacity, and the post-exploration mean fulfillment must be
 within 0.03 of the same scenario run by the port on the CPU, whose random
 starts are drawn from the same CUDA generator. One more steady decide runs
@@ -81,7 +88,8 @@ other side's best under the other side's models, and both are feasible.
 Phase "decide_timing" times the steady decide at |S| = 3, 9 and 27 (the
 median and p90 of ``DecisionInfo.runtime_s`` over the solved cycles after
 the first), and phase "rask_trace" runs ``torch.profiler`` over 3 steady
-decides at |S| = 9: device busy ms, idle share and CUDA launches a decide.
+decides at |S| = 9: device busy ms, idle share and launch calls a decide,
+and the launches of each RASK kernel a decide from their counters.
 
 Slice C, mamba2-370m served by the port (src/repro_torch/models/ssm.py),
 adds:
@@ -140,6 +148,7 @@ SRC = Path(__file__).resolve().parent / "src"
 
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+TF32_FLOPS = 494.7e12            # dense TF32 tensor cores, H100 SXM
 TOL = {"float32": 2e-5, "bfloat16": 5e-2}  # tests/test_kernels.py::_tol
 
 
@@ -287,7 +296,8 @@ def phase_kernels(dev):
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_cuda
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     kv_splits)
 
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -367,12 +377,30 @@ def phase_kernels(dev):
             nbytes = (2 * q.numel() + 2 * k.numel()) * es
             flops = 4 * B * H * D * pairs
             row = {"kernel": "flash_attention", "case": name, "dtype": dname,
-                   "variant": "tensor_core" if dtype == torch.bfloat16
-                   else "cuda_core", "max_abs_err": err,
+                   "variant": "wgmma" if dtype == torch.bfloat16
+                   else "tf32x3", "max_abs_err": err,
                    "bound": bound_ms(nbytes, flops, dname)}
-            row["ms"], row["call_ms"] = time_ms([
-                lambda: flash_attention_cuda(q, k, v, causal=True,
-                                             window=window)], 20)
+
+            def call():
+                return flash_attention_cuda(q, k, v, causal=True,
+                                            window=window)
+            row["ms"], row["call_ms"] = time_ms([call], 20)
+            if dtype == torch.float32:
+                # the tensor cores' time for the products the kernel issues
+                t_bytes = nbytes / HBM_BYTES_PER_S
+                t_ops = 3 * flops / TF32_FLOPS
+                row["bound_tf32x3"] = [1e3 * max(t_bytes, t_ops),
+                                       "bytes" if t_bytes >= t_ops
+                                       else "operations"]
+                row["kv_splits"] = kv_splits(q, k, causal=True,
+                                             window=window)
+                row["kernels_per_call"], row["kernel_names"] = \
+                    kernels_per_call(call)
+                want_kernels = 2 if row["kv_splits"] > 1 else 1
+                check(row["kernels_per_call"] == want_kernels,
+                      f"flash {name} float32: {row['kernels_per_call']} "
+                      f"kernels a call ({row['kernel_names']}), want "
+                      f"{want_kernels}")
             row["plain_ms"], row["plain_call_ms"] = time_ms([
                 lambda: ref.flash_attention_reference(
                     q, k, v, causal=True, window=window)], 10)
@@ -435,7 +463,7 @@ def phase_crosscheck(dev):
            "per_step_err": errs, "tolerance": tol, "argmax_agree": all(same),
            "flash_launches": launches}
     log(json.dumps(res))
-    check(launches == {"tensor_core": 0, "cuda_core": cfg.n_layers},
+    check(launches == {"wgmma": 0, "tf32x3": cfg.n_layers},
           f"cross-check: float32 prefill flash launches {launches}")
     check(max(errs) <= tol, f"cross-check: logits differ by {max(errs)}")
     check(all(same), "cross-check: argmax tokens differ")
@@ -532,9 +560,9 @@ def phase_serve(dev):
           f"decode launches {launches} vs {engine.steps} steps")
     check(launches["flash_attention"] == cfg.n_layers * len(reqs),
           f"flash launches {launches} vs {len(reqs)} prompts")
-    check(flash_variants == {"tensor_core": launches["flash_attention"],
-                             "cuda_core": 0},
-          f"bf16 flash launches outside the tensor-core kernel: "
+    check(flash_variants == {"wgmma": launches["flash_attention"],
+                             "tf32x3": 0},
+          f"bf16 flash launches outside the wgmma kernel: "
           f"{flash_variants}")
 
     prefill_ms = {}
@@ -924,7 +952,7 @@ def phase_autoscale(dev):
     n = len(solved)
     check(n == len(hist) - 20, f"autoscale: {n} solved of {len(hist)}")
     steps = agent.cfg.pgd_iters        # one backward a step, one scoring
-    check(launches["rask_objective"] == (steps + 1) * n,
+    check(launches["rask_objective"] == n,
           f"autoscale: forward launches {launches} for {n} solves")
     check(launches["rask_objective_grad"] == steps * n,
           f"autoscale: backward launches {launches} for {n} solves")
@@ -982,12 +1010,22 @@ def phase_autoscale(dev):
 
 def phase_rask_trace(env, agent, decides=3):
     """``profile_window`` over a few steady decides of the autoscale agent
-    (after its counters were read)."""
+    (after its counters were read): device busy ms and launch calls a
+    decide, and each RASK kernel's launches a decide from its counter."""
+    from repro_torch.kernels.rask_objective import (
+        rask_objective_backward_cuda, rask_objective_forward_cuda)
     obs = iter([agent.observe(env.t) for _ in range(decides + 1)])
+    rask_objective_forward_cuda.launches = 0
+    rask_objective_backward_cuda.launches = 0
+    window = profile_window("decide", lambda: agent.decide(next(obs)),
+                            decides)
+    runs = decides + 1                    # profile_window's warm call too
     res = {"phase": "rask_trace", "services": len(agent.services),
-           "decides": decides,
-           **profile_window("decide", lambda: agent.decide(next(obs)),
-                            decides)}
+           "decides": decides, **window,
+           "kernel_launches_per_decide": {
+               "rask_objective": rask_objective_forward_cuda.launches / runs,
+               "rask_objective_grad":
+                   rask_objective_backward_cuda.launches / runs}}
     log(json.dumps(res))
     return res
 
@@ -1308,6 +1346,26 @@ def kernel_entry(rows, kernel, case, launches, source, replaces,
     return entry
 
 
+def flash_fp32_entry(rows, launches):
+    """The ``kernels`` entry of the float32 flash kernel: timed on the
+    1024 bucket's local layer (window 512) with the global layer's numbers
+    beside it, both bounds, and its CUDA kernels a call."""
+    entry = kernel_entry(rows, "flash_attention", "S1024_w512", launches,
+                         "src/repro_torch/kernels/csrc/flash_attention.cu",
+                         "src/repro/kernels/flash_attention.py:79",
+                         dtype="float32", name="flash_attention_fp32")
+    mine = {r["case"]: r for r in rows if r["kernel"] == "flash_attention"
+            and r["dtype"] == "float32"}
+    entry["bound_tf32x3_ms"] = mine["S1024_w512"]["bound_tf32x3"][0]
+    glob = mine["S1024_w0"]
+    entry["S1024_w0"] = {
+        "ms": glob["ms"], "plain_ms": glob["plain_ms"],
+        "library_ms": glob["library_ms"], "bound_ms": glob["bound"][0],
+        "bound_tf32x3_ms": glob["bound_tf32x3"][0],
+        "kernels_per_call": glob["kernels_per_call"]}
+    return entry
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="also write the full report (JSON) here")
@@ -1377,15 +1435,11 @@ def main(argv=None):
                      "src/repro_torch/kernels/csrc/decode_attention.cu",
                      "src/repro/kernels/decode_attention.py:70"),
         kernel_entry(rows, "flash_attention", "S1024_w512",
-                     serve["flash_variant_launches"]["tensor_core"],
+                     serve["flash_variant_launches"]["wgmma"],
                      "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
                      "src/repro/kernels/flash_attention.py:79"),
         # float32 prompts (phase "crosscheck" prefills one)
-        kernel_entry(rows, "flash_attention", "S1024_w512",
-                     cross["flash_launches"]["cuda_core"],
-                     "src/repro_torch/kernels/csrc/flash_attention.cu",
-                     "src/repro/kernels/flash_attention.py:79",
-                     dtype="float32", name="flash_attention_fp32"),
+        flash_fp32_entry(rows, cross["flash_launches"]["tf32x3"]),
         rask_entry(rask_kernels, "rask_objective",
                    auto["launches"]["rask_objective"],
                    "src/repro/kernels/rask_objective.py:79"),

@@ -6,10 +6,12 @@ port of ``repro/core/solver.py``'s PGD path).
                     p_min <= p <= p_max       (per-parameter bounds)
 
 Multi-start projected-gradient ascent: the K starts are one (K, D) batch,
-every ascent step takes its gradient through the objective's backward
-(``kernels/ops.py::rask_objective``: on a CUDA tensor the hand-written
-forward and backward kernels), and the finals are scored through its
-forward. Projection onto the box/halfspace intersection is exact
+every ascent step takes its gradient from the objective's vector-Jacobian
+product alone (``kernels/ops.py::rask_objective_vjp``: on a CUDA tensor
+the hand-written backward kernel, with no forward and no autograd graph),
+and the finals are scored through its forward
+(``kernels/ops.py::rask_objective``, the forward kernel). Projection onto
+the box/halfspace intersection is exact
 (bisection on the KKT multiplier, i.e. water-filling), with ``repro``'s
 bisection counts; in eager PyTorch a shallow bisection and a deep one are
 both plain Python loops, so ``repro``'s static unroll for ``iters <= 8``
@@ -144,11 +146,13 @@ def pgd_solve(x0, u, tables: ProblemTables, sm: StackedModels, rps,
         np.float32(np.pi) * np.arange(iters, dtype=np.float32)
         / np.float32(iters))) + np.float32(1e-3)).astype(np.float32)
 
-    def objective_grad(a):
-        a = a.detach().requires_grad_(True)
-        seg = candidate_segments(a, tables, sm, rps, n_services)
-        g, = torch.autograd.grad(seg, a, grad_outputs=ones)
-        return g
+    def objective_grad(a):       # the VJP alone: no forward, no graph
+        return kernel_ops.rask_objective_vjp(
+            a, ones, tables.rel_gather, sm.w, sm.exponents, sm.term_mask,
+            sm.x_scale, tables.slo_kind, tables.slo_service,
+            tables.slo_weight, tables.slo_target, tables.slo_pidx,
+            tables.slo_ridx, rps, n_services=n_services,
+            max_degree=sm.max_degree)
 
     top_mid = project_capacity(torch.stack([hi, lo + 0.5 * span]), lo, hi,
                                mask, capacity)

@@ -5,7 +5,8 @@
 // Replaces the TPU kernel repro/kernels/rask_objective.py
 // ::rask_objective_pallas (body _kernel), and gives its jnp backward
 // rask_objective_grad a kernel of its own: the PGD solve calls the backward
-// once an ascent step and the forward once more to score the finals.
+// once an ascent step (kernels/ops.py::rask_objective_vjp, no forward) and
+// the forward once, to score the finals.
 //
 // Per candidate: gather each relation's features out of the decision vector
 // and divide by x_scale; evaluate the stacked polynomials (powers by
@@ -42,21 +43,26 @@
 //  * A group of lanes per relation (a power of two, up to 32, so that all
 //    relations fit the CTA at once): a lane per term, its features read
 //    and scaled by the lane itself, the terms summed by a fixed-order
-//    shuffle tree (predict in the forward). In the backward the same group
-//    carries on with no barrier: it sums the cotangents of its own
-//    relation's SLOs (lanes strided over the SLO table), then runs the
+//    shuffle tree that leaves the prediction in every lane. The group
+//    carries on with no barrier. In the forward it forms its own
+//    relation's SLOs, weight * phi, lanes strided over the SLO table. In
+//    the backward it sums the cotangents of those SLOs, then runs the
 //    product rule over the OTHER features lane by term, each feature's sum
 //    another shuffle tree. Meanwhile the top threads of the CTA form each
-//    parameter SLO's cotangent and the index it feeds.
+//    parameter SLO: its weight * phi in the forward, its cotangent and the
+//    index it feeds in the backward.
+//  * The forward's per-service sums: a group of lanes a service, each lane
+//    a strided share of the SLO table, then a shuffle tree.
 //  * A group of lanes per decision index sums its contributors: the
 //    parameter SLOs that feed it, then the feature slots that gather it,
 //    each lane a strided share of the table, then a shuffle tree. With one
 //    CTA per candidate a per-index list would be used once, so the groups
 //    scan the tables (Q + R*F entries split 4 to 32 ways) instead of
 //    building lists.
-//  * Two barriers in the backward (after staging, before the per-index
-//    sums), three in the forward. Every sum runs in a fixed order, with no
-//    atomics, so a decide is reproducible from run to run; indices repeat
+//  * Two barriers in each kernel: after staging, and before the
+//    per-service (forward) or per-index (backward) sums. Every sum runs in
+//    a fixed order, with no atomics, so a decide is reproducible from run
+//    to run; indices repeat
 //    (relations of one service share `cores`, padded features re-read
 //    index 0), which is why the backward gathers per output index instead
 //    of scattering;
@@ -84,7 +90,7 @@ struct Dims {
 // 16-byte boundary; one function for the kernels and for the launch size.
 struct Layout {
   int a, rel, xscale, w, tm, exps, kind, svc, weight, target, pidx, ridx,
-      rps, preds, q, ct, dx, tgt, total;
+      rps, q, ct, dx, tgt, total;
 };
 
 __host__ __device__ inline int pad4(int n) { return (n + 3) & ~3; }
@@ -105,7 +111,6 @@ __host__ __device__ inline Layout make_layout(const Dims& d, bool backward) {
   L.pidx = o;   o += pad4(d.Q);
   L.ridx = o;   o += pad4(d.Q);
   L.rps = o;    o += pad4(d.S);
-  L.preds = o;  o += pad4(d.R);
   L.q = o;      o += pad4(d.Q);  // weight * phi; a parameter SLO's dnumer
   L.ct = L.dx = L.tgt = o;
   if (backward) {
@@ -297,21 +302,18 @@ __device__ __forceinline__ float terms_share(const float* sm, const Layout& L,
   return pred;
 }
 
-// One prediction per relation: a group of lanes a relation, a lane a term.
-template <int F>
-__device__ void predict(float* sm, const Layout& L, const Dims& d) {
-  const Groups grp = groups_of(d.R, d.T);
-  const int width = grp.width, t = grp.lane;
-#pragma unroll 1
-  for (int base = 0; base < d.R; base += grp.count) {  // uniform in the CTA
-    const int r = base + grp.id;
-    float x[F], xinv[F];
-    float pred =
-        r < d.R ? terms_share<F>(sm, L, d, r, t, width, false, x, xinv) : 0.f;
-    pred = group_sum(pred, width);
-    if (r < d.R && t == 0) sm[L.preds + r] = pred;
-  }
-  __syncthreads();
+// SLO q's weighted fulfilment, weight * min(numer / denom, 1): the
+// denominator is max(rps * target, 1e-9) for kind 1, the target otherwise
+__device__ __forceinline__ float weighted_phi(const float* sm, const Layout& L,
+                                             const Dims& d, int q,
+                                             float numer) {
+  const int* smi = reinterpret_cast<const int*>(sm);
+  const float target = sm[L.target + q];
+  const float denom =
+      smi[L.kind + q] == 1
+          ? floor_denom(at(sm + L.rps, smi[L.svc + q], d.S) * target)
+          : target;
+  return sm[L.weight + q] * clip1(numer / denom);
 }
 
 // SLO q's cotangent on its numerator: ct[svc] * weight * d min(ratio, 1) /
@@ -338,29 +340,61 @@ __global__ void __launch_bounds__(kThreads)
   const int* smi = reinterpret_cast<const int*>(sm);
   const int k = blockIdx.x;
   stage(sm, L, d, A, nullptr, k, t);
-  predict<F>(sm, L, d);
 
+  // the SLOs no relation group forms, a thread each from the top of the CTA
+  // (lanes the relation groups leave idle): parameter SLOs, and relation
+  // SLOs whose index is outside the table (NaN)
 #pragma unroll 1
-  for (int q = threadIdx.x; q < d.Q; q += kThreads) {
+  for (int q = kThreads - 1 - threadIdx.x; q < d.Q; q += kThreads) {
     const int kind = smi[L.kind + q];
+    if (kind != 0 && (unsigned)smi[L.ridx + q] < (unsigned)d.R) continue;
     const float numer = kind == 0 ? at(sm + L.a, smi[L.pidx + q], d.D)
-                                  : at(sm + L.preds, smi[L.ridx + q], d.R);
-    const float target = sm[L.target + q];
-    const float denom =
-        kind == 1 ? floor_denom(at(sm + L.rps, smi[L.svc + q], d.S) * target)
-                  : target;
-    sm[L.q + q] = sm[L.weight + q] * clip1(numer / denom);
+                                  : __int_as_float(0x7fc00000);
+    sm[L.q + q] = weighted_phi(sm, L, d, q, numer);
+  }
+
+  // per relation, one group of lanes from the prediction to its SLOs with
+  // no barrier between: the prediction (a lane a term, a shuffle tree that
+  // leaves it in every lane), then the relation's own SLOs, lanes strided
+  // over the SLO table
+  {
+    const Groups grp = groups_of(d.R, d.T);
+    const int width = grp.width, t = grp.lane;
+#pragma unroll 1
+    for (int base = 0; base < d.R; base += grp.count) {  // uniform in the CTA
+      const int r = base + grp.id;
+      float x[F], xinv[F];
+      float pred =
+          r < d.R ? terms_share<F>(sm, L, d, r, t, width, false, x, xinv)
+                  : 0.f;
+      pred = group_sum(pred, width);
+      if (r < d.R) {
+#pragma unroll 1
+        for (int q = t; q < d.Q; q += width)
+          if (smi[L.kind + q] != 0 && smi[L.ridx + q] == r)
+            sm[L.q + q] = weighted_phi(sm, L, d, q, pred);
+      }
+    }
   }
   __syncthreads();
 
-  // segment sum, SLOs in table order
+  // per service, a group of lanes: each lane a strided share of the SLO
+  // table, then a shuffle tree (a fixed order, no atomics)
+  {
+    const Groups grp = groups_of(d.S, d.Q);
+    const int width = grp.width, t = grp.lane;
 #pragma unroll 1
-  for (int s = threadIdx.x; s < d.S; s += kThreads) {
-    float acc = 0.f;
+    for (int base = 0; base < d.S; base += grp.count) {  // uniform in the CTA
+      const int s = base + grp.id;
+      float acc = 0.f;
+      if (s < d.S) {
 #pragma unroll 1
-    for (int q = 0; q < d.Q; ++q)
-      if (smi[L.svc + q] == s) acc += sm[L.q + q];
-    out[(size_t)k * d.S + s] = acc;
+        for (int q = t; q < d.Q; q += width)
+          if (smi[L.svc + q] == s) acc += sm[L.q + q];
+      }
+      acc = group_sum(acc, width);
+      if (s < d.S && t == 0) out[(size_t)k * d.S + s] = acc;
+    }
   }
 }
 

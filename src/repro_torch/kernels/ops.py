@@ -14,7 +14,7 @@ import torch
 from . import ref
 from .decode_attention import decode_attention_cuda
 from .flash_attention import flash_attention_cuda
-from .rask_objective import RaskObjective
+from .rask_objective import RaskObjective, rask_objective_backward_cuda
 from .ssd_scan import ssd_cuda
 
 
@@ -92,3 +92,20 @@ def rask_objective(A, rel_gather, w, exponents, term_mask, x_scale, slo_kind,
     if _route(A, "rask_objective"):
         return RaskObjective.apply(*args, n_services)
     return _PlainRaskObjective.apply(*args, n_services, max_degree)
+
+
+def rask_objective_vjp(A, ct, rel_gather, w, exponents, term_mask, x_scale,
+                       slo_kind, slo_service, slo_weight, slo_target,
+                       slo_pidx, slo_ridx, rps, *, n_services: int,
+                       max_degree: int):
+    """The objective's vector-Jacobian product alone: cotangent ct (K, |S|)
+    -> dJ/dA (K, D), the gradient ``rask_objective``'s backward gives, with
+    no forward and no autograd graph (on a CUDA tensor the backward kernel,
+    on a CPU tensor ``ref.rask_objective_grad``)."""
+    tables = (rel_gather, w, exponents, term_mask, x_scale, slo_kind,
+              slo_service, slo_weight, slo_target, slo_pidx, slo_ridx, rps)
+    if _route(A, "rask_objective_vjp"):
+        return rask_objective_backward_cuda(A, ct, *tables,
+                                            n_services=n_services)
+    return ref.rask_objective_grad(A, ct, *tables, n_services=n_services,
+                                   max_degree=max_degree)

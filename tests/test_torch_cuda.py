@@ -22,7 +22,8 @@ from repro_torch.core.solver import ServiceSpec, SolverProblem
 from repro_torch.env import paper_profiles
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 kv_splits)
 from repro_torch.kernels.rask_objective import (
     rask_objective_backward_cuda, rask_objective_forward_cuda)
 from repro_torch.kernels.ssd_scan import ssd_cuda
@@ -70,11 +71,60 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, B, H, KH, S, T, D,
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
 
 
+def _kernels_a_call(fn, calls=3):
+    """CUDA kernels one call of ``fn`` launches, from the launch API calls
+    ``torch.profiler`` records (as chip_smoke.py counts them)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in prof.key_averages() if e.key in (
+        "cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx",
+        "cudaLaunchKernelExC"))
+    return launches / calls
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "tensor_core"),
-                                           (torch.float32, "cuda_core")])
+@pytest.mark.parametrize("B,H,KH,S,T,D,window,causal,must_split", [
+    (1, 4, 1, 128, 128, 256, 512, True, False),   # gemma3-1b's buckets,
+    (1, 4, 1, 128, 128, 256, 0, True, False),     # local and global
+    (1, 4, 1, 512, 512, 256, 512, True, False),
+    (1, 4, 1, 512, 512, 256, 0, True, False),
+    (1, 4, 1, 1024, 1024, 256, 512, True, False),
+    (1, 4, 1, 1024, 1024, 256, 0, True, False),
+    (1, 4, 1, 300, 700, 128, 0, True, False),     # T > S, right-aligned
+    (1, 8, 1, 200, 200, 64, 0, True, False),      # G = 8
+    (2, 2, 1, 17, 17, 64, 8, True, False),        # ragged S = 17
+    (1, 2, 1, 700, 900, 64, 0, False, True),      # kv range split 4 ways
+])
+def test_flash_fp32_kernel_matches_plain(cuda_device, B, H, KH, S, T, D,
+                                         window, causal, must_split):
+    """The float32 (split-TF32) kernel at 2e-5 of its plain version, and
+    the CUDA kernels a call: one, or, where the kv range is split, the
+    split kernel and its merge."""
+    g = torch.Generator(cuda_device).manual_seed(S + T + D + window)
+    q = torch.randn((B, H, S, D), generator=g, device=cuda_device)
+    k = torch.randn((B, KH, T, D), generator=g, device=cuda_device)
+    v = torch.randn((B, KH, T, D), generator=g, device=cuda_device)
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_reference(q, k, v, causal=causal,
+                                         window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **_tol(torch.float32))
+    splits = kv_splits(q, k, causal=causal, window=window)
+    assert splits > 1 or not must_split
+    assert _kernels_a_call(lambda: flash_attention_cuda(
+        q, k, v, causal=causal, window=window)) == (2 if splits > 1 else 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "wgmma"),
+                                           (torch.float32, "tf32x3")])
 def test_flash_dtype_picks_the_kernel(cuda_device, dtype, variant):
-    """bf16 runs the wgmma kernel, float32 the CUDA-core kernel; each call
+    """bf16 runs the wgmma kernel, float32 the split-TF32 kernel; each call
     counts one launch in the total and one in its variant."""
     q = torch.randn((1, 4, 64, 64), device=cuda_device).to(dtype)
     k = torch.randn((1, 1, 64, 64), device=cuda_device).to(dtype)
@@ -178,7 +228,13 @@ def _objective_case(replicas, K, seed, dev):
     """The paper's QR/CV/PC layout with ``replicas`` containers of each,
     ridge fits of degrees 1-3 on random data, K projected random candidates
     and random loads; exactly one candidate row sits on ratio == 1 of a
-    parameter SLO (the half-subgradient)."""
+    parameter SLO (the half-subgradient). Returns the objective's
+    arguments and sizes."""
+    return _objective_setup(replicas, K, seed, dev)[:2]
+
+
+def _objective_setup(replicas, K, seed, dev):
+    """``_objective_case``, with the problem and the stacked models."""
     rng = np.random.default_rng(seed)
     specs = []
     for r in range(replicas):
@@ -213,7 +269,8 @@ def _objective_case(replicas, K, seed, dev):
             sm.term_mask, sm.x_scale, t.slo_kind, t.slo_service,
             t.slo_weight, t.slo_target, t.slo_pidx, t.slo_ridx,
             torch.from_numpy(rps).to(dev))
-    return args, dict(n_services=len(specs), max_degree=sm.max_degree)
+    return args, dict(n_services=len(specs), max_degree=sm.max_degree), \
+        problem, sm
 
 
 @pytest.mark.cuda
@@ -256,6 +313,38 @@ def test_rask_objective_autograd_goes_through_both_kernels(cuda_device):
     want = ref.rask_objective_grad(args[0], torch.ones_like(seg), *args[1:],
                                    **kw)
     torch.testing.assert_close(g, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("replicas", [1, 3, 9])
+def test_rask_objective_forward_is_deterministic(cuda_device, replicas):
+    """Lane-group sums in a fixed order, no atomics: the forward repeats
+    bit for bit."""
+    args, kw = _objective_case(replicas, 7, 50 + replicas, cuda_device)
+    a = rask_objective_forward_cuda(*args, n_services=kw["n_services"])
+    b = rask_objective_forward_cuda(*args, n_services=kw["n_services"])
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_pgd_solve_on_the_card_launches_the_forward_once(cuda_device):
+    """Each ascent step takes the backward kernel alone; the forward kernel
+    runs once a solve, to score the finals."""
+    from repro_torch.core.solver import pgd_solve
+    args, kw, problem, sm = _objective_setup(3, 6, 61, cuda_device)
+    t = problem.tables
+    x0 = args[0][0]
+    u = torch.rand((3, x0.shape[0]), device=cuda_device,
+                   generator=torch.Generator(cuda_device).manual_seed(6))
+    n_fwd = rask_objective_forward_cuda.launches
+    n_bwd = rask_objective_backward_cuda.launches
+    a, score = pgd_solve(x0, u, t, sm, args[-1], 24.0, n_starts=6,
+                         iters=32, lr=0.18, n_services=kw["n_services"])
+    torch.cuda.synchronize()
+    assert rask_objective_forward_cuda.launches == n_fwd + 1
+    assert rask_objective_backward_cuda.launches == n_bwd + 32
+    assert torch.isfinite(score) and torch.isfinite(a).all()
 
 
 @pytest.mark.cuda

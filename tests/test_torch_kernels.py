@@ -157,17 +157,16 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 def test_flash_reset_launches_zeroes_every_count():
     """The total and the per-variant counts (bf16 wgmma kernel, float32
-    CUDA-core kernel) start from 0 together, as chip_smoke.py needs."""
+    split-TF32 kernel) start from 0 together, as chip_smoke.py needs."""
     saved = (flash_attention_cuda.launches,
              dict(flash_attention_cuda.variant_launches))
     try:
         flash_attention_cuda.launches = 3
-        flash_attention_cuda.variant_launches.update(tensor_core=2,
-                                                     cuda_core=1)
+        flash_attention_cuda.variant_launches.update(wgmma=2, tf32x3=1)
         reset_launches()
         assert flash_attention_cuda.launches == 0
         assert flash_attention_cuda.variant_launches == {
-            "tensor_core": 0, "cuda_core": 0}
+            "wgmma": 0, "tf32x3": 0}
     finally:
         flash_attention_cuda.launches = saved[0]
         flash_attention_cuda.variant_launches.update(saved[1])

@@ -103,6 +103,27 @@ def test_backward_matches_jax_vjp_and_autodiff(seed):
     np.testing.assert_allclose(got.numpy(), autodiff, **TOL)
 
 
+@pytest.mark.parametrize("seed", range(6))
+def test_vjp_alone_is_the_autograd_gradient(seed):
+    """``ops.rask_objective_vjp`` (what each PGD ascent step calls, with no
+    forward and no graph) gives the gradient through ``ops.rask_objective``
+    and autograd bit for bit, and ``repro``'s ``rask_objective_grad`` at
+    1e-5."""
+    args, kw = _case(seed)
+    ct = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (args[0].shape[0], kw["n_services"])).astype(np.float32))
+    A = torch.from_numpy(args[0])
+    got = ops.rask_objective_vjp(A, ct, *_torch(args[1:]), **kw)
+    a = A.clone().requires_grad_(True)
+    seg = ops.rask_objective(a, *_torch(args[1:]), **kw)
+    want, = torch.autograd.grad(seg, a, grad_outputs=ct)
+    assert not got.requires_grad
+    assert torch.equal(got, want)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jgrad(args[0], ct.numpy(), *args[1:], **kw)),
+        **TOL)
+
+
 def test_backward_takes_the_half_subgradient_at_the_clip():
     """ratio == 1 on a parameter SLO: half the cotangent, as jax.grad of
     jnp.minimum gives; either side of it, all or nothing."""

@@ -127,6 +127,54 @@ def test_pgd_solve_matches_jax_on_the_paper_triple(paper_problem, seed):
     assert abs(obj - s_t) <= 1e-5 * abs(s_t)
 
 
+@pytest.mark.parametrize("seed", range(4))
+def test_pgd_solve_takes_each_step_from_the_vjp_alone(paper_problem, seed,
+                                                      monkeypatch):
+    """Each ascent step's gradient comes from ``ops.rask_objective_vjp``
+    with no forward: the objective's forward runs once a solve (the
+    finals' scores), and the assignment and score are bit for bit those of
+    the gradient taken through the forward and autograd."""
+    from repro_torch.kernels import ops
+    jp, tp, _, tsm = paper_problem
+    rng = np.random.default_rng(seed)
+    rps = torch.tensor([rng.uniform(10, 100), rng.uniform(1, 10), 50.0],
+                       dtype=torch.float32)
+    x0 = torch.from_numpy(jp.random_assignment(rng, 8.0))
+    u = torch.from_numpy(rng.random((3, jp.dim)).astype(np.float32))
+
+    def solve():
+        return tsolver.pgd_solve(x0, u, tp.tables, tsm, rps, 8.0,
+                                 n_starts=6, iters=32, lr=0.18,
+                                 n_services=3)
+
+    forward = ops.rask_objective
+    calls = {"forward": 0, "vjp": 0}
+
+    def counted_forward(*a, **kw):
+        calls["forward"] += 1
+        return forward(*a, **kw)
+
+    def counted_vjp(*a, **kw):
+        calls["vjp"] += 1
+        return vjp(*a, **kw)
+
+    vjp = ops.rask_objective_vjp
+    monkeypatch.setattr(ops, "rask_objective", counted_forward)
+    monkeypatch.setattr(ops, "rask_objective_vjp", counted_vjp)
+    a_vjp, s_vjp = solve()
+    assert calls == {"forward": 1, "vjp": 32}
+
+    def through_autograd(A, ct, *tables, **kw):    # the gradient as before
+        a = A.detach().requires_grad_(True)
+        seg = forward(a, *tables, **kw)
+        g, = torch.autograd.grad(seg, a, grad_outputs=ct)
+        return g
+
+    monkeypatch.setattr(ops, "rask_objective_vjp", through_autograd)
+    a_old, s_old = solve()
+    assert torch.equal(a_vjp, a_old) and torch.equal(s_vjp, s_old)
+
+
 def test_solve_pgd_host_entry_and_all_nan_fallback(paper_problem):
     """``SolverProblem.solve_pgd`` returns host values; with NaN models
     every start scores NaN and the solve falls back to the projected warm
