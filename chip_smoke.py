@@ -10,7 +10,8 @@ registers and spills as ptxas gave them.
 Phase 1 holds each kernel against its plain PyTorch version on the card, on
 the shapes the serving path gives it, in float32 (tolerance 2e-5) and bf16
 (5e-2), the tolerances of tests/test_kernels.py; the flash kernel also on
-8 query heads to a kv head and on a 17-token prompt. Each flash case
+8 query heads to a kv head and on a 17-token prompt; both also at e11's
+shapes (a 64-slot cache of 4 rows and of 1 row; 13- and 32-token prompts). Each flash case
 records its variant: bf16 runs the wgmma kernel ("wgmma",
 flash_attention_sm90.cu), float32 the split-TF32 one ("tf32x3",
 flash_attention.cu, three TF32 tensor-core products for each float32
@@ -123,6 +124,49 @@ kernel must have run once per layer per admitted prompt, and no plain
 version of a kernel may have run on the card. Phase "ssm_trace" runs
 ``profile_window`` over 3 decode steps of that engine and one 1000-token
 prefill.
+
+e11, the closed serving loop (src/repro_torch/serve, env/scenarios.py,
+obs), adds:
+
+Phase "engine_compare" runs gemma3-1b at full width in bf16 behind the
+dict-cache engine (one batch-1 decode and one host sync per slot, exact-
+length prefill) and the stacked engine, at 1, 4 and 8 slots (max_seq 64,
+prompts of 6 to 23 tokens, requests that never finish, 4 warm and 40
+timed steps): step ms, tokens/s and the speedup. It checks n_layers x
+slots x steps decode launches for the dict engine and n_layers x steps
+for the stacked one, one wgmma flash launch a layer a prompt, and that
+every token is in the vocab; it reports, unchecked, the share of positions
+where the two engines' greedy streams agree (bf16 rounds a batch of rows
+otherwise than one row).
+
+Phase "serving_loop" is e11's loop: ``real_serving_scenario`` with the
+full gemma3-1b in bf16 (2 services on 6 chips, bursty load to 4 and 14
+rps, 4 slots, max_seq 64, the SLO accountant with the latency override on
+service 0), 180 simulated seconds (e11 runs 600; 6 solved decides) of
+the fixed equal split and of the RASK agent (xi 12, resource "chips").
+Launch counters are zeroed just before each run and read just after:
+decode n_layers x engine steps, flash (all wgmma) n_layers x admissions
+(the engines' own ``steps`` and ``admissions``), the RASK forward once
+and the backward 32 times a solved decide, no plain version on the card.
+Then the RASK forward and backward kernels run on the loop agent's own
+tables and fitted models (2 services, 6 SLOs, features chips, context and
+rung), K = pgd_starts random candidates and the loop's last load, each
+held against its plain version at 1e-5 and timed, and a
+``profile_window`` covers 3 decode steps at the lowest and highest rung
+that ran. Last, with nothing on the card timed beside them, two child
+processes that never touch the card run each loop's CPU twin: the port
+at ``repro``'s setting (smoke cut, float32), the RASK twin's agent taking
+the card agent's random starts, seed by seed. The schedule reads no model
+output and no clock, so the fixed run's cycle records, ledgers and drops
+must equal the CPU's, the RASK run's exploration plans must equal the
+CPU's and its solved plans agree within 2e-3 of each coordinate's range,
+its post-exploration mean
+fulfillment lie within 0.03 of the CPU's, and no plan or applied
+assignment may exceed 6 chips. It reports the decide ms inside the loop
+(each, and the median after the first), the alerts a cycle, each run's
+wall seconds, the peak memory, the median measured decode-step ms at
+each rung that ran, and whether the context and rung steps applied each
+cycle equal the CPU twin's.
 
 Prints the card's name and power limit, one JSON line per phase, a
 ``{"kernels": [...]}`` line (one entry a kernel, the float32 flash kernel
@@ -249,17 +293,22 @@ def decode_cases(dev, dtype):
     """The decode kernel's inputs on the serving path: 4 slots, 4 query
     heads on 1 kv head, d_head 256, a 2048-slot cache, per-row lengths of
     the phase-3 prompts, global rows (start 0) and local rows (512 window),
-    plus edge rows (length 1, a full cache, an idle lane past the cache)."""
-    B, H, KH, D, S = 4, 4, 1, 256, 2048
+    plus edge rows (length 1, a full cache, an idle lane past the cache);
+    and e11's loop: a 64-slot cache of 4 rows and of 1 row."""
+    H, KH, D, S = 4, 1, 256, 2048
     lengths = [108, 308, 708, 1008]
     cases = {
-        "global": (lengths, [0] * 4),
-        "local": (lengths, [max(0, n - 512) for n in lengths]),
-        "edges": ([1, 2048, 2060, 513], [0, 1536, 1548, 1]),
+        "global": (lengths, [0] * 4, S),
+        "local": (lengths, [max(0, n - 512) for n in lengths], S),
+        "edges": ([1, 2048, 2060, 513], [0, 1536, 1548, 1], S),
+        # e11's loop: a 64-slot cache, 4 rows (stacked engine) or 1 (dict)
+        "e11_stacked": ([20, 33, 47, 64], [0] * 4, 64),
+        "e11_dict": ([33], [0], 64),
     }
     g = torch.Generator(dev).manual_seed(11)
     out = []
-    for name, (lens, starts) in cases.items():
+    for name, (lens, starts, S) in cases.items():
+        B = len(lens)
         q = torch.randn((B, H, D), generator=g, device=dev).to(dtype)
         k = torch.randn((B, S, KH, D), generator=g, device=dev).to(dtype)
         v = torch.randn((B, S, KH, D), generator=g, device=dev).to(dtype)
@@ -274,7 +323,8 @@ def flash_cases(dev, dtype):
     heads on 1 kv head, d_head 256, at the 128/512/1024 buckets, local
     (window 512) and global (no window); then two edges the bf16 kernel
     packs differently: 8 query heads on 1 kv head (8 heads of 8 positions
-    a CTA) and two rows of a 17-token prompt (S < 64)."""
+    a CTA) and two rows of a 17-token prompt (S < 64); and e11's
+    prompts (13 and 32 tokens)."""
     g = torch.Generator(dev).manual_seed(12)
 
     def randn(*shape):
@@ -288,6 +338,11 @@ def flash_cases(dev, dtype):
                 randn(1, 1, 200, 64), 0))
     out.append(("B2_S17_w8", randn(2, 2, 17, 64), randn(2, 1, 17, 64),
                 randn(2, 1, 17, 64), 8))
+    # e11's loop: a 13-token prompt at its exact length (dict engine) and
+    # the 32-token bucket (stacked engine); window 512 exceeds max_seq 64
+    for S in (13, 32):
+        out.append((f"e11_S{S}", randn(1, 4, S, 256), randn(1, 1, S, 256),
+                    randn(1, 1, S, 256), 512))
     return out
 
 
@@ -716,16 +771,17 @@ def phase_decide_timing(dev):
     return res, agents
 
 
-def _objective_args(env, agent, K, seed):
+def _objective_args(agent, t, K, seed):
     """The objective's inputs as the solver gives them: the agent's tables
-    and fitted models, K projected random candidates, the current load."""
+    and fitted models, K projected random candidates, the load of the 5 s
+    before ``t``."""
     import numpy as np
     rng = np.random.default_rng(seed)
     dev = agent.device
     p, sm = agent.problem, agent.stacked
     A = np.stack([p.random_assignment(rng, agent.capacity)
                   for _ in range(K)])
-    rps = agent._rps_vector(agent.platform.window_states(env.t - 5, env.t))
+    rps = agent._rps_vector(agent.platform.window_states(t - 5, t))
     t = p.tables
     args = (torch.from_numpy(A).to(dev), t.rel_gather, sm.w, sm.exponents,
             sm.term_mask, sm.x_scale, t.slo_kind, t.slo_service,
@@ -756,64 +812,72 @@ def _objective_work(args, n_services, backward):
     return nbytes, K * bwd
 
 
-def phase_rask_kernels(dev, agents):
+def _rask_cases(agent, t, K, seed, case):
+    """The forward and backward kernels on ``agent``'s tables and fitted
+    models, K random candidates and the load before ``t``, each held
+    against its plain version at ``RASK_TOL`` and timed; one row each."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.rask_objective import (
-        empty_launch_cuda, rask_objective_backward_cuda,
-        rask_objective_forward_cuda)
+        rask_objective_backward_cuda, rask_objective_forward_cuda)
+
+    dev = agent.device
+    args, kw = _objective_args(agent, t, K, seed)
+    S = kw["n_services"]
+    A = args[0]
+    g = torch.Generator(dev).manual_seed(seed)
+    ct = torch.randn((K, S), generator=g, device=dev)
+    fwd = rask_objective_forward_cuda(*args, n_services=S)
+    bwd = rask_objective_backward_cuda(A, ct, *args[1:], n_services=S)
+    want_f = ref.rask_objective_reference(*args, **kw)
+    want_b = ref.rask_objective_grad(A, ct, *args[1:], **kw)
+    torch.cuda.synchronize()
+    rows = []
+    for name, got, want, backward in (
+            ("rask_objective", fwd, want_f, False),
+            ("rask_objective_grad", bwd, want_b, True)):
+        err = (got - want).abs().max().item()
+        bar = RASK_TOL * (1.0 + want.abs().max().item())
+        check(bool(torch.isfinite(got).all()),
+              f"{name} {case}: non-finite output")
+        check(err <= bar, f"{name} {case}: error {err} > {bar}")
+        nbytes, flops = _objective_work(args, S, backward)
+        row = {"kernel": name, "case": case, "K": K,
+               "services": S, "dim": A.shape[1],
+               "features": args[3].shape[2],
+               "relations": args[3].shape[0],
+               "terms": args[3].shape[1], "slos": args[6].shape[0],
+               "max_abs_err": err, "tolerance": bar,
+               "bytes": nbytes, "flops": flops,
+               "bound": bound_ms(nbytes, flops, "float32")}
+        if backward:
+            def call():
+                return rask_objective_backward_cuda(
+                    A, ct, *args[1:], n_services=S)
+            row["plain_ms"], row["plain_call_ms"] = time_ms([
+                lambda: ref.rask_objective_grad(A, ct, *args[1:], **kw)], 50)
+        else:
+            def call():
+                return rask_objective_forward_cuda(*args, n_services=S)
+            row["plain_ms"], row["plain_call_ms"] = time_ms([
+                lambda: ref.rask_objective_reference(*args, **kw)], 50)
+        row["ms"], row["call_ms"] = time_ms([call], 200)
+        row["kernels_per_call"], row["kernel_names"] = kernels_per_call(call)
+        check(row["kernels_per_call"] == 1,
+              f"{name} {case}: {row['kernels_per_call']} kernels "
+              f"a call ({row['kernel_names']}), want 1")
+        row["library_ms"] = None     # no single PyTorch call
+        rows.append(row)
+        log(f"{name} {case}: {row}")
+    return rows
+
+
+def phase_rask_kernels(dev, agents):
+    from repro_torch.kernels.rask_objective import empty_launch_cuda
 
     rows = []
     for S, (env, agent) in sorted(agents.items()):
         for K in (6, 7):
-            args, kw = _objective_args(env, agent, K, seed=S + K)
-            A = args[0]
-            g = torch.Generator(dev).manual_seed(S + K)
-            ct = torch.randn((K, S), generator=g, device=dev)
-            fwd = rask_objective_forward_cuda(*args, n_services=S)
-            bwd = rask_objective_backward_cuda(A, ct, *args[1:],
-                                               n_services=S)
-            want_f = ref.rask_objective_reference(*args, **kw)
-            want_b = ref.rask_objective_grad(A, ct, *args[1:], **kw)
-            torch.cuda.synchronize()
-            for name, got, want, backward in (
-                    ("rask_objective", fwd, want_f, False),
-                    ("rask_objective_grad", bwd, want_b, True)):
-                err = (got - want).abs().max().item()
-                bar = RASK_TOL * (1.0 + want.abs().max().item())
-                check(bool(torch.isfinite(got).all()),
-                      f"{name} S{S} K{K}: non-finite output")
-                check(err <= bar, f"{name} S{S} K{K}: error {err} > {bar}")
-                nbytes, flops = _objective_work(args, S, backward)
-                row = {"kernel": name, "case": f"S{S}_K{K}", "K": K,
-                       "services": S, "dim": A.shape[1],
-                       "relations": args[3].shape[0],
-                       "terms": args[3].shape[1], "slos": args[6].shape[0],
-                       "max_abs_err": err, "tolerance": bar,
-                       "bytes": nbytes, "flops": flops,
-                       "bound": bound_ms(nbytes, flops, "float32")}
-                if backward:
-                    def call():
-                        return rask_objective_backward_cuda(
-                            A, ct, *args[1:], n_services=S)
-                    row["plain_ms"], row["plain_call_ms"] = time_ms([
-                        lambda: ref.rask_objective_grad(A, ct, *args[1:],
-                                                        **kw)], 50)
-                else:
-                    def call():
-                        return rask_objective_forward_cuda(
-                            *args, n_services=S)
-                    row["plain_ms"], row["plain_call_ms"] = time_ms([
-                        lambda: ref.rask_objective_reference(*args, **kw)],
-                        50)
-                row["ms"], row["call_ms"] = time_ms([call], 200)
-                row["kernels_per_call"], row["kernel_names"] = \
-                    kernels_per_call(call)
-                check(row["kernels_per_call"] == 1,
-                      f"{name} S{S} K{K}: {row['kernels_per_call']} kernels "
-                      f"a call ({row['kernel_names']}), want 1")
-                row["library_ms"] = None     # no single PyTorch call
-                rows.append(row)
-                log(f"{name} S{S} K{K}: {row}")
+            rows += _rask_cases(agent, env.t, K, S + K, f"S{S}_K{K}")
     empty_ms, empty_call_ms = time_ms([lambda: empty_launch_cuda(dev)], 200)
     for row in rows:
         row["ms_over_empty_launch"] = row["ms"] / empty_ms
@@ -1325,6 +1389,390 @@ def phase_ssm_serve(dev):
     return res, engine
 
 
+# -- e11: the engine comparison and the closed serving loop -----------------------
+
+E11_XI, E11_SECONDS, E11_CHIPS = 12, 180.0, 6.0
+
+
+def phase_engine_compare(dev):
+    """e11's engine stage at full width in bf16: the dict-cache engine (one
+    batch-1 decode and one host sync per slot) against the stacked one (one
+    batched decode, one sync), every slot held by a request that never
+    finishes, 4 warm then 40 timed steps at 1, 4 and 8 slots."""
+    import numpy as np
+
+    from repro_torch.configs import get
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     reset_launches)
+    from repro_torch.models import build
+    from repro_torch.serve import (DictCacheEngine, EngineConfig, Request,
+                                   ServingEngine)
+
+    cfg = get("gemma3-1b")                     # full width, bf16
+    model = FiniteLogits(build(cfg))
+    params = model.model.init(torch.Generator(dev).manual_seed(0))
+    warm, timed = 4, 40
+    res = {"phase": "engine_compare", "model": cfg.name, "dtype": cfg.dtype,
+           "max_seq": 64, "warm_steps": warm, "timed_steps": timed}
+    for slots in (1, 4, 8):
+        row, streams = {}, {}
+        for name, cls in (("dict", DictCacheEngine),
+                          ("stacked", ServingEngine)):
+            eng = cls(model, params, EngineConfig(
+                slots=slots, max_seq=64, context=64, chips=8.0), device=dev)
+            rng = np.random.default_rng(7)
+            for i in range(slots):
+                plen = int(rng.integers(6, 24))
+                eng.submit(Request(i, rng.integers(0, cfg.vocab, plen)
+                                   .astype(np.int32), max_new_tokens=10_000))
+            torch.cuda.synchronize()
+            decode_attention_cuda.launches = 0
+            reset_launches()
+            for _ in range(warm):
+                eng.step()
+            check(len(eng.active) == slots, f"engine_compare {name} "
+                  f"slots={slots}: {len(eng.active)} active")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(timed):
+                eng.step()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = {"decode_attention": decode_attention_cuda.launches,
+                        **dict(flash_attention_cuda.variant_launches)}
+            steps = warm + timed
+            want = cfg.n_layers * steps * (slots if name == "dict" else 1)
+            check(launches["decode_attention"] == want,
+                  f"engine_compare {name} slots={slots}: decode launches "
+                  f"{launches}, want {want}")
+            check(launches == {"decode_attention": want,
+                               "wgmma": cfg.n_layers * slots, "tf32x3": 0},
+                  f"engine_compare {name} slots={slots}: flash launches "
+                  f"{launches}, want {cfg.n_layers * slots} wgmma")
+            streams[name] = [list(r.generated) for _, r in
+                             sorted(eng.active.items())]
+            for s in streams[name]:
+                check(len(s) == steps + 1 and all(0 <= t < cfg.vocab
+                                                  for t in s),
+                      f"engine_compare {name}: a stream of {len(s)} tokens "
+                      "or a token out of vocab")
+            row[f"{name}_step_ms"] = 1e3 * dt / timed
+            row[f"{name}_tokens_per_s"] = slots * timed / dt
+            row[f"{name}_launches"] = launches
+            del eng
+        row["speedup"] = row["dict_step_ms"] / row["stacked_step_ms"]
+        pairs = [(a, b) for x, y in zip(streams["dict"], streams["stacked"])
+                 for a, b in zip(x, y)]
+        row["greedy_agreement"] = sum(a == b for a, b in pairs) / len(pairs)
+        res[f"slots={slots}"] = row
+    check(bool(model.flag), "engine_compare: non-finite logits")
+    log(json.dumps(res))
+    return res
+
+
+def _e11_agent(starts=None):
+    """The RASK agent class of e11's runs: it records every plan vector and
+    the random starts' uniforms it drew for each seed (``starts``), or,
+    given such a table, takes its uniforms from there, so that a twin on
+    another device draws the same starts."""
+    import numpy as np
+
+    from repro_torch.core import RASKAgent
+
+    class Agent(RASKAgent):
+        def _plan(self, a):
+            self.plans.append(np.array(a, np.float32))
+            return super()._plan(a)
+
+        def _start_uniforms(self, seed):
+            if starts is None:
+                u = super()._start_uniforms(seed)
+                self.starts[seed] = u
+                return u
+            self._gen.manual_seed(seed)
+            return torch.as_tensor(starts[seed], device=self.device)
+    return Agent
+
+
+def _e11_run(dev, base, agent_cls=None):
+    """One e11 loop (``agent_cls=None``: the fixed equal split with the
+    accountant advancing; else a RASK agent with the accountant attached)
+    on ``dev`` over ``real_serving_scenario``. Returns the platform, the
+    cycle records, the agent, each service's applied (chips, context,
+    rung) after each cycle, each solved decide's runtime and the wall
+    seconds."""
+    from repro_torch.core import RaskConfig
+    from repro_torch.env import real_serving_scenario
+    from repro_torch.serve import run_serving_loop
+
+    plat, patterns, sids, knowledge, acct = real_serving_scenario(
+        arch="gemma3-1b", duration_s=E11_SECONDS, capacity_chips=E11_CHIPS,
+        base=base, device=dev)
+    agent = None
+    if agent_cls is not None:
+        agent = agent_cls(plat, knowledge,
+                          RaskConfig(resource="chips", xi=E11_XI), seed=0,
+                          device=dev)
+        agent.plans, agent.starts = [], {}
+        agent.attach_accountant(acct)
+    for sid in sids:                  # the first rung's weights, unclocked
+        plat.service(sid).backend._engine()
+    applied, runtimes = [], []
+
+    def on_cycle(rec):
+        applied.append([(plat.assignment(s)["chips"],
+                         plat.service(s).backend.context,
+                         plat.service(s).backend.rung) for s in sids])
+        if not rec.explored and agent is not None:
+            runtimes.append(agent.last_decision.runtime_s)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = run_serving_loop(plat, patterns, agent=agent, duration_s=
+                            E11_SECONDS, cycle_s=10.0, on_cycle=on_cycle,
+                            accountant=None if agent else acct)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return plat, hist, agent, applied, runtimes, time.perf_counter() - t0
+
+
+def _engines(plat):
+    """(rung, engine) of every engine the platform's services built."""
+    return [(r, e) for s in plat.services()
+            for r, e in plat.service(s).backend._engines.items()]
+
+
+def _max_chips(applied):
+    return max(sum(c for c, _, _ in cycle) for cycle in applied)
+
+
+def _compared(plat, hist, agent, applied):
+    """What a card run and its CPU twin are held to: the cycles, the
+    ledgers, the drops, the most chips applied, the context and rung steps
+    applied each cycle, and the plans."""
+    return {"cycles": [(r.t, r.fulfillment, r.per_service) for r in hist],
+            "post": _post_mean(hist),
+            "ledger": {sid: [(r.rid, len(r.prompt)) for r in
+                             plat.service(sid).backend.ledger]
+                       for sid in plat.services()},
+            "dropped": [plat.service(s).backend.dropped
+                        for s in plat.services()],
+            "max_chips": _max_chips(applied),
+            "steps_applied": [[(x, r) for _, x, r in cycle]
+                              for cycle in applied],
+            "plans": agent.plans if agent is not None else []}
+
+
+def _post_mean(hist):
+    import numpy as np
+    return float(np.mean([r.fulfillment for r in hist[E11_XI:]]))
+
+
+def _e11_cpu(starts):
+    """The CPU twin of an e11 run at ``repro``'s setting (smoke cut,
+    float32), run in a child process that never touches the card:
+    ``starts=None`` is the fixed run, else the card agent's uniforms by
+    seed (numpy arrays), which the twin's agent takes as its own."""
+    sys.path.insert(0, str(SRC))
+    torch.set_num_threads(1)
+    cls = _e11_agent(starts) if starts is not None else None
+    plat, hist, agent, applied, _, wall = _e11_run(torch.device("cpu"),
+                                                   None, cls)
+    return {**_compared(plat, hist, agent, applied), "wall_s": wall}
+
+
+# solved plans, card vs CPU, as a share of each coordinate's box: both fit
+# their own models on the same telemetry, in float32 with sums in another
+# order, from 6-12 rows of 10 terms, and the solve carries the fits'
+# difference into the plan
+E11_PLAN_TOL = 2e-3
+
+
+def phase_serving_loop(dev):
+    """e11's loop stage at full width: 2 served gemma3-1b services (bf16,
+    rung ladder d_model 288/576/864/1152) on 6 chips, bursty load, the
+    fixed split and the RASK agent, each ``E11_SECONDS`` simulated seconds.
+    Then the RASK kernels at the shapes the loop gave them, a profile of a
+    decode step at the lowest and highest rung that ran, and last, with
+    nothing on the card timed, each run's CPU twin: the same loop run by
+    the port on the CPU at ``repro``'s e11 setting (smoke cut, float32),
+    the RASK twin drawing the card agent's random starts (by seed, from
+    the card's generator)."""
+    import gc
+    import multiprocessing
+
+    import numpy as np
+
+    from repro_torch.configs import get
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     reset_launches)
+    from repro_torch.kernels.rask_objective import (
+        rask_objective_backward_cuda, rask_objective_forward_cuda)
+
+    cfg = get("gemma3-1b")                     # full width, bf16
+
+    def counts():
+        return {"decode_attention": decode_attention_cuda.launches,
+                "flash_wgmma": flash_attention_cuda.variant_launches["wgmma"],
+                "flash_tf32x3":
+                    flash_attention_cuda.variant_launches["tf32x3"],
+                "rask_objective": rask_objective_forward_cuda.launches,
+                "rask_objective_grad": rask_objective_backward_cuda.launches}
+
+    def zero():
+        decode_attention_cuda.launches = 0
+        reset_launches()
+        rask_objective_forward_cuda.launches = 0
+        rask_objective_backward_cuda.launches = 0
+
+    def tokens_in_vocab(plat):
+        for s in plat.services():
+            svc = plat.service(s).backend
+            reqs = list(svc.ledger)
+            for e in svc._engines.values():
+                reqs += list(e.active.values()) + e.queue
+            check(all(0 <= t < cfg.vocab for r in reqs for t in r.generated),
+                  f"serving_loop: {s} generated a token out of vocab")
+
+    torch.cuda.reset_peak_memory_stats()
+    res = {"phase": "serving_loop", "model": cfg.name, "dtype": cfg.dtype,
+           "services": 2, "chips": E11_CHIPS, "seconds": E11_SECONDS,
+           "xi": E11_XI, "cycle_s": 10.0}
+    card = {}
+    for name, cls in (("fixed", None), ("rask", _e11_agent())):
+        zero()
+        with PlainOnCard() as plain:
+            plat, hist, agent, applied, runtimes, wall = _e11_run(
+                dev, cfg, cls)
+            launches = counts()
+        engines = _engines(plat)
+        steps = sum(e.steps for _, e in engines)
+        admissions = sum(e.admissions for _, e in engines)
+        step_ms = {}
+        for r, e in engines:
+            step_ms.setdefault(r, []).extend(1e3 * x for x in e.step_s)
+        check(sum(map(len, step_ms.values())) == steps,
+              f"serving_loop {name}: step times of {steps} steps not kept")
+        tokens_in_vocab(plat)
+        solved = len(runtimes)        # 0 in the fixed run: no agent
+        want = {"decode_attention": cfg.n_layers * steps,
+                "flash_wgmma": cfg.n_layers * admissions,
+                "flash_tf32x3": 0,
+                "rask_objective": solved,
+                "rask_objective_grad": 32 * solved}
+        row = {"cycles": len(hist), "solved_decides": solved,
+               "engine_steps": steps, "admissions": admissions,
+               "launches": launches, "plain_calls_on_card": plain.calls,
+               "wall_s": wall,
+               "post_explore_fulfillment": _post_mean(hist),
+               "fulfillment": [r.fulfillment for r in hist],
+               "alerts": [r.alerts for r in hist],
+               "max_chips_applied": _max_chips(applied),
+               "dropped": [plat.service(s).backend.dropped
+                           for s in plat.services()],
+               "step_ms_median_by_rung": {
+                   r: statistics.median(v) for r, v in sorted(step_ms.items())},
+               "steps_by_rung": {r: len(v) for r, v in
+                                 sorted(step_ms.items())}}
+        if solved:                # the first pays one-off start costs
+            ms = [1e3 * t for t in runtimes]
+            row["decide_ms"] = ms
+            row["decide_ms_median_after_first"] = statistics.median(ms[1:])
+        res[name] = row
+        log(json.dumps({name: row}))
+        check(launches == want, f"serving_loop {name}: launches "
+              f"{launches}, want {want}")
+        check(all(v > 0 for k, v in want.items() if k != "flash_tf32x3"
+                  and (cls is not None or not k.startswith("rask"))),
+              f"serving_loop {name}: a kernel of the path never ran {want}")
+        check(not any(plain.calls.values()),
+              f"serving_loop {name}: plain versions ran on the card "
+              f"{plain.calls}")
+        check(row["max_chips_applied"] <= E11_CHIPS + 1e-6,
+              f"serving_loop {name}: {row['max_chips_applied']} chips "
+              "applied")
+        card[name] = _compared(plat, hist, agent, applied)
+        if cls is None:
+            del plat, hist, engines       # free the fixed run's services
+            gc.collect()
+            torch.cuda.empty_cache()
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    # the RASK kernels at the shapes e11 gives them (2 services, 6 SLOs,
+    # features chips/context/rung): the agent's own tables and models, the
+    # loop's last load, as many candidates as the solver's starts
+    check(agent.problem.dim == 6 and len(agent.problem.specs) == 2,
+          f"serving_loop: the agent's problem is {agent.problem.dim}-d")
+    res["rask_kernels"] = _rask_cases(agent, hist[-1].t, agent.cfg.pgd_starts,
+                                      11, "e11_S2_K%d" % agent.cfg.pgd_starts)
+
+    # where a decode step's time goes at the lowest and highest rung that
+    # ran (after the counters were read)
+    by_rung = dict(_engines(plat))
+    ran = sorted(res["rask"]["steps_by_rung"])
+    res["trace"] = {f"rung{r}": profile_window(f"decode_step_rung{r}",
+                                               by_rung[r].step, 3)
+                    for r in sorted({ran[0], ran[-1]})}
+
+    # the CPU twins, with nothing on the card timed beside them
+    starts = {seed: u.cpu().numpy() for seed, u in agent.starts.items()}
+    with multiprocessing.get_context("spawn").Pool(2) as pool:
+        jobs = {"fixed": pool.apply_async(_e11_cpu, (None,)),
+                "rask": pool.apply_async(_e11_cpu, (starts,))}
+        cpu = {name: job.get(timeout=600) for name, job in jobs.items()}
+    for name, twin in cpu.items():
+        res[name].update(cpu_wall_s=twin["wall_s"],
+                         post_explore_fulfillment_cpu=twin["post"])
+        check(twin["max_chips"] <= E11_CHIPS + 1e-6,
+              f"serving_loop {name}: {twin['max_chips']} chips applied on "
+              "the CPU")
+    check(card["fixed"]["cycles"] == cpu["fixed"]["cycles"],
+          "serving_loop fixed: the card's cycles differ from the CPU's")
+    check(card["fixed"]["ledger"] == cpu["fixed"]["ledger"]
+          and card["fixed"]["dropped"] == cpu["fixed"]["dropped"],
+          "serving_loop fixed: ledgers or drops differ from the CPU's")
+    got, want = card["rask"], cpu["rask"]
+    row = res["rask"]
+    check(row["solved_decides"] >= 5,
+          f"serving_loop rask: {row['solved_decides']} solved decides")
+    check(len(got["plans"]) == len(want["plans"]) and all(
+        np.array_equal(a, b) for a, b in zip(got["plans"][:E11_XI],
+                                             want["plans"][:E11_XI])),
+          "serving_loop rask: exploration plans differ from the CPU's")
+    span = agent.problem.upper - agent.problem.lower
+    diff = np.abs(np.array(got["plans"][E11_XI:])
+                  - np.array(want["plans"][E11_XI:]))
+    row["solved_plans_max_abs_diff"] = float(diff.max())
+    row["solved_plans_max_span_share"] = float((diff / span).max())
+    row["solved_plans_tolerance"] = E11_PLAN_TOL
+    check(row["solved_plans_max_span_share"] <= E11_PLAN_TOL,
+          f"serving_loop rask: solved plans differ from the CPU's by up to "
+          f"{row['solved_plans_max_span_share']} of a coordinate's range")
+    # reported, not held: a context or rung within the plans' difference of
+    # a step's edge may land on either side of it
+    row["context_rung_steps_equal"] = (got["steps_applied"]
+                                       == want["steps_applied"])
+    mask = agent.problem.resource_mask
+    check(all(a[mask].astype(np.float64).sum() <= E11_CHIPS * (1 + 1e-6)
+              for a in got["plans"]),
+          "serving_loop rask: a plan asks for more than 6 chips")
+    gap = abs(row["post_explore_fulfillment"] - want["post"])
+    row["fulfillment_gap"], row["tolerance"] = gap, 0.03
+    check(gap <= 0.03, f"serving_loop rask: fulfillment "
+          f"{row['post_explore_fulfillment']} on the card vs "
+          f"{want['post']} on the CPU")
+    res["auto_minus_fixed_card"] = (res["rask"]["post_explore_fulfillment"]
+                                    - res["fixed"]["post_explore_fulfillment"])
+    res["auto_minus_fixed_cpu"] = (
+        res["rask"]["post_explore_fulfillment_cpu"]
+        - res["fixed"]["post_explore_fulfillment_cpu"])
+    log(json.dumps({k: v for k, v in res.items()
+                    if k not in ("fixed", "rask")}))
+    return res
+
+
 # -- the summary ------------------------------------------------------------------
 
 def kernel_entry(rows, kernel, case, launches, source, replaces,
@@ -1427,6 +1875,15 @@ def main(argv=None):
     print(json.dumps(ssm_serve), flush=True)
     ssm_trace = phase_trace(ssm_engine, name="ssm_trace")
     print(json.dumps(ssm_trace), flush=True)
+    del ssm_engine
+
+    engine_compare = phase_engine_compare(dev)
+    print(json.dumps(engine_compare), flush=True)
+    loop = phase_serving_loop(dev)
+    print(json.dumps(loop), flush=True)
+    loop_launches = {k: loop["fixed"]["launches"][k]
+                     + loop["rask"]["launches"][k]
+                     for k in loop["rask"]["launches"]}
 
     kernels = {"kernels": [
         # local layers: 22 of 26
@@ -1450,6 +1907,45 @@ def main(argv=None):
         kernel_entry(ssd_kernels["cases"], "ssd_scan", "b1_l1024",
                      ssm_serve["launches"]["ssd_scan"], SSD_SOURCE,
                      "src/repro/kernels/ssd_scan.py:79")]}
+    # each kernel's launches on every path that ran it: "launches" above is
+    # its own slice's serving or autoscale phase
+    compare = [engine_compare[k][f"{e}_launches"] for k in engine_compare
+               if k.startswith("slots=") for e in ("dict", "stacked")]
+    by_phase = {
+        "decode_attention": {"serve": serve["launches"]["decode_attention"],
+                             "engine_compare": sum(
+                                 c["decode_attention"] for c in compare),
+                             "serving_loop":
+                                 loop_launches["decode_attention"]},
+        "flash_attention": {"serve": serve["flash_variant_launches"]["wgmma"],
+                            "engine_compare": sum(c["wgmma"]
+                                                  for c in compare),
+                            "serving_loop": loop_launches["flash_wgmma"]},
+        "rask_objective": {"autoscale": auto["launches"]["rask_objective"],
+                           "serving_loop": loop_launches["rask_objective"]},
+        "rask_objective_grad": {
+            "autoscale": auto["launches"]["rask_objective_grad"],
+            "serving_loop": loop_launches["rask_objective_grad"]}}
+    # and their times at e11's shapes (attention in bf16; the RASK kernels
+    # on the loop's own agent, whose errors count in the entry's worst)
+    e11_cases = {"decode_attention": ("e11_stacked", "e11_dict"),
+                 "flash_attention": ("e11_S13", "e11_S32")}
+    e11_rows = [r for r in rows if r["dtype"] == "bfloat16"] \
+        + loop["rask_kernels"]
+    for r in loop["rask_kernels"]:
+        e11_cases.setdefault(r["kernel"], (r["case"],))
+    for entry in kernels["kernels"]:
+        if entry["name"] in by_phase:
+            entry["launches_by_phase"] = by_phase[entry["name"]]
+        for case in e11_cases.get(entry["name"], ()):
+            rep = next(r for r in e11_rows if r["kernel"] == entry["name"]
+                       and r["case"] == case)
+            entry[case] = {k: rep[k] for k in ("ms", "call_ms", "plain_ms",
+                                               "library_ms", "max_abs_err")}
+            entry[case]["bound_ms"], entry[case]["bound_by"] = rep["bound"]
+            if entry["name"].startswith("rask"):
+                entry["max_abs_err"] = max(entry["max_abs_err"],
+                                           rep["max_abs_err"])
     print(json.dumps(kernels), flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -1462,7 +1958,8 @@ def main(argv=None):
              "rask_crosscheck": rask_cross, "autoscale": auto,
              "rask_trace": rask_trace, "ssd_kernels": ssd_kernels,
              "ssm_crosscheck": ssm_cross, "ssm_serve": ssm_serve,
-             "ssm_trace": ssm_trace, **kernels},
+             "ssm_trace": ssm_trace, "engine_compare": engine_compare,
+             "serving_loop": loop, **kernels},
             indent=1))
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

@@ -11,7 +11,7 @@ from .rask import RaskConfig, RASKAgent
 from .regression import (BatchedFitPlan, PolynomialModel, StackedModels,
                          polynomial_exponents)
 from .slo import SLO, completion, fulfillment, global_fulfillment, \
-    service_fulfillment, violation_rate
+    service_fulfillment, violation_rate, windowed_violation_rate
 from .solver import ServiceSpec, SolverProblem
 
 __all__ = [
@@ -21,5 +21,6 @@ __all__ = [
     "MUDAP", "ServiceBackend", "RaskConfig", "RASKAgent", "BatchedFitPlan",
     "PolynomialModel", "StackedModels", "polynomial_exponents", "SLO",
     "completion", "fulfillment", "global_fulfillment", "service_fulfillment",
-    "violation_rate", "ServiceSpec", "SolverProblem",
+    "violation_rate", "windowed_violation_rate", "ServiceSpec",
+    "SolverProblem",
 ]

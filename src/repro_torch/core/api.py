@@ -185,7 +185,7 @@ def water_fill(demands: np.ndarray, floors: np.ndarray,
 class DecisionInfo:
     """Side-channel metadata of one ``decide()`` call (for CycleRecords).
 
-    The port keeps the fields its agent fills; ``repro``'s placement, burn,
+    The port keeps the fields its agent fills; ``repro``'s placement,
     pipeline and forecast fields return with those features (ROADMAP)."""
 
     explored: bool = False
@@ -197,6 +197,10 @@ class DecisionInfo:
     # PGD solver budget of this decide (0: not a PGD solve cycle)
     pgd_starts: int = 0
     pgd_iters: int = 0
+    # SLO error-budget control plane (obs): services with a firing
+    # fast-burn alert, and the worst long-window burn rate seen this cycle
+    burn_alerts: int = 0
+    max_burn: float = 0.0
 
 
 @dataclasses.dataclass

@@ -36,12 +36,19 @@ its device, which draws the random starts' uniforms and then the noise.
 So exploration plans match ``repro`` draw for draw; solved plans differ
 by the generator (``jax.random`` and ``torch`` give different numbers).
 
+SLO error budgets: ``attach_accountant`` binds an ``obs.SLOAccountant``;
+every ``observe`` advances it and every ``DecisionInfo`` carries its
+``burn_alerts`` and ``max_burn``. In ``repro`` a firing fast-burn alert
+restores a shrunk solver budget and weights the rebalance's placement
+scores; the port never shrinks the budget and does not rebalance yet, so
+on one host the accountant reports and changes no plan.
+
 Options not ported yet raise ``NotImplementedError`` naming their ROADMAP
 item when set to a non-default value: ``backend="slsqp"``,
 ``fused=False``, ``pipeline``, ``forecast``, ``rebalance_every``,
-``adapt_budget``, ``auto_degree``, an attached SLO accountant and a
-multi-host platform. Transfer priors are captured only at churn, which the
-port does not have yet, so ``_prior_args`` always gives zeros.
+``adapt_budget``, ``auto_degree`` and a multi-host platform. Transfer
+priors are captured only at churn, which the port does not have yet, so
+``_prior_args`` always gives zeros.
 ``repro``'s ``aot``, ``shard`` and ``objective_impl`` fields are left out:
 they choose how JAX compiles, shards and which implementation scores;
 here nothing compiles, one card takes the whole solve, and the tensors'
@@ -76,6 +83,7 @@ _UNPORTED = {
     "pipeline": (False, "3 (pipeline)"),
     "forecast": (False, "4 (forecast.py)"),
     "rebalance_every": (0, "2 (PlacementProblem)"),
+    "burn_weight_cap": (4.0, "2 (PlacementProblem)"),
     "adapt_budget": (False, "5 (adapt_budget)"),
     "auto_degree": (False, "8 (auto_degree)"),
 }
@@ -123,6 +131,15 @@ class RaskConfig:
     rebalance_every: int = 0    # not ported yet
     adapt_budget: bool = False  # not ported yet
     forecast: bool = False      # not ported yet
+    # SLO error-budget control (obs, active once an accountant is
+    # attached): in ``repro`` a firing fast-burn alert restores the full
+    # solver budget and overrides the rebalance cadence, and the burn
+    # weights (capped at burn_weight_cap) scale placement-score rows;
+    # with neither adapt_budget nor rebalance ported, only the alert count
+    # is read here, and burn_weight_cap keeps its default until rebalance
+    # lands
+    burn_control: bool = True
+    burn_weight_cap: float = 4.0    # max extra weight (see burn_weights)
 
     def check_ported(self) -> None:
         for name, (default, item) in _UNPORTED.items():
@@ -183,6 +200,10 @@ class RASKAgent(PlanningAgent):
         self._last_rps: Dict[str, float] = {}
         self._gen = torch.Generator(self.device)
         self.compile_s_total = 0.0
+        # SLO error-budget control plane (attach_accountant): burn states
+        # from the last observe
+        self.accountant = None
+        self.burn_states: Dict[str, object] = {}
         self._build_s = self._build_kernels()
         self._build_rel_static()
 
@@ -238,9 +259,24 @@ class RASKAgent(PlanningAgent):
                 relation_features=tuple(rels)))
         return SolverProblem(specs, device=self.device)
 
+    # -- SLO error-budget control plane (obs) -----------------------------------
     def attach_accountant(self, accountant) -> None:
-        raise _todo("the SLO accountant (repro.obs)", "6 (obs/* and the "
-                    "accountant)")
+        """Bind an ``obs.SLOAccountant``: every ``observe`` refreshes its
+        rolling SLI rings (one bulk columnar pass, plain numpy, nothing on
+        the card), and ``decide`` reads its fast-burn alerts."""
+        self.accountant = accountant
+
+    def _fast_alerts(self) -> List[str]:
+        """Services whose fastest burn policy is firing (empty without an
+        attached accountant or with ``burn_control`` off)."""
+        if self.accountant is None or not self.cfg.burn_control:
+            return []
+        return self.accountant.fast_alerts()
+
+    def _max_burn(self) -> float:
+        """Worst long-window burn rate across services (0.0 when idle)."""
+        return max((st.burn_rate() for st in self.burn_states.values()),
+                   default=0.0)
 
     # -- observation (§IV-A) ---------------------------------------------------
     def observe(self, t: float, window: float = 5.0
@@ -260,6 +296,8 @@ class RASKAgent(PlanningAgent):
             rps = row.get("rps")
             if rps is not None and np.isfinite(rps):
                 self._last_rps[sid] = float(rps)
+        if self.accountant is not None:
+            self.burn_states = self.accountant.update(t)
         return states
 
     # -- Algorithm 1 ------------------------------------------------------------
@@ -270,10 +308,16 @@ class RASKAgent(PlanningAgent):
         if self.rounds < self.cfg.xi:                       # lines 3-5
             self.last_decision = DecisionInfo(explored=True)
             return self._plan(self._explore())
+        # a firing fast-burn alert: ``repro`` restores its full solver
+        # budget here, which the port always runs (adapt_budget is not
+        # ported), so the alerts are only reported
+        alerts = self._fast_alerts()
         t0 = time.perf_counter()
         out = self._solve_cycle(obs)                        # lines 6-11
         if out is None:
-            self.last_decision = DecisionInfo(explored=True)
+            self.last_decision = DecisionInfo(
+                explored=True, burn_alerts=len(alerts),
+                max_burn=self._max_burn())
             return self._plan(self._explore())
         runtime = time.perf_counter() - t0
         compile_s, self._build_s = self._build_s, 0.0
@@ -283,7 +327,8 @@ class RASKAgent(PlanningAgent):
         self.last_decision = DecisionInfo(
             explored=False, runtime_s=runtime, compile_s=compile_s,
             score=score, pgd_starts=self.cfg.pgd_starts,
-            pgd_iters=self.cfg.pgd_iters)
+            pgd_iters=self.cfg.pgd_iters, burn_alerts=len(alerts),
+            max_burn=self._max_burn())
         return self._plan(noised)
 
     def _solve_cycle(self, obs):

@@ -5,7 +5,7 @@ Implements Eq. (1) fulfillment, Eq. (6) completion rate, and Eq. (8)
 globally-weighted fulfillment. The solver's differentiable fulfillment is
 the RASK objective kernel (``kernels/ops.py::rask_objective``); these are
 the host-side measurements. ``windowed_violation_rate`` delegates to the
-SLO accounting plane (``repro.obs``) in the original and comes back with it.
+SLO accounting plane (``obs.slo_accounting``), as in ``repro``.
 """
 from __future__ import annotations
 
@@ -80,3 +80,22 @@ def violation_rate(history: Sequence[float], threshold: float = 1.0) -> float:
     if not history:
         return 0.0
     return float(sum(1 for f in history if float(f) < threshold)) / len(history)
+
+
+def windowed_violation_rate(ts: Sequence[float], history: Sequence[float],
+                            window: float, until=None,
+                            threshold: float = 1.0) -> float:
+    """Rolling variant of ``violation_rate``: the share of samples below
+    ``threshold`` among those in the half-open window ``(until - window,
+    until]`` (default ``until``: the last timestamp).
+
+    Delegates to the SLO accounting plane's ``error_rate``
+    (``obs.slo_accounting``) so benchmarks and the error-budget control
+    plane report the same rolling number from ONE code path — a violation
+    here IS a bad SLI sample there. ``ts`` must be sorted ascending and
+    aligned with ``history``.
+    """
+    # deferred import: obs imports SLO from this module
+    from ..obs.slo_accounting import error_rate
+    f = np.asarray(list(history), np.float64)
+    return error_rate(ts, f < threshold, window, until)

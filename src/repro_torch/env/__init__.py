@@ -1,13 +1,15 @@
 """The simulated Edge device (the port's copies of ``repro/env``): the
-paper's service profiles, request-load patterns and the one-host
-simulator."""
+paper's and the LM services' profiles, request-load patterns, the one-host
+simulator, and the real-serving scenario (``scenarios.py``)."""
 from .profiles import (CV_PROFILE, PC_PROFILE, QR_PROFILE, ServiceProfile,
-                       paper_knowledge, paper_profiles)
+                       lm_profile, paper_knowledge, paper_profiles)
+from .scenarios import real_serving_scenario, sim_slo_budget
 from .simulator import ContainerPool, CycleRecord, EdgeEnvironment, \
     SimulatedService
 from .workloads import bursty, constant, diurnal
 
 __all__ = ["ServiceProfile", "QR_PROFILE", "CV_PROFILE", "PC_PROFILE",
-           "paper_profiles", "paper_knowledge", "ContainerPool",
+           "lm_profile", "paper_profiles", "paper_knowledge", "ContainerPool",
            "CycleRecord", "EdgeEnvironment", "SimulatedService", "bursty",
-           "constant", "diurnal"]
+           "constant", "diurnal", "real_serving_scenario",
+           "sim_slo_budget"]

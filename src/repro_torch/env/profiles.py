@@ -1,6 +1,5 @@
-"""Service profiles: the paper's QR / CV / PC services (Tables II & III) —
-the port's copy of ``repro/env/profiles.py``. ``lm_profile`` and its rate
-model wait for the LM-serving loop (ROADMAP slice D).
+"""Service profiles: the paper's QR / CV / PC services (Tables II & III)
+plus LM-serving profiles — the port's copy of ``repro/env/profiles.py``.
 
 A profile bundles what MUDAP needs to register a service (ApiDescription,
 SLOs, Table-III defaults, default RPS) with the simulator-only *hidden ground
@@ -17,15 +16,24 @@ Paper surfaces are chosen to reproduce the qualitative structure of Fig. 6:
  * PC — poor parallelization ("throughput is always highly impacted by data
    quality and cores, except for the PC service, which indicates poor
    parallelization") — nearly flat in cores.
+
+LM surfaces are roofline-derived: tokens/s/chip from the bf16 compute bound
+vs the HBM weight-streaming bound of the (possibly down-rung'd) model, with
+an optional calibration dict of measured rates overriding the analytic
+ones. The port rates a "chip" as one NVIDIA H100 (``repro`` rates a TPU).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Mapping, Sequence
+from typing import Callable, Dict, Mapping, Optional, Sequence
 
 from ..core.elasticity import ApiDescription, ElasticityParameter
 from ..core.slo import SLO
+
+# NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate and HBM3 bandwidth
+PEAK_FLOPS = 989e12          # bf16 / chip
+HBM_BW = 3.35e12             # bytes/s / chip
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,3 +124,65 @@ def paper_profiles() -> Dict[str, ServiceProfile]:
 def paper_knowledge() -> Dict[str, Dict[str, Sequence[str]]]:
     """Structural knowledge K (Eq. 7) for the paper's three service types."""
     return {p.type: dict(p.knowledge) for p in paper_profiles().values()}
+
+
+# --------------------------------------------------------------------------
+# LM-serving profiles
+# --------------------------------------------------------------------------
+
+_RUNG_FRACTION = {1: 0.25, 2: 0.5, 3: 0.75, 4: 1.0}   # depth/quant rung -> N_eff/N
+
+
+def _lm_rate_tokens_per_chip(n_params: float, rung: float,
+                             batch_eff: float = 32.0,
+                             mfu: float = 0.5, mbu: float = 0.7) -> float:
+    """Roofline decode rate per chip: min(compute bound, weight-streaming bound)."""
+    lo = int(math.floor(min(max(rung, 1.0), 4.0)))
+    hi = int(math.ceil(min(max(rung, 1.0), 4.0)))
+    fr = _RUNG_FRACTION[lo] + (rung - lo) * (_RUNG_FRACTION[hi] - _RUNG_FRACTION[lo])
+    n_eff = n_params * fr
+    compute = PEAK_FLOPS * mfu / (2.0 * n_eff)
+    memory = HBM_BW * mbu * batch_eff / (2.0 * n_eff)      # bf16 weights
+    return min(compute, memory)
+
+
+def lm_profile(name: str, n_params: float, *, default_rps: float = 4.0,
+               max_chips: float = 16.0, out_tokens: float = 256.0,
+               context_slo: float = 8192.0, rung_slo: float = 3.0,
+               calibration: Optional[Mapping[int, float]] = None
+               ) -> ServiceProfile:
+    """Profile for one LM service (arch ``name`` with ``n_params`` weights).
+
+    calibration: optional {rung: tokens/s/chip} measured rates; overrides
+    the analytic rate.
+    """
+
+    def tp(p: Mapping[str, float]) -> float:
+        rung = min(max(p["rung"], 1.0), 4.0)
+        if calibration:
+            lo, hi = int(math.floor(rung)), int(math.ceil(rung))
+            rate = calibration[lo] + (rung - lo) * (calibration[hi] -
+                                                    calibration[lo])
+        else:
+            rate = _lm_rate_tokens_per_chip(n_params, rung)
+        # request cost in decode-token equivalents: generated tokens plus the
+        # prefill of `context` tokens (compute-bound, ~20x cheaper per token)
+        req_cost = out_tokens + 0.05 * p["context"]
+        chips = max(p["chips"], 1e-3)
+        return chips * rate / req_cost
+
+    return ServiceProfile(
+        type=name,
+        api=_api(name, [
+            ("chips", "resources", "/resources", 0.25, max_chips, None, True),
+            ("context", "quality", "/quality", 2048.0, 32768.0, 128.0, False),
+            ("rung", "quality", "/model", 1.0, 4.0, 1.0, False),
+        ]),
+        slos=(SLO("context", context_slo, 0.5), SLO("rung", rung_slo, 0.2),
+              SLO("completion", 1.0, 1.0)),
+        defaults={"chips": max_chips / 3.0, "context": 16384.0, "rung": 3.0},
+        default_rps=default_rps,
+        tp_max=tp,
+        knowledge={"tp_max": ("chips", "context", "rung")},
+        parallel_eff=0.85,
+    )

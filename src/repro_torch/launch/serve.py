@@ -4,13 +4,16 @@ seeded synthetic requests (the counterpart of ``repro/launch/serve.py``).
     PYTHONPATH=src python -m repro_torch.launch.serve --full          # card
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu    # plain
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m --full
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --engine dict
 
 Without ``--full`` the registry config is cut to its ``.smoke()`` size in
 float32, as in the JAX driver; ``--full`` runs it as registered (gemma3-1b:
 26 layers, d_model 1152, vocab 262144, bf16; mamba2-370m: 48 layers,
 d_model 1024, vocab 50280, bf16). Weights are random, drawn
 from a seeded ``torch.Generator`` on the device. The device defaults to
-``cuda``, and a missing card is an error.
+``cuda``, and a missing card is an error. ``--engine dict`` selects the
+seed-era per-slot-cache baseline (one batch-1 decode per active slot); the
+default stacked engine decodes every slot in one batched step.
 """
 from __future__ import annotations
 
@@ -25,7 +28,8 @@ from ..configs import get
 from ..device import resolve_device
 from ..kernels import _build
 from ..models import build
-from ..serve.engine import EngineConfig, Request, ServingEngine
+from ..serve.engine import (DictCacheEngine, EngineConfig, Request,
+                            ServingEngine)
 
 
 def main(argv=None):
@@ -35,6 +39,8 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--engine", choices=("stacked", "dict"),
+                    default="stacked")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--full", action="store_true",
                     help="run the registered config, not its .smoke() cut")
@@ -48,7 +54,8 @@ def main(argv=None):
     model = build(cfg)
     params = model.init(torch.Generator(device).manual_seed(args.seed))
     max_seq = args.prompt_len + args.max_new + 8
-    engine = ServingEngine(model, params, EngineConfig(
+    cls = ServingEngine if args.engine == "stacked" else DictCacheEngine
+    engine = cls(model, params, EngineConfig(
         slots=args.slots, max_seq=max_seq, context=args.prompt_len,
         chips=max(4.0, args.prompt_len / 16)), device=device)
 
@@ -66,8 +73,8 @@ def main(argv=None):
         engine.step()
         ticks += 1
     dt = time.perf_counter() - t0
-    print(f"[{cfg.name} on {device}] completed {len(engine.completed)}/"
-          f"{args.requests} requests in {ticks} engine steps, {dt:.1f}s; "
+    print(f"[{cfg.name} {args.engine} on {device}] completed "
+          f"{len(engine.completed)}/{args.requests} requests in {ticks} engine steps, {dt:.1f}s; "
           f"tokens_out={engine.tokens_out} "
           f"({engine.tokens_out / max(dt, 1e-9):.1f} tok/s, "
           f"step={1e3 * (engine.step_ewma_s or 0.0):.2f}ms)")

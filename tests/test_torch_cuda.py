@@ -562,3 +562,83 @@ def test_smoke_mamba2_engine_goes_through_the_kernel(cuda_device):
     assert len(engine.completed) == len(reqs)
     assert all(len(r.generated) == 4 for r in engine.completed)
     assert ssd_cuda.launches - launches == cfg.n_layers * len(reqs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [512, 0])
+@pytest.mark.parametrize("S", [1, 5, 13, 17, 63])
+def test_flash_bf16_at_exact_prompt_lengths(cuda_device, S, window):
+    """The dict engine prefills gemma3-1b's prompts at their own length, not
+    at a bucket: one prompt, 4 query heads on 1 kv head, d_head 256, S
+    rows in a partial tile (TMA boxes past the rows are zero-filled)."""
+    g = torch.Generator(cuda_device).manual_seed(S + window)
+    q, k, v = (torch.randn((1, h, S, 256), generator=g, device=cuda_device)
+               .to(torch.bfloat16) for h in (4, 1, 1))
+    before = flash_attention_cuda.variant_launches["wgmma"]
+    got = flash_attention_cuda(q, k, v, causal=True, window=window)
+    want = ref.flash_attention_reference(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.variant_launches["wgmma"] == before + 1
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_tol(torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("length", [1, 7, 33, 64])
+def test_decode_kernel_one_row(cuda_device, dtype, length):
+    """The dict engine decodes one row: gemma3-1b's heads on a 64-slot
+    cache, the cluster sized from a grid of one (row, kv head)."""
+    from repro_torch.kernels.decode_attention import cluster_size
+    assert cluster_size(1, torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count) == 16
+    g = torch.Generator(cuda_device).manual_seed(length)
+    q = torch.randn((1, 4, 256), generator=g, device=cuda_device).to(dtype)
+    kc = torch.randn((1, 64, 1, 256), generator=g,
+                     device=cuda_device).to(dtype)
+    vc = torch.randn((1, 64, 1, 256), generator=g,
+                     device=cuda_device).to(dtype)
+    length_t = torch.tensor([length], dtype=torch.int32, device=cuda_device)
+    start = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    got = decode_attention_cuda(q, kc, vc, length_t, start)
+    want = ref.decode_attention_reference(q, kc, vc, length_t, start)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.cuda
+def test_served_loop_launches_follow_steps_and_admissions(cuda_device):
+    """A 12 s fixed-allocation serving loop of one ``ServedLMService`` on
+    gemma3-1b at full width cut to 2 layers (one local, one global), bf16:
+    one decode launch a layer an engine step, one wgmma flash launch a
+    layer an admitted prompt, every token in the vocab."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.core.platform import MUDAP
+    from repro_torch.kernels.flash_attention import reset_launches
+    from repro_torch.models import build
+    from repro_torch.serve import (ServedLMService, run_serving_loop,
+                                   served_lm_profile)
+    base = dataclasses.replace(get("gemma3-1b"), n_layers=2,
+                               local_global_period=2)
+    prof = served_lm_profile()
+    svc = ServedLMService(build, base, profile=prof, slots=4, max_seq=64,
+                          seed=0, steps_per_chip_s=5.0, device=cuda_device)
+    plat = MUDAP({"chips": 6.0})
+    plat.register(svc.sid, prof.api, svc, list(prof.slos),
+                  dict(prof.defaults))
+    svc._engine()                          # weights drawn before the count
+    decode_attention_cuda.launches = 0
+    reset_launches()
+    hist = run_serving_loop(plat, {str(svc.sid): lambda t: 3.0},
+                            duration_s=12.0, cycle_s=10.0)
+    torch.cuda.synchronize()
+    eng = svc._engine()
+    admitted = len(svc.ledger) + len(eng.active)
+    assert hist and svc.ledger and eng.admissions == admitted
+    assert decode_attention_cuda.launches == base.n_layers * eng.steps
+    assert flash_attention_cuda.variant_launches == {
+        "wgmma": base.n_layers * admitted, "tf32x3": 0}
+    for r in svc.ledger + list(eng.active.values()):
+        assert all(0 <= t < base.vocab for t in r.generated)

@@ -156,7 +156,8 @@ def test_batch_fit_mode_solves_with_the_streaming_fit():
                                     dict(forecast=True),
                                     dict(rebalance_every=2),
                                     dict(adapt_budget=True),
-                                    dict(auto_degree=True)])
+                                    dict(auto_degree=True),
+                                    dict(burn_weight_cap=2.0)])
 def test_unported_options_raise_naming_the_roadmap(option):
     env = EdgeEnvironment(list(paper_profiles().values()), {"cores": CAP})
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -197,10 +197,14 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = sorted(n for n in sys.modules\n"
         "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
-        "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
+        "print(' '.join(n for n in sys.modules if n.startswith('repro_torch')))"
+        "\n")
     src = str(Path(repro_torch.__file__).resolve().parents[1])
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": src})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 36          # every module was imported
+    loaded = set(out.stdout.split())
+    assert len(loaded) >= 44                      # every module was imported
+    assert {"repro_torch.obs.slo_accounting", "repro_torch.serve.service",
+            "repro_torch.serve.loop", "repro_torch.env.scenarios"} <= loaded
