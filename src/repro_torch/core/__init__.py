@@ -1,26 +1,29 @@
-"""The paper's contribution in the port: the MUDAP platform, the
-declarative control plane, and the RASK agent whose decide runs on the
-card (``regression.py`` fit, ``solver.py`` PGD solve over the hand-written
-objective kernel)."""
+"""The paper's contribution in the port: the MUDAP platform and the
+multi-host ``Fleet``, the declarative control plane, and the RASK agent
+whose decide runs on the card (``regression.py`` fit, ``solver.py`` PGD
+solve over the hand-written objective kernel, batched over a fleet's hosts
+and placement candidates)."""
 from .api import (Agent, APPLIED, CLIPPED, CycleResult, DecisionInfo,
                   ParameterOutcome, PlanningAgent, PlanReceipt, REJECTED,
                   ScalingPlan, water_fill)
 from .elasticity import ApiDescription, ElasticityParameter, ServiceId
+from .fleet import Fleet
 from .platform import MUDAP, ServiceBackend
 from .rask import RaskConfig, RASKAgent
 from .regression import (BatchedFitPlan, PolynomialModel, StackedModels,
                          polynomial_exponents)
 from .slo import SLO, completion, fulfillment, global_fulfillment, \
     service_fulfillment, violation_rate, windowed_violation_rate
-from .solver import ServiceSpec, SolverProblem
+from .solver import FleetSolverProblem, PlacementProblem, ServiceSpec, \
+    SolverProblem
 
 __all__ = [
     "Agent", "APPLIED", "CLIPPED", "REJECTED", "CycleResult", "DecisionInfo",
     "ParameterOutcome", "PlanningAgent", "PlanReceipt", "ScalingPlan",
     "water_fill", "ApiDescription", "ElasticityParameter", "ServiceId",
-    "MUDAP", "ServiceBackend", "RaskConfig", "RASKAgent", "BatchedFitPlan",
-    "PolynomialModel", "StackedModels", "polynomial_exponents", "SLO",
+    "Fleet", "MUDAP", "ServiceBackend", "RaskConfig", "RASKAgent",
+    "BatchedFitPlan", "PolynomialModel", "StackedModels", "polynomial_exponents", "SLO",
     "completion", "fulfillment", "global_fulfillment", "service_fulfillment",
-    "violation_rate", "windowed_violation_rate", "ServiceSpec",
-    "SolverProblem",
+    "violation_rate", "windowed_violation_rate", "FleetSolverProblem",
+    "PlacementProblem", "ServiceSpec", "SolverProblem",
 ]

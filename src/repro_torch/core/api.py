@@ -185,8 +185,8 @@ def water_fill(demands: np.ndarray, floors: np.ndarray,
 class DecisionInfo:
     """Side-channel metadata of one ``decide()`` call (for CycleRecords).
 
-    The port keeps the fields its agent fills; ``repro``'s placement,
-    pipeline and forecast fields return with those features (ROADMAP)."""
+    The port keeps the fields its agent fills; ``repro``'s pipeline and
+    forecast fields return with those features (ROADMAP)."""
 
     explored: bool = False
     runtime_s: float = 0.0                # steady-state fit + solve duration
@@ -197,6 +197,11 @@ class DecisionInfo:
     # PGD solver budget of this decide (0: not a PGD solve cycle)
     pgd_starts: int = 0
     pgd_iters: int = 0
+    # placement migrations applied by the per-cycle rebalance stage
+    moves: int = 0
+    # placement-scorer budget (0: no scoring ran this cycle)
+    score_starts: int = 0
+    score_iters: int = 0
     # SLO error-budget control plane (obs): services with a firing
     # fast-burn alert, and the worst long-window burn rate seen this cycle
     burn_alerts: int = 0

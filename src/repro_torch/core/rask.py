@@ -36,19 +36,40 @@ its device, which draws the random starts' uniforms and then the noise.
 So exploration plans match ``repro`` draw for draw; solved plans differ
 by the generator (``jax.random`` and ``torch`` give different numbers).
 
+On a multi-host ``Fleet`` the agent solves every host's services against
+that host's OWN capacity (``solver.FleetSolverProblem``): one batched solve
+per layout bucket, each ascent step one backward launch a bucket, still
+ONE device-to-host copy a decide. The fleet's random starts are one draw
+of (B, n_starts - 3, D_max) a bucket, in bucket order, from the same
+generator, before the noise. Exploration projects each host's draw onto
+its budget (``FleetSolverProblem.random_assignment``), draw for draw as
+``repro``.
+
+Placement: ``placement_scores`` scores every (service, host) what-if
+subset with one batched solve per layout bucket
+(``solver.PlacementProblem``, ``score_starts`` x ``score_iters``, starts
+from a generator seeded 0: a snapshot is deterministic) and ONE
+device-to-host copy; ``rebalance`` applies the best move per fresh
+snapshot until no gain clears the hysteresis gate, and
+``RaskConfig(rebalance_every=N)`` takes one snapshot every N solved
+cycles and applies at most one move. ``refresh_topology`` re-binds the
+agent after a host failure, drain or capacity change: the fitted models,
+the training table and the warm start stay; the fleet solve is rebuilt and
+the streaming fit's device window is repacked once (``_topo_gen``).
+
 SLO error budgets: ``attach_accountant`` binds an ``obs.SLOAccountant``;
 every ``observe`` advances it and every ``DecisionInfo`` carries its
-``burn_alerts`` and ``max_burn``. In ``repro`` a firing fast-burn alert
-restores a shrunk solver budget and weights the rebalance's placement
-scores; the port never shrinks the budget and does not rebalance yet, so
-on one host the accountant reports and changes no plan.
+``burn_alerts`` and ``max_burn``. A firing fast-burn alert takes a
+placement snapshot every cycle and scales its rows by the accountant's
+burn weights (capped at ``burn_weight_cap``). In ``repro`` it also
+restores a shrunk solver budget; the port never shrinks the budget.
 
 Options not ported yet raise ``NotImplementedError`` naming their ROADMAP
 item when set to a non-default value: ``backend="slsqp"``,
-``fused=False``, ``pipeline``, ``forecast``, ``rebalance_every``,
-``adapt_budget``, ``auto_degree`` and a multi-host platform. Transfer
-priors are captured only at churn, which the port does not have yet, so
-``_prior_args`` always gives zeros.
+``fused=False``, ``pipeline``, ``forecast``, ``adapt_budget`` and
+``auto_degree``; so does ``refresh_topology`` after a change of the
+service set (arrival or departure, item 7). Transfer priors are captured
+only at such a change, so ``_prior_args`` always gives zeros.
 ``repro``'s ``aot``, ``shard`` and ``objective_impl`` fields are left out:
 they choose how JAX compiles, shards and which implementation scores;
 here nothing compiles, one card takes the whole solve, and the tensors'
@@ -68,7 +89,8 @@ from .api import DecisionInfo, PlanningAgent, ScalingPlan
 from .platform import MUDAP
 from .regression import BatchedFitPlan, PolynomialModel, StackedModels, \
     fit_batched_arrays, pad_capacity
-from .solver import ServiceSpec, SolverProblem, pgd_solve
+from .solver import FleetSolverProblem, PlacementProblem, ServiceSpec, \
+    SolverProblem, cached_fn, pgd_solve
 from .telemetry import TrainingTable
 
 # Structural knowledge K: per service, target -> feature parameter names.
@@ -82,8 +104,6 @@ _UNPORTED = {
     "fused": (True, "9 (SLSQP and fused=False)"),
     "pipeline": (False, "3 (pipeline)"),
     "forecast": (False, "4 (forecast.py)"),
-    "rebalance_every": (0, "2 (PlacementProblem)"),
-    "burn_weight_cap": (4.0, "2 (PlacementProblem)"),
     "adapt_budget": (False, "5 (adapt_budget)"),
     "auto_degree": (False, "8 (auto_degree)"),
 }
@@ -128,16 +148,24 @@ class RaskConfig:
     # keeps an unbounded table
     table_retention: Optional[int] = 1024
     pipeline: bool = False      # not ported yet
-    rebalance_every: int = 0    # not ported yet
+    # per-cycle placement stage: every N post-exploration cycles take one
+    # batched placement-score snapshot and apply at most one migration
+    # (0 = off; rebalancing then only happens via explicit ``rebalance()``)
+    rebalance_every: int = 0
+    # placement scoring budget: candidate subsets are warm-started from the
+    # cached optimum's slices and only their marginal ORDERING matters (the
+    # hysteresis gate absorbs score polish), so the scorer runs a lighter
+    # deterministic budget than the decide solve
+    score_starts: int = 4
+    score_iters: int = 16
     adapt_budget: bool = False  # not ported yet
     forecast: bool = False      # not ported yet
     # SLO error-budget control (obs, active once an accountant is
-    # attached): in ``repro`` a firing fast-burn alert restores the full
-    # solver budget and overrides the rebalance cadence, and the burn
-    # weights (capped at burn_weight_cap) scale placement-score rows;
-    # with neither adapt_budget nor rebalance ported, only the alert count
-    # is read here, and burn_weight_cap keeps its default until rebalance
-    # lands
+    # attached): a firing fast-burn alert overrides the rebalance cadence
+    # (a snapshot every cycle until it clears), and the burn weights
+    # (capped at burn_weight_cap) scale placement-score rows, so the one
+    # move a snapshot goes to the service burning fastest; ``repro``'s
+    # alert also restores a shrunk solver budget (adapt_budget, not ported)
     burn_control: bool = True
     burn_weight_cap: float = 4.0    # max extra weight (see burn_weights)
 
@@ -155,8 +183,9 @@ _EMPTY_Y = np.zeros((0,), np.float32)
 
 
 class RASKAgent(PlanningAgent):
-    """The action-perception loop of Fig. 3 bound to one MUDAP platform,
-    deciding on ``device`` (``cuda`` unless the caller asks for the CPU)."""
+    """The action-perception loop of Fig. 3 bound to one MUDAP platform or a
+    multi-host ``Fleet``, deciding on ``device`` (``cuda`` unless the
+    caller asks for the CPU)."""
 
     name = "rask"
 
@@ -164,9 +193,6 @@ class RASKAgent(PlanningAgent):
                  config: Optional[RaskConfig] = None, seed: int = 0,
                  device=None):
         super().__init__()
-        if hasattr(platform, "hosts"):
-            raise _todo("a multi-host Fleet platform", "1 (fleet.py + "
-                        "FleetSolverProblem)")
         self.cfg = config if config is not None else RaskConfig()
         self.cfg.check_ported()
         self.device = resolve_device(device)
@@ -184,6 +210,17 @@ class RASKAgent(PlanningAgent):
         self.capacity = platform.capacity[self.cfg.resource]
         self._cached_x: Optional[np.ndarray] = None
         self.problem = self._build_problem()
+        # topology generation: bumped by every fleet rebuild (migration,
+        # churn), it invalidates the streaming fit's device window once
+        self._topo_gen = 0
+        # on a Fleet, decide against each host's OWN capacity (one batched
+        # solve per layout bucket) instead of the aggregate relaxation
+        self.fleet_problem: Optional[FleetSolverProblem] = None
+        self._build_fleet_problem()
+        # candidate-batched placement scorers, keyed on residency topology
+        self._placement_cache: Dict[tuple, PlacementProblem] = {}
+        self._score_gen = torch.Generator(self.device)
+        self.moves_total = 0
         self._models_view: Optional[Dict[str, Dict[str, PolynomialModel]]] = None
         self.stacked: Optional[StackedModels] = None
         self._row_capacity = 0      # padded-fit bucket (power-of-two growth)
@@ -218,6 +255,19 @@ class RASKAgent(PlanningAgent):
         t0 = time.perf_counter()
         rask_objective._lib()
         return time.perf_counter() - t0
+
+    def _build_fleet_problem(self) -> None:
+        """(Re)bind the per-host fleet solve to the platform's CURRENT
+        placement — at construction and again after a migration or churn
+        (the bucket layouts follow the topology)."""
+        self._topo_gen += 1
+        platform = self.platform
+        if hasattr(platform, "hosts") and hasattr(platform, "host_of"):
+            self.fleet_problem = FleetSolverProblem(
+                self.problem,
+                {sid: platform.host_of(sid).host for sid in self.services},
+                {h.host: h.capacity[self.cfg.resource]
+                 for h in platform.hosts()})
 
     def _build_rel_static(self) -> None:
         """Static per-relation fit metadata (feature names + scales), in the
@@ -308,16 +358,21 @@ class RASKAgent(PlanningAgent):
         if self.rounds < self.cfg.xi:                       # lines 3-5
             self.last_decision = DecisionInfo(explored=True)
             return self._plan(self._explore())
-        # a firing fast-burn alert: ``repro`` restores its full solver
+        # a firing fast-burn alert: ``repro`` also restores its full solver
         # budget here, which the port always runs (adapt_budget is not
-        # ported), so the alerts are only reported
+        # ported); the alerts drive the placement stage
         alerts = self._fast_alerts()
+        moves, scored = self._maybe_rebalance(obs, alerts)
+        self.moves_total += len(moves)
+        placement = dict(
+            moves=len(moves),
+            score_starts=self.cfg.score_starts if scored else 0,
+            score_iters=self.cfg.score_iters if scored else 0,
+            burn_alerts=len(alerts), max_burn=self._max_burn())
         t0 = time.perf_counter()
         out = self._solve_cycle(obs)                        # lines 6-11
         if out is None:
-            self.last_decision = DecisionInfo(
-                explored=True, burn_alerts=len(alerts),
-                max_burn=self._max_burn())
+            self.last_decision = DecisionInfo(explored=True, **placement)
             return self._plan(self._explore())
         runtime = time.perf_counter() - t0
         compile_s, self._build_s = self._build_s, 0.0
@@ -327,9 +382,43 @@ class RASKAgent(PlanningAgent):
         self.last_decision = DecisionInfo(
             explored=False, runtime_s=runtime, compile_s=compile_s,
             score=score, pgd_starts=self.cfg.pgd_starts,
-            pgd_iters=self.cfg.pgd_iters, burn_alerts=len(alerts),
-            max_burn=self._max_burn())
+            pgd_iters=self.cfg.pgd_iters, **placement)
         return self._plan(noised)
+
+    def _maybe_rebalance(self, obs, alerts: Sequence[str] = ()
+                         ) -> Tuple[List[Tuple[str, str, str]], bool]:
+        """The optional per-cycle placement stage (``rebalance_every=N``):
+        every N post-exploration cycles take ONE fresh batched score
+        snapshot and apply at most one migration — the monotone one-move-
+        per-snapshot ascent of ``rebalance``, amortized over cycles. A
+        topology change rebuilds the fleet solve.
+
+        A firing fast-burn alert (``alerts``) overrides the cadence — a
+        snapshot is taken EVERY cycle until the alert clears — and the
+        snapshot's rows are scaled by the accountant's burn weights, so the
+        one-move budget is spent on the service burning error budget
+        fastest first. Returns (applied moves, whether a snapshot ran)."""
+        n = self.cfg.rebalance_every
+        if (n <= 0 or self.fleet_problem is None
+                or self.rounds < self.cfg.xi
+                or ((self.rounds - self.cfg.xi) % n != 0 and not alerts)):
+            return [], False
+        scores = self.placement_scores(obs)
+        if not scores:
+            return [], False
+        if alerts and self.accountant is not None:
+            # scale whole rows: within-row argmax (the best host) is
+            # unchanged, but a burning service's gain grows relative to
+            # calm services', so it wins the descending-gain ordering and
+            # clears the hysteresis gate sooner
+            weights = self.accountant.burn_weights(self.cfg.burn_weight_cap)
+            scores = {sid: {h: s * weights.get(sid, 1.0)
+                            for h, s in row.items()}
+                      for sid, row in scores.items()}
+        moves = self.platform.rebalance(scores, limit=1)
+        if moves:
+            self._build_fleet_problem()
+        return moves, True
 
     def _solve_cycle(self, obs):
         """One full fit+solve+NOISE pass; returns (optimum, noised plan
@@ -344,6 +433,8 @@ class RASKAgent(PlanningAgent):
 
     # -- Eq. (3) --------------------------------------------------------------
     def _explore(self) -> np.ndarray:
+        if self.fleet_problem is not None:
+            return self.fleet_problem.random_assignment(self.rng)
         return self.problem.random_assignment(self.rng, self.capacity)
 
     def _rps_vector(self, obs) -> np.ndarray:
@@ -394,12 +485,14 @@ class RASKAgent(PlanningAgent):
     def _stream_deltas(self):
         """The unseen training rows of every relation (cursor-driven delta
         export), or None when the stream state is missing or invalid — built
-        against another fit plan, a cursor lost rows to table compaction, or
+        against another topology generation or fit plan, a cursor lost rows
+        to table compaction, or
         the window outgrew the device ring's row bucket — in which case the
         caller rebuilds through ``_collect_fit_data`` (ONE counted design
         upload)."""
         st = self._stream
-        if (st is None or st["plan_key"] != self._fit_plan_key
+        if (st is None or st["gen"] != self._topo_gen
+                or st["plan_key"] != self._fit_plan_key
                 or self._fit_plan is None):
             return None
         ret = self.table.retention
@@ -432,7 +525,7 @@ class RASKAgent(PlanningAgent):
             cursors=[self.table.appended(sid)
                      for sid, *_ in self._rel_static],
             rows=[len(Y) for _, Y in data],
-            plan_key=self._fit_plan_key, pushes=0)
+            gen=self._topo_gen, plan_key=self._fit_plan_key, pushes=0)
 
     def _collect_fit_data(self):
         """Design matrices for all |S|x|K| relations, plus plan upkeep.
@@ -528,14 +621,22 @@ class RASKAgent(PlanningAgent):
     def _tail(self, sm: StackedModels, x0: torch.Tensor, seed: int,
               rps: torch.Tensor) -> torch.Tensor:
         """Solve + NOISE from the fitted models; the generator seeded with
-        ``seed`` draws the random starts' uniforms, then the noise."""
+        ``seed`` draws the random starts' uniforms, then the noise. Returns
+        [a | noised | scores] (one score, or one a host of a fleet)."""
         cfg = self.cfg
-        problem = self.problem
+        problem, fp = self.problem, self.fleet_problem
         u = self._start_uniforms(seed)
-        a, score = pgd_solve(x0, u, problem.tables, sm, rps,
-                             float(self.capacity), n_starts=cfg.pgd_starts,
-                             iters=cfg.pgd_iters, lr=cfg.pgd_lr,
-                             n_services=len(problem.specs))
+        if fp is None:
+            a, score = pgd_solve(x0, u, problem.tables, sm, rps,
+                                 float(self.capacity),
+                                 n_starts=cfg.pgd_starts,
+                                 iters=cfg.pgd_iters, lr=cfg.pgd_lr,
+                                 n_services=len(problem.specs))
+            score = score.reshape(1)
+        else:
+            # one batched solve per layout bucket, packed scatter back
+            a, score = fp.solve_rows(x0, u, sm, rps, n_starts=cfg.pgd_starts,
+                                     iters=cfg.pgd_iters, lr=cfg.pgd_lr)
         eta = self._eta_t()
         if eta > 0:
             eps = torch.randn(a.shape, generator=self._gen,
@@ -543,13 +644,16 @@ class RASKAgent(PlanningAgent):
             noised = self._noise(a, eps)
         else:
             noised = a
-        return torch.cat([a, noised, score.reshape(1)])
+        return torch.cat([a, noised, score])
 
-    def _start_uniforms(self, seed: int) -> torch.Tensor:
+    def _start_uniforms(self, seed: int):
         """Seed the agent's generator with this decide's seed and draw the
-        random starts' uniforms (n_starts - 3, D) from it; the noise comes
-        next from the same generator."""
+        random starts' uniforms from it: (n_starts - 3, D) on one host, one
+        (B, n_starts - 3, D_max) a layout bucket of a fleet. The noise
+        comes next from the same generator."""
         self._gen.manual_seed(seed)
+        if self.fleet_problem is not None:
+            return self.fleet_problem.uniforms(self._gen, self.cfg.pgd_starts)
         return torch.rand((max(self.cfg.pgd_starts - 3, 0), self.problem.dim),
                           generator=self._gen, device=self.device)
 
@@ -562,7 +666,156 @@ class RASKAgent(PlanningAgent):
         self.stacked = self._fit_plan.stacked(w)   # weights stay on device
         self._models_view = None
         d = self.problem.dim
-        return out[:d], out[d:2 * d], float(out[2 * d])
+        return out[:d], out[d:2 * d], float(out[2 * d:].sum())
+
+    # -- marginal-fulfillment placement (candidate-batched scorer) --------------
+    def _placement_problem(self, residents: Dict[str, Tuple[int, ...]],
+                           caps: Dict[str, float]
+                           ) -> Tuple[PlacementProblem,
+                                      Dict[Tuple[str, str], Tuple[int, int]]]:
+        """The candidate batch for the CURRENT residency: per host its
+        resident subset, plus per (service, host) the with/without what-if
+        variant — deduplicated (all of a host's 'without' variants share its
+        base subset) and built once per topology (bounded cache of 4).
+        Returns the (cached) ``PlacementProblem`` and the candidate-index
+        plan {(sid, host): (with_id, without_id)}."""
+        hosts = sorted(residents)
+        sidx = {s.name: i for i, s in enumerate(self.problem.specs)}
+        cand: Dict[Tuple[str, Tuple[int, ...]], int] = {}
+        subsets: List[Tuple[int, ...]] = []
+        capacities: List[float] = []
+
+        def cid(host: str, subset: Tuple[int, ...]) -> int:
+            k = cand.get((host, subset))
+            if k is None:
+                k = cand[(host, subset)] = len(subsets)
+                subsets.append(subset)
+                capacities.append(float(caps[host]))
+            return k
+
+        plan: Dict[Tuple[str, str], Tuple[int, int]] = {}
+        base = {h: cid(h, residents[h]) for h in hosts}
+        for sid in self.services:
+            i = sidx[sid]
+            cur = self.platform.host_of(sid).host
+            for h in hosts:
+                if h == cur:
+                    plan[(sid, h)] = (
+                        base[h],
+                        cid(h, tuple(j for j in residents[h] if j != i)))
+                else:
+                    plan[(sid, h)] = (
+                        cid(h, tuple(sorted(residents[h] + (i,)))), base[h])
+        key = tuple((h, residents[h], float(caps[h])) for h in hosts)
+        pp = cached_fn(self._placement_cache, key,
+                       lambda: PlacementProblem(self.problem, subsets,
+                                                capacities), size=4)
+        return pp, plan
+
+    def _score_uniforms(self, pp: PlacementProblem):
+        """The placement snapshot's random starts: a generator seeded 0
+        (the snapshot is deterministic), one draw a layout bucket."""
+        self._score_gen.manual_seed(0)
+        return pp.uniforms(self._score_gen, self.cfg.score_starts)
+
+    def placement_scores(self, obs: Optional[Mapping] = None
+                         ) -> Dict[str, Dict[str, float]]:
+        """Predicted marginal SLO fulfillment of every (service, host) pair.
+
+        For service s and host h: solve h's residents WITH s under h's own
+        budget, minus the solve WITHOUT s — the fulfillment the fleet gains
+        (or loses, when s squeezes the residents' shares) by hosting s on h.
+        All O(|S| x |H|) candidate subsets are scored by one batched solve
+        per layout bucket (``PlacementProblem``) and ONE device-to-host
+        copy. Deterministic, so ``Fleet.rebalance`` fed these scores is
+        idempotent. Returns {} off a Fleet or until every relation has a
+        fitted model (exploration phase)."""
+        if self.fleet_problem is None:
+            return {}
+        if self.stacked is None:
+            data = self._collect_fit_data()
+            if data is None:
+                return {}
+            self.stacked = self._fit_plan.fit(data)
+            self._models_view = None
+        problem = self.problem
+        rps = self._rps_vector(obs)
+        x0 = self._cached_x if self._cached_x is not None else \
+            (0.5 * (problem.lower + problem.upper)).astype(np.float32)
+        sidx = {s.name: i for i, s in enumerate(problem.specs)}
+        hosts = {h.host: h for h in self.platform.hosts()}
+        caps = {name: h.capacity[self.cfg.resource]
+                for name, h in hosts.items()}
+        residents = {name: tuple(sorted(sidx[s] for s in h.services()
+                                        if s in sidx))
+                     for name, h in hosts.items()}
+        pp, plan = self._placement_problem(residents, caps)
+        vec = pp.scores(self.stacked, rps, x0, n_starts=self.cfg.score_starts,
+                        iters=self.cfg.score_iters, lr=self.cfg.pgd_lr,
+                        u=self._score_uniforms(pp))
+        out: Dict[str, Dict[str, float]] = {}
+        for sid in self.services:
+            row = {}
+            for name in hosts:
+                w, wo = plan[(sid, name)]
+                row[name] = float(vec[w] - vec[wo])
+            out[sid] = row
+        return out
+
+    def rebalance(self, obs: Optional[Mapping] = None,
+                  hysteresis: Optional[float] = None
+                  ) -> List[Tuple[str, str, str]]:
+        """Migrate services toward higher predicted marginal fulfillment,
+        one move per fresh score snapshot.
+
+        A move's gain (best host's score minus the current host's) is
+        exactly the predicted fleet-fulfillment delta of applying it, so
+        applying the single best move and re-scoring walks total
+        fulfillment strictly upward by more than the hysteresis gate per
+        move — the loop terminates, never ping-pongs a service, and a
+        second ``rebalance`` right after convergence is a no-op. Rebinds
+        the bucketed fleet solve to the final topology. Returns the
+        applied moves as (sid, from, to)."""
+        all_moves: List[Tuple[str, str, str]] = []
+        for _ in range(2 * max(len(self.services), 1)):   # safety cap
+            scores = self.placement_scores(obs)
+            if not scores:
+                break
+            moves = self.platform.rebalance(scores, hysteresis, limit=1)
+            if not moves:
+                break
+            all_moves.extend(moves)
+        if all_moves:
+            self._build_fleet_problem()   # bucket layouts follow placement
+        return all_moves
+
+    def refresh_topology(self) -> None:
+        """Re-bind the agent to the platform's CURRENT topology after churn
+        that keeps the service set (host failure or drain, capacity
+        degradation — ``env.simulator`` churn events call this): the fitted
+        models, the training table and the warm start stay; the aggregate
+        capacity and the per-host fleet solve rebuild, and the streaming
+        fit repacks its device window once. A change of the service set
+        (arrival or departure) raises ``NotImplementedError``: it needs the
+        transfer priors (ROADMAP Queue 1, item 7)."""
+        current = self.platform.services()
+        cur_set = set(current)
+        kept = [s for s in self.services if s in cur_set]
+        new = [s for s in current if s not in set(self.services)]
+        if kept != self.services or new:
+            raise _todo("refresh_topology after a change of the service set",
+                        "7 (transfer priors and refresh_topology)")
+        self.capacity = self.platform.capacity[self.cfg.resource]
+        # prune departed services from the control-plane state — on every
+        # refresh, as repro does: stale burn states and accountant rings
+        # would keep a departed service's last SLI firing alerts
+        self.burn_states = {s: st for s, st in self.burn_states.items()
+                            if s in cur_set}
+        if self.accountant is not None:
+            self.accountant.prune(current)
+        for sid in [s for s in self._last_rps if s not in cur_set]:
+            self._last_rps.pop(sid, None)
+        self._build_fleet_problem()   # placement/capacity change only
 
     # -- NOISE (Eq. 5) ------------------------------------------------------------
     def _eta_t(self) -> float:

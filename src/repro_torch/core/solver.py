@@ -21,9 +21,34 @@ The uniform draws of the random starts are an argument ``u``
 ((n_starts - 3, D)), drawn by the caller from an explicit
 ``torch.Generator``, so a test can feed the port the numbers ``repro`` drew.
 
-Not ported yet (ROADMAP Queue 1, slice B deferrals): the SLSQP reference
-and the seed's loop objective (``fused=False``), ``solve_many``,
-``FleetSolverProblem`` and ``PlacementProblem``.
+``pgd_solve`` runs B independent problems at once over a leading row axis
+(``repro`` vmaps it): x0 (B, D), u (B, n_starts - 3, D), every table with a
+leading B, capacity (B,). Each ascent step is one launch of the backward
+kernel for all B rows, and the finals' scores one launch of the forward.
+One problem is the case B = 1 (unbatched arguments are accepted as such).
+Three callers batch rows:
+
+* ``FleetSolverProblem`` — a multi-host Fleet's per-host subproblems,
+  grouped into power-of-two layout buckets (``bucket_key``), each bucket
+  padded to its member maxima (``FleetBucket``) and solved with its
+  per-host capacities as one batch, the solved vectors scattered back into
+  the global plan;
+* ``PlacementProblem`` — candidate (service subset, capacity) rows, which
+  may OVERLAP in services, bucketed by the same machinery and scored as
+  one batch per bucket (``RASKAgent.placement_scores``);
+* their ``solve_sequential``/``scores_sequential`` oracles, which run each
+  row alone (B = 1) on the same padded tables and uniforms.
+
+``bucketed="auto"`` merges single-member buckets into a neighbouring
+layout and, for fleets, collapses tiny mixed fleets to one shared layout;
+the thresholds (``_AUTO_BUCKET_MIN_HOSTS``, ``_AUTO_PAD_FACTOR``) are
+``repro``'s, tuned there for XLA-CPU's dispatch floor and kept so that the
+port's layouts equal ``repro``'s. ``repro``'s ``shard`` option (spreading
+each bucket over devices) is left out: one card takes the whole solve.
+
+Not ported yet (ROADMAP Queue 1, slice B deferral 9): the SLSQP reference
+and the seed's loop objective (``fused=False``), and with them
+``SolverProblem.solve_many``.
 """
 from __future__ import annotations
 
@@ -36,7 +61,8 @@ import numpy as np
 import torch
 
 from ..kernels import ops as kernel_ops
-from .regression import PolynomialModel, StackedModels, stack_models
+from .regression import PolynomialModel, StackedModels, pad_capacity, \
+    stack_models
 from .slo import SLO
 
 COMPLETION = "completion"
@@ -74,6 +100,19 @@ class ProblemTables(NamedTuple):
     slo_target: torch.Tensor     # (Q,)
     slo_pidx: torch.Tensor       # (Q,) int32 — decision index (kind 0)
     slo_ridx: torch.Tensor       # (Q,) int32 — relation index (kinds 1, 2)
+
+
+def cached_fn(cache: Dict[tuple, object], key: tuple, build,
+              size: int = 8):
+    """Bounded keyed cache: get-or-build, evicting the oldest entry past
+    ``size`` (``repro``'s one cache policy for built solver variants)."""
+    fn = cache.get(key)
+    if fn is None:
+        fn = build()
+        if len(cache) >= size:
+            cache.pop(next(iter(cache)))
+        cache[key] = fn
+    return fn
 
 
 def project_capacity(a, lower, upper, mask, capacity,
@@ -125,23 +164,46 @@ def score_candidates(A, tables: ProblemTables, sm: StackedModels, rps,
     return candidate_segments(A, tables, sm, rps, n_services).sum(-1)
 
 
+def _rows(tables: ProblemTables, sm: StackedModels):
+    """One problem's tables and models as a batch of one row."""
+    return (ProblemTables(*(t[None] for t in tables)),
+            StackedModels(sm.w[None], sm.exponents[None], sm.term_mask[None],
+                          sm.x_scale[None], sm.max_degree, sm.labels))
+
+
 def pgd_solve(x0, u, tables: ProblemTables, sm: StackedModels, rps,
-              capacity: float, *, n_starts: int, iters: int, lr: float,
+              capacity, *, n_starts: int, iters: int, lr: float,
               n_services: int):
-    """Multi-start projected-gradient ascent for one problem instance;
-    returns (assignment (D,), score ()) as tensors on x0's device.
+    """Multi-start projected-gradient ascent for B problem rows at once;
+    returns (assignments (B, D), scores (B,)) as tensors on x0's device.
+
+    x0 (B, D), u (B, n_starts - 3, D), tables and models with a leading B,
+    rps (B, S), capacity a float or a tensor (B,) of per-row budgets. With
+    x0 (D,), u (n_starts - 3, D) and one problem's tables, it solves that
+    problem as the case B = 1 and returns (D,) and ().
 
     The start set is structured — the warm start, the water-filled upper
     bounds, the box midpoint, then ``lower + u * (upper - lower)`` for the
-    uniform draws ``u`` (n_starts - 3, D) — and all starts ascend together
-    as one (K, D) batch. Interior steps project with a shallow 6-step
-    bisection, the step size follows a cosine decay from ``lr``, Adam
-    moments scale the step per coordinate, and the finals are re-projected
-    exactly against (1 - _CAP_MARGIN) C. Nothing here waits on the card.
+    uniform draws ``u`` — and all starts of all rows ascend together as one
+    (B, K, D) batch: each step one backward launch. Interior steps project
+    with a shallow 6-step bisection, the step size follows a cosine decay
+    from ``lr``, Adam moments scale the step per coordinate, and the finals
+    are re-projected exactly against (1 - _CAP_MARGIN) C. Nothing here
+    waits on the card.
     """
-    lo, hi, mask = tables.lower, tables.upper, tables.resource_mask
+    if x0.dim() == 1:           # one problem: the row axis' case B = 1
+        tables, sm = _rows(tables, sm)
+        a, score = pgd_solve(
+            x0[None], u[None], tables, sm, rps[None],
+            capacity[None] if torch.is_tensor(capacity) else capacity,
+            n_starts=n_starts, iters=iters, lr=lr, n_services=n_services)
+        return a[0], score[0]
+    B, dim = x0.shape
+    lo, hi, mask = (tables.lower[:, None], tables.upper[:, None],
+                    tables.resource_mask[:, None])          # (B, 1, D)
     span = hi - lo
-    dim = x0.shape[0]
+    # one budget a row, broadcast over its starts
+    cap = capacity[:, None] if torch.is_tensor(capacity) else capacity
     lr_t = (np.float32(lr) * np.float32(0.5) * (np.float32(1.0) + np.cos(
         np.float32(np.pi) * np.arange(iters, dtype=np.float32)
         / np.float32(iters))) + np.float32(1e-3)).astype(np.float32)
@@ -154,15 +216,15 @@ def pgd_solve(x0, u, tables: ProblemTables, sm: StackedModels, rps,
             tables.slo_ridx, rps, n_services=n_services,
             max_degree=sm.max_degree)
 
-    top_mid = project_capacity(torch.stack([hi, lo + 0.5 * span]), lo, hi,
-                               mask, capacity)
-    structured = torch.cat([x0[None], top_mid])[:n_starts]   # x0 first
-    u = u.reshape(max(n_starts - 3, 0), dim)
-    starts = torch.cat([structured, lo + u * span], dim=0)   # (K, D)
-    ones = torch.ones((starts.shape[0], n_services), dtype=starts.dtype,
+    top_mid = project_capacity(torch.cat([hi, lo + 0.5 * span], dim=1), lo,
+                               hi, mask, cap)
+    structured = torch.cat([x0[:, None], top_mid], dim=1)[:, :n_starts]
+    u = u.reshape(B, max(n_starts - 3, 0), dim)
+    starts = torch.cat([structured, lo + u * span], dim=1)  # (B, K, D)
+    ones = torch.ones((B, starts.shape[1], n_services), dtype=starts.dtype,
                       device=starts.device)
 
-    a = project_capacity(starts, lo, hi, mask, capacity, iters=6)
+    a = project_capacity(starts, lo, hi, mask, cap, iters=6)
     m = torch.zeros_like(a)
     v = torch.zeros_like(a)
     for i in range(iters):
@@ -174,25 +236,25 @@ def pgd_solve(x0, u, tables: ProblemTables, sm: StackedModels, rps,
         vh = v / float(np.float32(1.0) - np.float32(0.999) ** np.float32(t))
         a = project_capacity(
             a + float(lr_t[i]) * span * mh / (torch.sqrt(vh) + 1e-8),
-            lo, hi, mask, capacity, iters=6)
+            lo, hi, mask, cap, iters=6)
     # the finals and the x0 fallback, projected exactly in one batch
-    last = project_capacity(torch.cat([a, x0[None]]), lo, hi, mask,
-                            capacity * (1.0 - _CAP_MARGIN))
-    finals, x0_proj = last[:-1], last[-1]
-    scores = score_candidates(finals, tables, sm, rps, n_services)
+    last = project_capacity(torch.cat([a, x0[:, None]], dim=1), lo, hi, mask,
+                            cap * (1.0 - _CAP_MARGIN))
+    finals, x0_proj = last[:, :-1].contiguous(), last[:, -1]
+    scores = score_candidates(finals, tables, sm, rps, n_services)  # (B, K)
     # tie-break toward the warm start: the regression is only trustworthy
     # near sampled configurations, so among (near-)equal model optima prefer
     # the one closest to the validated operating point
     dist = torch.linalg.vector_norm(
-        (finals - x0[None]) / torch.clamp_min(span, 1e-6), dim=-1)
+        (finals - x0[:, None]) / torch.clamp_min(span, 1e-6), dim=-1)
     finite = torch.isfinite(scores)
     adj = torch.where(finite, scores - 5e-3 * dist, -math.inf)
-    best = torch.argmax(adj).reshape(1)
-    a_best = finals.index_select(0, best)[0]
-    s_best = scores.index_select(0, best)[0]
+    best = torch.argmax(adj, dim=-1, keepdim=True)              # (B, 1)
+    a_best = torch.gather(finals, 1, best[..., None].expand(B, 1, dim))[:, 0]
+    s_best = torch.gather(scores, 1, best)[:, 0]
     # degenerate models can NaN every start: fall back to x0
-    ok = torch.isfinite(s_best) & torch.isfinite(a_best).all()
-    return (torch.where(ok, a_best, x0_proj),
+    ok = torch.isfinite(s_best) & torch.isfinite(a_best).all(-1)
+    return (torch.where(ok[:, None], a_best, x0_proj),
             torch.where(ok, s_best, -math.inf))
 
 
@@ -377,3 +439,540 @@ class SolverProblem:
         the capacity on the CPU."""
         a = rng.uniform(self.lower, self.upper).astype(np.float32)
         return self.project(torch.from_numpy(a), float(capacity)).numpy()
+
+
+# -- multi-host fleets: per-host solves bucketed by layout ---------------------
+
+def layout_bucket(n: int, minimum: int = 1) -> int:
+    """Power-of-two layout bucketing (``pad_capacity`` applied to host
+    layouts): the bucket a host falls into is a pure function of its OWN
+    service/relation counts — total (every count maps to a bucket) and
+    stable (independent of what else is in the fleet)."""
+    return pad_capacity(n, minimum=max(minimum, 1))
+
+
+def bucket_key(n_services: int, n_relations: int) -> Tuple[int, int]:
+    """Bucket identity of a host layout: power-of-two service and relation
+    ceilings.  Hosts sharing a key share one padded layout (padded to the
+    member maximum), so a fleet mixing 2-service cameras with 8-service
+    gateways solves two small batches instead of padding every host to
+    the fleet-wide maximum."""
+    return layout_bucket(n_services), layout_bucket(n_relations)
+
+
+# auto bucketing, with ``repro``'s thresholds (tuned there for XLA-CPU's
+# dispatch floor; kept so that the port's layouts equal ``repro``'s): below
+# about a dozen hosts a bucket, an extra bucket costs more than the padding
+# it saves, unless the layouts are so unequal that the padding dominates
+_AUTO_BUCKET_MIN_HOSTS = 12
+_AUTO_PAD_FACTOR = 2.0
+
+
+def _merge_singleton_groups(keys: List[tuple], groups: Dict[tuple, list]
+                            ) -> Tuple[List[tuple], Dict[tuple, list]]:
+    """Fold 1-member layout groups into the neighboring group with the next
+    key up (or down, for the largest): ``FleetBucket`` pads to its member
+    maxima anyway, and a lone host is cheaper padded into a neighbor's
+    layout than solved as a batch of its own."""
+    keys = list(keys)
+    while len(keys) > 1:
+        lone = next((key for key in keys if len(groups[key]) == 1), None)
+        if lone is None:
+            break
+        i = keys.index(lone)
+        into = keys[i + 1] if i + 1 < len(keys) else keys[i - 1]
+        groups[into] = sorted(groups[into] + groups.pop(lone))
+        keys.remove(lone)
+    return keys, groups
+
+
+def _layout_work(problem: "SolverProblem", rows: Sequence[Sequence[int]]
+                 ) -> int:
+    """Padded-solve work proxy for one shared layout: rows x (power-of-two
+    service ceiling x relation ceiling)."""
+    s = max(len(svcs) for svcs in rows)
+    r = max(sum(len(problem.specs[i].relation_features) for i in svcs)
+            for svcs in rows)
+    return len(rows) * layout_bucket(s) * layout_bucket(r)
+
+
+def _auto_single_layout(problem: "SolverProblem",
+                        groups_rows: Sequence[Sequence[Sequence[int]]]
+                        ) -> bool:
+    """Static tiny-fleet threshold: collapse to the single shared layout
+    when every bucket is small (< ``_AUTO_BUCKET_MIN_HOSTS`` rows) and the
+    padding a shared layout wastes stays within ``_AUTO_PAD_FACTOR`` of the
+    bucketed work.  Pure function of the layout counts — no timing."""
+    if len(groups_rows) <= 1:
+        return False
+    if max(len(rows) for rows in groups_rows) >= _AUTO_BUCKET_MIN_HOSTS:
+        return False
+    all_rows = [svcs for rows in groups_rows for svcs in rows]
+    single = _layout_work(problem, all_rows)
+    split = sum(_layout_work(problem, rows) for rows in groups_rows)
+    return single <= _AUTO_PAD_FACTOR * split
+
+
+class FleetBucket:
+    """One padded per-row layout shared by a group of like-sized subproblems.
+
+    Holds the batched ``ProblemTables`` (leading axis = rows in the bucket,
+    padded to the bucket's member maxima), the gather tables mapping the
+    global problem into row-local slots, and the inverse maps used to
+    scatter solved per-row vectors back into the global decision vector.
+    The tables are built with numpy, as in ``repro``, and uploaded once to
+    the problem's device; a second copy stays on the CPU for the
+    exploration draw's projection.
+
+    A row is *any* service subset with its own capacity: a host's residents
+    (``FleetSolverProblem`` — rows partition the services) or a placement
+    what-if candidate (``PlacementProblem`` — rows OVERLAP, the same service
+    appears in several candidate subsets).  All local index maps are built
+    per row, so overlap is safe; the scatter-back maps (``g_idx``/``loc_*``)
+    are only meaningful for partitioned rows.
+
+    Padding: parameters boxed to [0, 0] and out of the resource mask,
+    relations with term_mask 0 (``rel_valid``), SLOs of weight 0 and target
+    1, gathers of local slot 0 — each contributes exactly 0.
+    """
+
+    def __init__(self, problem: "SolverProblem", hosts: Sequence[str],
+                 host_idx: Sequence[int], svc_of_host: Sequence[Sequence[int]],
+                 capacities: Sequence[float]):
+        self.hosts: Tuple[str, ...] = tuple(hosts)
+        self.host_idx = np.asarray(host_idx, np.int64)  # rows in fleet order
+        B = len(self.hosts)
+        self.capacities = np.asarray(capacities, np.float32)
+        self.n_services_max = max(len(v) for v in svc_of_host)
+        self.key = bucket_key(
+            self.n_services_max,
+            max(sum(len(problem.specs[i].relation_features) for i in svcs)
+                for svcs in svc_of_host))
+
+        # decision-vector layout: row-local slots <-> global indices
+        dims = [sum(problem.specs[i].n_params for i in svcs)
+                for svcs in svc_of_host]
+        d_max = max(dims)
+        self.dim = int(sum(dims))          # real (unpadded) params covered
+        svc_sets = [set(svcs) for svcs in svc_of_host]
+        # relation/SLO membership per row, in global order
+        rel_rows = [[r for r, (i, *_rest) in enumerate(problem.relations)
+                     if i in ss] for ss in svc_sets]
+        slo_rows = [[q for q, i in enumerate(problem._slo_service)
+                     if int(i) in ss] for ss in svc_sets]
+        r_max = max(max((len(v) for v in rel_rows), default=1), 1)
+        q_max = max(max((len(v) for v in slo_rows), default=1), 1)
+        f_max = problem._rel_gather.shape[1]
+
+        param_take = np.zeros((B, d_max), np.int64)
+        lower = np.zeros((B, d_max), np.float32)
+        upper = np.zeros((B, d_max), np.float32)   # padded slots pin to 0
+        mask = np.zeros((B, d_max), bool)
+        g_idx = np.zeros(self.dim, np.int64)       # global param indices
+        loc_b = np.zeros(self.dim, np.int64)       # -> bucket row
+        loc_d = np.zeros(self.dim, np.int64)       # -> local slot
+        rel_take = np.zeros((B, r_max), np.int64)
+        rel_valid = np.zeros((B, r_max), np.float32)
+        rel_gather = np.zeros((B, r_max, f_max), np.int32)
+        kind = np.zeros((B, q_max), np.int32)
+        svc = np.zeros((B, q_max), np.int32)
+        weight = np.zeros((B, q_max), np.float32)
+        target = np.ones((B, q_max), np.float32)   # pad 1.0: no divide-by-0
+        pidx = np.zeros((B, q_max), np.int32)
+        ridx = np.zeros((B, q_max), np.int32)
+        svc_take = np.zeros((B, self.n_services_max), np.int64)
+
+        k = 0
+        for b, svcs in enumerate(svc_of_host):
+            svc_local: Dict[int, int] = {}    # per-row: rows may overlap
+            g2slot: Dict[int, int] = {}
+            d = 0
+            for si, i in enumerate(svcs):
+                svc_local[i] = si
+                svc_take[b, si] = i
+                for j in range(problem.specs[i].n_params):
+                    g = problem.offsets[i] + j
+                    param_take[b, d] = g
+                    lower[b, d] = problem.lower[g]
+                    upper[b, d] = problem.upper[g]
+                    mask[b, d] = problem.resource_mask[g]
+                    g_idx[k], loc_b[k], loc_d[k] = g, b, d
+                    g2slot[g] = d
+                    k += 1
+                    d += 1
+            rel_local: Dict[int, int] = {}
+            for rl, r in enumerate(rel_rows[b]):
+                rel_take[b, rl] = r
+                rel_valid[b, rl] = 1.0
+                rel_local[r] = rl
+                # padded feature slots in the global gather re-read global
+                # index 0 (their exponent is 0 -> factor 1), which may not
+                # belong to this row: local slot 0 is equally harmless
+                rel_gather[b, rl] = [g2slot.get(int(g), 0)
+                                     for g in problem._rel_gather[r]]
+            for ql, q in enumerate(slo_rows[b]):
+                kind[b, ql] = problem._slo_kind[q]
+                svc[b, ql] = svc_local[int(problem._slo_service[q])]
+                weight[b, ql] = problem._slo_weight[q]
+                target[b, ql] = problem._slo_target[q]
+                # pidx/ridx are only read for their kind; foreign indices
+                # (kind-0 slots of kind-1/2 SLOs and vice versa) pin to 0
+                pidx[b, ql] = g2slot.get(int(problem._slo_pidx[q]), 0)
+                ridx[b, ql] = rel_local.get(int(problem._slo_ridx[q]), 0)
+
+        self.arrays = dict(
+            lower=lower, upper=upper, resource_mask=mask,
+            rel_gather=rel_gather, slo_kind=kind, slo_service=svc,
+            slo_weight=weight, slo_target=target, slo_pidx=pidx,
+            slo_ridx=ridx, param_take=param_take, rel_take=rel_take,
+            rel_valid=rel_valid, svc_take=svc_take, loc_b=loc_b,
+            loc_d=loc_d)
+        self.g_idx = g_idx
+        dev = problem.device
+
+        def on(x, where):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(where)
+
+        self.tables = ProblemTables(*(on(self.arrays[name], dev)
+                                      for name in ProblemTables._fields))
+        self.param_take = on(param_take, dev)
+        self.rel_take = on(rel_take, dev)
+        self.rel_valid = on(rel_valid, dev)
+        self.svc_take = on(svc_take, dev)
+        self.loc_b = on(loc_b, dev)
+        self.loc_d = on(loc_d, dev)
+        self.caps = on(self.capacities, dev)
+        # the exploration draw is projected on the CPU (the plan goes
+        # straight back to the host): what that needs, on the CPU
+        cpu = torch.device("cpu")
+        self._host = tuple(on(x, cpu) for x in (
+            param_take, lower, upper, mask, self.capacities, loc_b, loc_d))
+
+    # -- device-side building blocks ------------------------------------------
+    def gather_models(self, sm: StackedModels) -> StackedModels:
+        """Per-row batched view (leaves (B, R_max, ...)) of the global
+        stacked models — device gathers, no host sync; padded relation rows
+        are masked out entirely."""
+        take = self.rel_take
+        return StackedModels(
+            sm.w[take], sm.exponents[take],
+            sm.term_mask[take] * self.rel_valid[:, :, None],
+            sm.x_scale[take], sm.max_degree, ())
+
+    def split(self, a):
+        """Global decision vector (dim,) -> this bucket's padded (B, D_max)."""
+        return torch.clamp(a[self.param_take], self.tables.lower,
+                           self.tables.upper)
+
+    def gather_back(self, A):
+        """Padded per-row solutions (B, D_max) -> the bucket's real params
+        (dim_bucket,), ordered by ascending global index ``g_idx``."""
+        return A[self.loc_b, self.loc_d]
+
+    def project_host(self, a):
+        """Exact projection of a global decision vector (dim,) on the CPU
+        onto each row's budget (less ``_CAP_MARGIN``); the bucket's real
+        params come back as ``gather_back`` orders them."""
+        take, lo, hi, mask, caps, loc_b, loc_d = self._host
+        proj = project_capacity(torch.clamp(a[take], lo, hi), lo, hi, mask,
+                                caps * (1.0 - _CAP_MARGIN))
+        return proj[loc_b, loc_d]
+
+    def uniforms(self, gen: torch.Generator, n_starts: int) -> torch.Tensor:
+        """The random starts' draws of every row, (B, n_starts - 3, D_max),
+        from ``gen`` on its device."""
+        return torch.rand((len(self.hosts), max(n_starts - 3, 0),
+                           self.arrays["lower"].shape[1]), generator=gen,
+                          device=gen.device)
+
+    def solve(self, x0g, u, sm: StackedModels, rps, *, n_starts: int,
+              iters: int, lr: float):
+        """Every row of the bucket from the global warm start ``x0g``, the
+        global models and load, as one batch: (A (B, D_max), scores (B,))."""
+        return pgd_solve(self.split(x0g), u, self.tables,
+                         self.gather_models(sm), rps[self.svc_take],
+                         self.caps, n_starts=n_starts, iters=iters, lr=lr,
+                         n_services=self.n_services_max)
+
+    def solve_row(self, j: int, x0g, u, sm: StackedModels, rps, *,
+                  n_starts: int, iters: int, lr: float):
+        """Row ``j`` alone (B = 1) on the same padded tables: the per-row
+        parity oracle and baseline of ``solve``."""
+        row = ProblemTables(*(t[j] for t in self.tables))
+        smb = self.gather_models(sm)
+        smj = StackedModels(smb.w[j], smb.exponents[j], smb.term_mask[j],
+                            smb.x_scale[j], smb.max_degree, ())
+        return pgd_solve(self.split(x0g)[j], u[j], row, smj,
+                         rps[self.svc_take[j]], self.caps[j],
+                         n_starts=n_starts, iters=iters, lr=lr,
+                         n_services=self.n_services_max)
+
+
+class _BucketedRows:
+    """What fleet solves and placement batches share: their layout
+    buckets' random-start draws and the host entry points' inputs."""
+
+    problem: "SolverProblem"
+    buckets: List[FleetBucket]
+
+    def uniforms(self, gen: torch.Generator, n_starts: int):
+        """The random starts' draws of every bucket, in bucket order: one
+        draw of (B, n_starts - 3, D_max) a bucket, rows in bucket order."""
+        return [bk.uniforms(gen, n_starts) for bk in self.buckets]
+
+    def _inputs(self, models, rps, x0, u, seed, n_starts):
+        """(models, rps, x0, uniforms) on the problem's device; ``u``
+        defaults to a generator seeded with ``seed`` there."""
+        dev = self.problem.device
+        if u is None:
+            u = self.uniforms(torch.Generator(dev).manual_seed(int(seed)),
+                              n_starts)
+        return (self.problem.stack(models),
+                torch.tensor(np.asarray(rps, np.float32), device=dev),
+                torch.tensor(np.asarray(x0, np.float32), device=dev),
+                [torch.as_tensor(x, dtype=torch.float32, device=dev)
+                 for x in u])
+
+
+class FleetSolverProblem(_BucketedRows):
+    """Per-host capacity solve for a multi-device Fleet, bucketed by layout.
+
+    The fleet objective is separable per service and the constraints are
+    per host, so the problem decomposes exactly into independent per-host
+    subproblems. Hosts are grouped into **layout buckets** (power-of-two
+    service/relation ceilings, ``bucket_key``), each padded only to its
+    member maxima; a solve runs one batched ``pgd_solve`` per bucket with
+    that bucket's **per-host capacity vector** — one backward launch per
+    bucket and ascent step, one forward launch per bucket — and scatters
+    the solved vectors back into the global plan (a precomputed
+    permutation, ``join``). ``bucketed=False`` pads every host to one
+    shared layout (``repro``'s e6 baseline). Plans are per-host feasible by
+    construction (no capacity clips in the receipt).
+    """
+
+    def __init__(self, problem: "SolverProblem", host_of: Mapping[str, str],
+                 capacities: Mapping[str, float],
+                 bucketed: Union[bool, str] = "auto"):
+        """``host_of``: service name (spec.name) -> host name;
+        ``capacities``: host name -> resource budget C_h;
+        ``bucketed=True`` keeps one bucket per power-of-two layout key;
+        ``bucketed=False`` forces the single-shared-layout path (every host
+        padded to the fleet maximum); ``"auto"`` (default) buckets but
+        merges single-member buckets into a neighboring layout and
+        collapses tiny fleets (every bucket below
+        ``_AUTO_BUCKET_MIN_HOSTS`` hosts, little padding to save) to the
+        single shared layout."""
+        self.problem = problem
+        self.hosts: Tuple[str, ...] = tuple(sorted(
+            {host_of[s.name] for s in problem.specs}))
+        hidx = {h: b for b, h in enumerate(self.hosts)}
+        self.capacities = np.asarray([capacities[h] for h in self.hosts],
+                                     np.float32)
+
+        svc_of_host: List[List[int]] = [[] for _ in self.hosts]
+        for i, s in enumerate(problem.specs):
+            svc_of_host[hidx[host_of[s.name]]].append(i)
+
+        # bucket assignment: a pure function of each host's own layout
+        # (auto merging regroups *buckets*, never this per-host key)
+        self.bucket_of: Dict[str, Tuple[int, int]] = {
+            h: bucket_key(len(svcs),
+                          sum(len(problem.specs[i].relation_features)
+                              for i in svcs))
+            for h, svcs in zip(self.hosts, svc_of_host)}
+        if bucketed is False:
+            groups: Dict[Tuple[int, int], List[int]] = \
+                {(0, 0): list(range(len(self.hosts)))}
+            keys = [(0, 0)]
+        else:
+            groups = {}
+            for b, h in enumerate(self.hosts):
+                groups.setdefault(self.bucket_of[h], []).append(b)
+            keys = sorted(groups)          # deterministic bucket order
+            if bucketed == "auto":
+                keys, groups = _merge_singleton_groups(keys, groups)
+                if _auto_single_layout(problem, [
+                        [svc_of_host[b] for b in groups[k]] for k in keys]):
+                    groups = {(0, 0): list(range(len(self.hosts)))}
+                    keys = [(0, 0)]
+        self.buckets: List[FleetBucket] = [
+            FleetBucket(problem, [self.hosts[b] for b in groups[k]],
+                        groups[k], [svc_of_host[b] for b in groups[k]],
+                        self.capacities[groups[k]])
+            for k in keys]
+
+        # topology fingerprint: the resolved bucket structure and the
+        # per-host residents and capacities
+        self.layout_key: tuple = (
+            tuple(tuple(bk.hosts) for bk in self.buckets),
+            tuple((h, tuple(svc_of_host[b]), float(self.capacities[b]))
+                  for b, h in enumerate(self.hosts)))
+
+        # scatter permutations: concat of per-bucket outputs -> global order
+        join = np.argsort(np.concatenate([bk.g_idx for bk in self.buckets]),
+                          kind="stable")
+        self._join_perm = torch.from_numpy(join).to(problem.device)
+        self._join_perm_host = torch.from_numpy(join)
+        self._score_perm = torch.from_numpy(np.argsort(np.concatenate(
+            [bk.host_idx for bk in self.buckets]), kind="stable")).to(
+                problem.device)
+
+    def join(self, parts):
+        """Per-bucket real-param vectors (in ``buckets`` order) -> global
+        decision vector (dim,) via the precomputed permutation."""
+        return torch.cat(parts)[self._join_perm]
+
+    # -- the fleet solve -------------------------------------------------------
+    def solve_rows(self, x0g, u, sm: StackedModels, rps, *, n_starts: int,
+                   iters: int, lr: float):
+        """The fleet solve on the device, queued without waiting: one
+        batched ``pgd_solve`` per bucket (``u``: the buckets' uniforms),
+        packed scatter back. Returns the global assignment (dim,) and the
+        per-host scores (B,) in fleet host order."""
+        parts, scores = [], []
+        for bk, ub in zip(self.buckets, u):
+            A, sc = bk.solve(x0g, ub, sm, rps, n_starts=n_starts,
+                             iters=iters, lr=lr)
+            parts.append(bk.gather_back(A))
+            scores.append(sc)
+        return self.join(parts), torch.cat(scores)[self._score_perm]
+
+    def solve_many(self, models: Models, rps, x0, *, n_starts: int = 6,
+                   iters: int = 32, lr: float = 0.18, seed: int = 0,
+                   u: Optional[Sequence] = None
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+        """Every host's services against its OWN capacity, one batched
+        solve per layout bucket. ``rps`` (|S|,) and ``x0`` (dim,) are in
+        the global problem's order; ``u`` the buckets' uniforms (default:
+        drawn from a generator seeded with ``seed``). Returns (global
+        assignment (dim,), per-host scores (B,) in ``hosts`` order) on the
+        host."""
+        sm, rps, x0, u = self._inputs(models, rps, x0, u, seed, n_starts)
+        a, scores = self.solve_rows(x0, u, sm, rps, n_starts=n_starts,
+                                    iters=iters, lr=lr)
+        out = torch.cat([a, scores]).cpu().numpy()
+        return out[:a.shape[0]], out[a.shape[0]:]
+
+    def solve_sequential(self, models: Models, rps, x0, *,
+                         n_starts: int = 6, iters: int = 32,
+                         lr: float = 0.18, seed: int = 0,
+                         u: Optional[Sequence] = None
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+        """The per-host loop: each host's padded subproblem solved alone
+        (B = 1) on the same tables and uniforms as ``solve_many`` — the
+        parity oracle the batched path must match, and its baseline."""
+        sm, rps, x0, u = self._inputs(models, rps, x0, u, seed, n_starts)
+        parts, scores = [], []
+        for bk, ub in zip(self.buckets, u):
+            rows = [bk.solve_row(j, x0, ub, sm, rps, n_starts=n_starts,
+                                 iters=iters, lr=lr)
+                    for j in range(len(bk.hosts))]
+            parts.append(bk.gather_back(torch.stack([a for a, _ in rows])))
+            scores.append(torch.stack([s for _, s in rows]))
+        a = self.join(parts)
+        out = torch.cat([a, torch.cat(scores)[self._score_perm]])
+        out = out.cpu().numpy()
+        return out[:a.shape[0]], out[a.shape[0]:]
+
+    # -- Eq. (3) under per-host constraints -----------------------------------
+    def random_assignment(self, rng: np.random.Generator) -> np.ndarray:
+        """Uniform draw within bounds (numpy ``rng``), projected onto each
+        host's budget on the CPU."""
+        a = torch.from_numpy(rng.uniform(self.problem.lower,
+                                         self.problem.upper
+                                         ).astype(np.float32))
+        parts = [bk.project_host(a) for bk in self.buckets]
+        return torch.cat(parts)[self._join_perm_host].numpy()
+
+
+class PlacementProblem(_BucketedRows):
+    """Candidate-batched placement scoring — every (service, host) what-if
+    subset scored as one batch per layout bucket.
+
+    ``RASKAgent.placement_scores`` needs, per host h, the best predicted
+    fulfillment of h's residents with and without each candidate service
+    under h's own budget — O(|S| x |H|) subset solves per snapshot. Every
+    candidate (a subset of global spec indices plus a capacity) becomes one
+    row of a ``FleetBucket``-padded batch (rows OVERLAP: the same service is
+    scored on several hosts), and one batched ``pgd_solve`` per bucket
+    scores them: per ascent step one backward launch a bucket, whatever the
+    number of candidates. ``scores_sequential`` is the brute-force parity
+    oracle: the same padded tables and uniforms, one solve per candidate.
+    Empty subsets score 0.0 without a solve.
+    """
+
+    def __init__(self, problem: "SolverProblem",
+                 subsets: Sequence[Sequence[int]],
+                 capacities: Sequence[float],
+                 bucketed: Union[bool, str] = "auto"):
+        self.problem = problem
+        self.subsets: List[Tuple[int, ...]] = [
+            tuple(int(i) for i in s) for s in subsets]
+        self.capacities = np.asarray(capacities, np.float32)
+        self.n_candidates = len(self.subsets)
+        rows = [k for k, s in enumerate(self.subsets) if s]
+        if bucketed is False:
+            groups: Dict[Tuple[int, int], List[int]] = \
+                {(0, 0): rows} if rows else {}
+            keys = list(groups)
+        else:
+            groups = {}
+            for k in rows:
+                s = self.subsets[k]
+                key = bucket_key(len(s), sum(
+                    len(problem.specs[i].relation_features) for i in s))
+                groups.setdefault(key, []).append(k)
+            keys = sorted(groups)
+            if bucketed == "auto":
+                keys, groups = _merge_singleton_groups(keys, groups)
+        self.buckets: List[FleetBucket] = [
+            FleetBucket(problem, [f"cand{k}" for k in groups[key]],
+                        groups[key],
+                        [list(self.subsets[k]) for k in groups[key]],
+                        self.capacities[groups[key]])
+            for key in keys]
+        self._order = np.concatenate(
+            [bk.host_idx for bk in self.buckets]) if self.buckets \
+            else np.zeros(0, np.int64)
+
+    def score_rows(self, x0g, u, sm: StackedModels, rps, *, n_starts: int,
+                   iters: int, lr: float):
+        """Every candidate's best score on the device, queued without
+        waiting: one batched solve per bucket, concatenated in bucket
+        order (candidate order is ``_order``)."""
+        parts = [bk.solve(x0g, ub, sm, rps, n_starts=n_starts, iters=iters,
+                          lr=lr)[1] for bk, ub in zip(self.buckets, u)]
+        return torch.cat(parts) if parts else \
+            torch.zeros((0,), device=self.problem.device)
+
+    def scores(self, models: Models, rps, x0, *, n_starts: int = 6,
+               iters: int = 32, lr: float = 0.18, seed: int = 0,
+               u: Optional[Sequence] = None) -> np.ndarray:
+        """Best predicted weighted fulfillment of every candidate subset
+        under its own capacity, in candidate order — one batched solve per
+        bucket and ONE device-to-host copy."""
+        out = np.zeros(self.n_candidates, np.float64)
+        if not self.buckets:
+            return out
+        sm, rps, x0, u = self._inputs(models, rps, x0, u, seed, n_starts)
+        sc = self.score_rows(x0, u, sm, rps, n_starts=n_starts, iters=iters,
+                             lr=lr)
+        out[self._order] = sc.cpu().numpy()
+        return out
+
+    def scores_sequential(self, models: Models, rps, x0, *,
+                          n_starts: int = 6, iters: int = 32,
+                          lr: float = 0.18, seed: int = 0,
+                          u: Optional[Sequence] = None) -> np.ndarray:
+        """The brute-force oracle: one solve per candidate (B = 1) on the
+        same padded tables and uniforms as ``scores``."""
+        out = np.zeros(self.n_candidates, np.float64)
+        if not self.buckets:
+            return out
+        sm, rps, x0, u = self._inputs(models, rps, x0, u, seed, n_starts)
+        sc = torch.cat([torch.stack([
+            bk.solve_row(j, x0, ub, sm, rps, n_starts=n_starts, iters=iters,
+                         lr=lr)[1] for j in range(len(bk.hosts))])
+            for bk, ub in zip(self.buckets, u)])
+        out[self._order] = sc.cpu().numpy()
+        return out

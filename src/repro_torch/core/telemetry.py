@@ -27,10 +27,10 @@ shared, monotonically increasing timestamp vector — no per-sample dicts.
   (``core/regression.py::BatchedFitPlan``) — is a vectorized column
   gather + finite-row mask, not a per-row dict scan.
 
-The original's window migration (``export_window``/``import_window``/
-``transfer``) and lagged-window export (``lagged_windows``/``lag_tail``)
-serve the fleet and the load forecaster; they come back with those modules
-(ROADMAP Queue 1, slice B deferrals).
+The window migration (``export_window``/``import_window``/``transfer``)
+carries a service's telemetry with it when the fleet moves it. The
+original's lagged-window export (``lagged_windows``/``lag_tail``) serves
+the load forecaster and comes back with it (ROADMAP Queue 1, item 4).
 """
 from __future__ import annotations
 
@@ -188,6 +188,75 @@ class TimeSeriesDB:
         """Average each metric over [since, until] — paper §IV-A: 'query a time
         series of the remaining 5s and consider the average'."""
         return self.window_means([service], since, until)[service]
+
+    # -- migration support: move a service's window between DBs ----------------
+    def export_window(self, service: str, since: float = 0.0,
+                      until: Optional[float] = None
+                      ) -> Tuple[np.ndarray, List[str], np.ndarray]:
+        """Columnar copy of one service's samples in [since, until]:
+        (timestamps (n,), column names, values (n, len(cols)) with NaN for
+        metrics missing from a scrape).  The raw feed of ``transfer``."""
+        with self._lock:
+            ring = self._series.get(service)
+            if ring is None:
+                return np.zeros(0), [], np.zeros((0, 0))
+            ts, vals = ring.window_slice(since, until)
+            return ts.copy(), list(ring.cols), vals.copy()
+
+    def import_window(self, service: str, ts: np.ndarray,
+                      cols: Sequence[str], vals: np.ndarray) -> int:
+        """Bulk-append exported rows for ``service`` (see ``export_window``).
+
+        Rows merge with any samples already present, keeping the ring's
+        timestamps sorted (a service migrating BACK to a host it once lived
+        on appends after its old history).  Returns the rows imported."""
+        ts = np.asarray(ts, np.float64)
+        if ts.size == 0:
+            return 0
+        with self._lock:
+            ring = self._series.get(service)
+            if ring is None:
+                ring = self._series[service] = _Ring(self._retention)
+            rows = [(float(t), {k: float(v[j])
+                                for j, k in enumerate(cols)
+                                if np.isfinite(v[j])})
+                    for t, v in zip(ts, vals)]
+            if ring.count and ts[0] < ring.t[ring.n - 1]:
+                # interleaved history: merge-sort the union and rebuild
+                old_ts, old_vals = ring.window_slice(-np.inf, None)
+                old_cols = list(ring.cols)
+                rows += [(float(t), {k: float(v[j])
+                                     for j, k in enumerate(old_cols)
+                                     if np.isfinite(v[j])})
+                         for t, v in zip(old_ts, old_vals)]
+                rows.sort(key=lambda r: r[0])
+                ring = self._series[service] = _Ring(self._retention)
+            for t, metrics in rows:
+                ring.append(t, metrics)
+        return int(ts.size)
+
+    def transfer(self, service: str, dst: "TimeSeriesDB",
+                 since: float = 0.0, until: Optional[float] = None,
+                 drop: bool = True) -> int:
+        """Carry one service's telemetry window into another DB — the
+        migration path: ``Fleet.migrate`` moves the ring-buffer history with
+        the service so windowed queries (and the agent's stabilized-state
+        observations) survive the move.  ``drop`` removes the source series
+        in the SAME locked section as the export, so a concurrent scrape
+        either lands before the export (and is carried) or after the drop
+        (opening a fresh source series) — never silently between.  Locks
+        are taken one DB at a time (source, then destination), so two
+        concurrent opposite-direction transfers cannot deadlock.  Returns
+        the rows moved."""
+        with self._lock:
+            ring = self._series.get(service)
+            if ring is None:
+                return 0
+            ts, vals = ring.window_slice(since, until)
+            ts, cols, vals = ts.copy(), list(ring.cols), vals.copy()
+            if drop:
+                self._series.pop(service, None)
+        return dst.import_window(service, ts, cols, vals)
 
     def export_windows(self, services: Optional[Sequence[str]] = None,
                        since: float = 0.0, until: Optional[float] = None

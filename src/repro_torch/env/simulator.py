@@ -26,27 +26,30 @@ advances the whole fleet with one ``pool.tick`` per simulated second.
 Padding invariant: parameter slots beyond a container's API are masked out
 of settling and never surface in ``metrics()``.
 
-``EdgeEnvironment`` wires profiles + workloads + one MUDAP host and drives
-any ``Agent`` (``observe``/``decide``) through the standard experiment loop:
-observe, decide a ``ScalingPlan``, apply it transactionally, record
-per-cycle Eq. (8) fulfillment — the measurement every figure of the paper's
-evaluation is built from. Legacy agents exposing only ``cycle(t)`` still
-work.
+``EdgeEnvironment`` wires profiles + workloads + a control plane — one MUDAP
+host, or a multi-host ``Fleet`` when ``hosts > 1`` — and drives any ``Agent``
+(``observe``/``decide``) through the standard experiment loop: observe,
+decide a ``ScalingPlan``, apply it transactionally, record per-cycle Eq. (8)
+fulfillment — the measurement every figure of the paper's evaluation is
+built from. Legacy agents exposing only ``cycle(t)`` still work.
 
-This is the port's copy of ``repro/env/simulator.py`` for one device.
-Several hosts, placement policies and churn events need the multi-host
-``Fleet`` (``core/fleet.py``), which is not ported yet: they raise
-``NotImplementedError`` naming ROADMAP Queue 1 item 1 (``fleet.py``).
+This is the port's copy of ``repro/env/simulator.py`` (numpy; the agent it
+drives decides on its own device). Churn that changes the service set —
+``arrive`` and ``depart`` events — needs the transfer priors of ROADMAP
+Queue 1 item 7 and raises ``NotImplementedError`` naming it; host failure,
+drain and capacity degradation run as in ``repro``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple, \
+    Union
 
 import numpy as np
 
 from ..core.api import Agent, CycleResult, DecisionInfo, PlanReceipt
 from ..core.elasticity import ServiceId
+from ..core.fleet import Fleet
 from ..core.platform import MUDAP
 from ..core.slo import global_fulfillment, service_fulfillment
 from .profiles import ServiceProfile
@@ -284,11 +287,6 @@ class SimulatedService:
         self.tick(t, dt)
 
 
-_FLEET_TODO = ("needs the multi-host Fleet (core/fleet.py), not ported yet: "
-               "ROADMAP Queue 1, slice B deferral 1 (fleet.py + "
-               "FleetSolverProblem)")
-
-
 @dataclasses.dataclass
 class CycleRecord:
     t: float
@@ -299,54 +297,188 @@ class CycleRecord:
     rps: Dict[str, float]
     receipt: Optional[PlanReceipt] = None
     compile_s: float = 0.0                # first-solve kernel build time
+    # SLO error-budget control plane (obs), populated when the agent
+    # carries an attached SLOAccountant: services with a firing fast-burn
+    # alert, worst long-window burn rate, and the fleet-level rolling error
+    # budget consumed (1.0 = the whole budget)
+    alerts: int = 0
+    max_burn: float = 0.0
+    budget_consumed: float = 0.0
+
+
+_SERVICE_SET_TODO = (
+    "churn event {what!r} changes the service set, which needs the transfer "
+    "priors and refresh_topology's service-set branch: not ported to "
+    "repro_torch yet (ROADMAP Queue 1, slice B deferral 7)")
+
+
+@dataclasses.dataclass(frozen=True)
+class ChurnEvent:
+    """One scripted mid-run fleet change, applied by ``EdgeEnvironment.run``
+    when the simulation clock reaches ``t`` (absolute seconds).
+
+    Kinds:
+      * ``"fail_host"``  — abrupt host loss: residents evacuated to the best
+        other hosts via the agent's batched placement scores (least-loaded
+        fallback), the host's telemetry DB lost with it, host removed;
+      * ``"drain_host"`` — graceful decommission: same evacuation, but each
+        service's telemetry window migrates with it;
+      * ``"degrade"``    — host capacity multiplied by ``factor`` (use > 1 to
+        model recovery);
+      * ``"arrive"``     — a new service container from ``profile`` placed on
+        ``host`` (or the least-loaded device), fed by ``pattern``;
+      * ``"depart"``     — service ``service`` leaves the fleet.
+
+    The port applies the first three; ``arrive`` and ``depart`` change the
+    service set and raise ``NotImplementedError`` (ROADMAP Queue 1, item 7).
+
+    After every event the driving agent is re-bound to the new topology
+    (``refresh_topology``) before its next cycle.
+    """
+
+    t: float
+    kind: str
+    host: str = ""
+    service: str = ""
+    factor: float = 1.0
+    profile: Optional[ServiceProfile] = None
+    pattern: Optional[Pattern] = None
 
 
 class EdgeEnvironment:
-    """One Edge device: control plane + simulated services + request
-    workloads (``repro``'s ``EdgeEnvironment`` with ``hosts == 1``)."""
+    """One or more Edge devices: control plane + simulated services +
+    request workloads.
+
+    With ``hosts == 1`` the platform is a single ``MUDAP``; with
+    ``hosts > 1`` it is a ``Fleet`` of per-device MUDAPs (each with its own
+    ``capacity``) — the E6-style 9-services-on-3-devices scenario is
+    ``EdgeEnvironment(profiles, {"cores": 8.0}, replicas=3, hosts=3)``.
+
+    ``hosts`` may instead be a sequence of host specs — anything with
+    ``.name`` and ``.capacity`` (see ``env.scenarios.HostSpec``) or plain
+    ``(name, capacity)`` pairs — giving every device its OWN budget: the
+    heterogeneous fleets the bucketed per-host solver exists for.
+    ``placement`` then chooses how containers spread over the devices:
+    ``"round_robin"`` (the homogeneous default), ``"capacity"``
+    (proportional to each device's resource budget, largest-remainder
+    apportionment — a 16-core gateway takes 8x the services of a 2-core
+    camera node), or an explicit per-container host-name list.
+    """
 
     def __init__(self, profiles: Sequence[ServiceProfile],
-                 capacity: Mapping[str, float],
+                 capacity: Optional[Mapping[str, float]] = None,
                  patterns: Optional[Mapping[str, Pattern]] = None,
                  replicas: int = 1, host: str = "edge-0", seed: int = 0,
-                 hosts: int = 1, placement: str = "round_robin"):
+                 hosts: Union[int, Sequence] = 1,
+                 placement: Union[str, Sequence[str]] = "round_robin"):
         """``replicas`` spawns N independent containers per profile (E6)."""
-        if not isinstance(hosts, int) or hosts > 1:
-            raise NotImplementedError(f"hosts={hosts!r} {_FLEET_TODO}")
-        if placement != "round_robin":
-            raise NotImplementedError(
-                f"placement={placement!r} {_FLEET_TODO}")
-        self.host_capacity: Dict[str, Dict[str, float]] = {
-            host: dict(capacity)}
-        self.platform = MUDAP(dict(capacity), host=host)
+        self.platform: Union[MUDAP, Fleet]
+        if isinstance(hosts, int):
+            if capacity is None:
+                raise ValueError("an integer `hosts` needs `capacity` "
+                                 "(the per-device budget)")
+            if hosts <= 1:
+                specs = [(host, dict(capacity))]
+            else:
+                if host != "edge-0":
+                    raise ValueError(
+                        "hosts > 1 generates edge-0..edge-N-1 device names; "
+                        "a custom `host` name cannot be honored")
+                specs = [(f"edge-{i}", dict(capacity)) for i in range(hosts)]
+        else:
+            if capacity is not None:
+                raise ValueError(
+                    "per-host budgets come from the host specs; `capacity` "
+                    "must be omitted when `hosts` is a sequence")
+            if host != "edge-0":
+                raise ValueError(
+                    "host specs carry their own names; a custom `host` "
+                    "cannot be honored when `hosts` is a sequence")
+            specs = [(str(h.name), dict(h.capacity))
+                     if hasattr(h, "capacity") else (str(h[0]), dict(h[1]))
+                     for h in hosts]
+            if not specs:
+                raise ValueError("`hosts` sequence is empty")
+        hostnames = [n for n, _ in specs]
+        self.host_capacity: Dict[str, Dict[str, float]] = dict(specs)
+        if len(specs) == 1:
+            self.platform = MUDAP(specs[0][1], host=specs[0][0])
+        else:
+            self.platform = Fleet([MUDAP(c, host=n) for n, c in specs])
         self.pool = ContainerPool()
         self.services: Dict[str, SimulatedService] = {}
         self.patterns: Dict[str, Pattern] = {}
         rng = np.random.default_rng(seed)
-        self._routes: Optional[List[tuple]] = None
-        # each container starts with an equal share of the device's
-        # resources (§V-B(c))
+        self._routes: Optional[List[tuple]] = None   # rebuilt after churn
         n_total = len(profiles) * replicas
+        assign = self._placements(placement, hostnames, n_total)
+        # each container starts with an equal share of its *device's*
+        # resources (§V-B(c))
+        per_host = {h: 0 for h in hostnames}
+        for h in assign:
+            per_host[h] += 1
+        i = 0
         instance_of: Dict[str, int] = {}   # per-type container numbering
         for profile in profiles:
             for _r in range(replicas):
+                hostname = assign[i]
+                i += 1
                 c = instance_of.get(profile.type, 0)
                 instance_of[profile.type] = c + 1
-                sid = ServiceId(host, profile.type, f"c{c}")
+                sid = ServiceId(hostname, profile.type, f"c{c}")
                 key = str(sid)
                 backend = SimulatedService(
                     profile, np.random.default_rng(rng.integers(2 ** 31)),
                     pool=self.pool)
                 defaults = dict(profile.defaults)
-                for res, cap in capacity.items():
+                for res, cap in self.host_capacity[hostname].items():
                     if res in profile.api.names:
-                        defaults[res] = cap / n_total
-                self.platform.register(sid, profile.api, backend,
-                                       list(profile.slos), defaults)
+                        defaults[res] = cap / per_host[hostname]
+                if isinstance(self.platform, Fleet):
+                    self.platform.place(sid, profile.api, backend,
+                                        list(profile.slos), defaults,
+                                        host=hostname)
+                else:
+                    self.platform.register(sid, profile.api, backend,
+                                           list(profile.slos), defaults)
                 self.services[key] = backend
                 pat = (patterns or {}).get(profile.type)
                 self.patterns[key] = pat if pat else constant(profile.default_rps)
         self.t = 0.0
+
+    def _placements(self, placement, hostnames: List[str],
+                    n_total: int) -> List[str]:
+        """Per-container host assignment under the chosen policy."""
+        if not isinstance(placement, str):
+            assign = [str(h) for h in placement]
+            if len(assign) != n_total:
+                raise ValueError(f"explicit placement names {len(assign)} "
+                                 f"hosts for {n_total} containers")
+            unknown = set(assign) - set(hostnames)
+            if unknown:
+                raise KeyError(f"unknown hosts in placement: {sorted(unknown)}")
+            return assign
+        if placement == "round_robin":
+            return [hostnames[i % len(hostnames)] for i in range(n_total)]
+        if placement == "capacity":
+            # largest-remainder apportionment on total budget, then hand
+            # containers out by largest remaining quota (ties: host order)
+            w = np.asarray([max(sum(self.host_capacity[h].values()), 0.0)
+                            for h in hostnames], float)
+            w = w / max(w.sum(), 1e-9)
+            quota = w * n_total
+            counts = np.floor(quota).astype(int)
+            frac_order = np.argsort(-(quota - counts), kind="stable")
+            for j in frac_order[:n_total - int(counts.sum())]:
+                counts[j] += 1
+            remaining = counts.astype(float)
+            assign = []
+            for _ in range(n_total):
+                j = int(np.argmax(remaining))   # ties: first host wins
+                assign.append(hostnames[j])
+                remaining[j] -= 1.0
+            return assign
+        raise ValueError(f"unknown placement policy {placement!r}")
 
     # -- measured Eq. (8) ------------------------------------------------------
     def measured_fulfillment(self, window: float = 5.0
@@ -367,6 +499,73 @@ class EdgeEnvironment:
             return 1.0, per_service
         return float(global_fulfillment(metrics_list, slo_list)), per_service
 
+    # -- churn: the fleet changing underneath the agent --------------------------
+    def evacuate_host(self, name: str, agent=None,
+                      carry_telemetry: bool = True
+                      ) -> List[Tuple[str, str, str]]:
+        """Move every resident off device ``name`` and drop it from the
+        fleet.  Destinations come from the agent's candidate-batched
+        ``placement_scores`` when it exposes them (one dispatch scores all
+        (service, host) pairs; the failed host's column is ignored), with a
+        least-loaded fallback per unscored service.  Returns the moves."""
+        if not isinstance(self.platform, Fleet):
+            raise ValueError("host churn needs a multi-host Fleet")
+        scores = {}
+        if agent is not None and hasattr(agent, "placement_scores"):
+            scores = agent.placement_scores()
+        moves = self.platform.evacuate(name, scores,
+                                       carry_telemetry=carry_telemetry)
+        self.platform.remove_host(name)
+        self.host_capacity.pop(name, None)
+        return moves
+
+    def degrade_host(self, name: str, factor: float) -> Dict[str, float]:
+        """Scale every resource budget of device ``name`` by ``factor``
+        (< 1: thermal throttling / co-tenant pressure; > 1: recovery).
+        Existing holdings shrink on the next applied plan's arbitration."""
+        caps = self.host_capacity[name]
+        for res in list(caps):
+            caps[res] = caps[res] * float(factor)
+            if isinstance(self.platform, Fleet):
+                self.platform.set_capacity(name, res, caps[res])
+            else:
+                self.platform.capacity[res] = caps[res]
+        return dict(caps)
+
+    def add_service(self, profile: ServiceProfile,
+                    pattern: Optional[Pattern] = None,
+                    host: Optional[str] = None) -> str:
+        """A new service container arriving mid-run (``repro``'s
+        ``add_service``): not ported, since the agent's re-binding to a
+        changed service set needs the transfer priors."""
+        raise NotImplementedError(_SERVICE_SET_TODO.format(what="arrive"))
+
+    def remove_service(self, sid: str) -> None:
+        """A service departing mid-run (``repro``'s ``remove_service``):
+        not ported, for the reason ``add_service`` gives."""
+        raise NotImplementedError(_SERVICE_SET_TODO.format(what="depart"))
+
+    def apply_event(self, ev: ChurnEvent, agent=None) -> None:
+        """Apply one scripted churn event, then re-bind the agent
+        (``refresh_topology``) so its next cycle decides against the new
+        topology."""
+        if ev.kind in ("fail_host", "drain_host"):
+            self.evacuate_host(ev.host, agent,
+                               carry_telemetry=(ev.kind == "drain_host"))
+        elif ev.kind == "degrade":
+            self.degrade_host(ev.host, ev.factor)
+        elif ev.kind == "arrive":
+            if ev.profile is None:
+                raise ValueError("arrive event needs a profile")
+            self.add_service(ev.profile, pattern=ev.pattern,
+                             host=ev.host or None)
+        elif ev.kind == "depart":
+            self.remove_service(ev.service)
+        else:
+            raise ValueError(f"unknown churn event kind {ev.kind!r}")
+        if agent is not None and hasattr(agent, "refresh_topology"):
+            agent.refresh_topology()
+
     # -- one agent cycle through the unified protocol ---------------------------
     def _drive(self, agent) -> CycleResult:
         """observe -> decide -> apply_plan for ``Agent``s; legacy agents
@@ -384,33 +583,47 @@ class EdgeEnvironment:
     # -- main loop ----------------------------------------------------------------
     def run(self, agent, duration_s: float, cycle_s: float = 10.0,
             on_cycle: Optional[Callable] = None,
-            events: Optional[Sequence] = None) -> List[CycleRecord]:
-        """Tick the pool every simulated second, scrape, and drive the agent
-        every ``cycle_s`` seconds. Scripted churn ``events`` raise."""
-        if events:
-            raise NotImplementedError(f"churn events {_FLEET_TODO}")
+            events: Optional[Sequence[ChurnEvent]] = None
+            ) -> List[CycleRecord]:
+        """``events``: scripted churn (absolute ``t`` on the environment
+        clock), applied just before the tick that reaches their time;
+        events already in the past fire on the first step."""
         history: List[CycleRecord] = []
         steps = int(duration_s)
+        pending = sorted(events or [], key=lambda e: e.t)
         # (pool index, pattern) per container — indexing by the backend's own
-        # pool slot, not dict position, so extra pool tenants cannot skew it
-        self._routes = [(b.i, self.patterns[k])
-                        for k, b in self.services.items()]
+        # pool slot, not dict position, so extra pool tenants cannot skew it;
+        # rebuilt whenever churn changes the service set
+        self._routes = None
         for step in range(1, steps + 1):
             self.t += 1.0
+            while pending and pending[0].t <= self.t:
+                self.apply_event(pending.pop(0), agent)
+            if self._routes is None:
+                self._routes = [(b.i, self.patterns[k])
+                                for k, b in self.services.items()]
             for j, pat in self._routes:          # workloads are opaque callables
                 self.pool.rps[j] = pat(self.t)
-            self.pool.tick(self.t)               # whole pool, one batched step
+            self.pool.tick(self.t)               # whole fleet, one batched step
             self.platform.scrape(self.t)
             if step % int(cycle_s) == 0:
                 result = self._drive(agent)
                 fulfillment, per_service = self.measured_fulfillment()
+                info = getattr(agent, "last_decision", None)
+                accountant = getattr(agent, "accountant", None)
+                fleet_burn = accountant.global_state() \
+                    if accountant is not None else None
                 rec = CycleRecord(
                     self.t, fulfillment, per_service,
                     result.runtime_s if result else 0.0,
                     result.explored if result else False,
                     {k: self.services[k].rps for k in self.services},
                     receipt=result.receipt if result else None,
-                    compile_s=result.compile_s if result else 0.0)
+                    compile_s=result.compile_s if result else 0.0,
+                    alerts=info.burn_alerts if info else 0,
+                    max_burn=info.max_burn if info else 0.0,
+                    budget_consumed=fleet_burn.budget_consumed
+                    if fleet_burn else 0.0)
                 history.append(rec)
                 if on_cycle:
                     on_cycle(rec)

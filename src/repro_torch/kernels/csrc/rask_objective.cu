@@ -1,6 +1,7 @@
 // The RASK objective and its gradient: K candidate decision vectors A (K, D)
 // become per-service weighted SLO fulfilment (K, S), and a cotangent
-// ct (K, S) becomes dJ/dA (K, D).
+// ct (K, S) becomes dJ/dA (K, D) -- for B problem rows at once, each with
+// its own tables: A (B, K, D), every table with a leading B, out (B, K, S).
 //
 // Replaces the TPU kernel repro/kernels/rask_objective.py
 // ::rask_objective_pallas (body _kernel), and gives its jnp backward
@@ -68,6 +69,16 @@
 //    of scattering;
 //  * an index outside its table reads NaN, so a bad table shows in the
 //    result instead of reading stray memory.
+//  * Rows: repro vmaps the Pallas kernel over the hosts of a fleet's layout
+//    bucket (and over placement candidates), which adds a grid axis. Here a
+//    launch takes B rows, one CTA per (row, candidate): the row on
+//    blockIdx.x (up to 2^31 - 1; gridDim.y stops at 65,535, and a
+//    placement batch can pass that), the candidate on blockIdx.y. A CTA
+//    stages only its row's tables, so shared memory per CTA is what one
+//    problem of the bucket's padded sizes needs, whatever B is; an
+//    un-batched call is the case B = 1. Padded rows of a bucket (relations
+//    with term_mask 0, parameters boxed to [0, 0], SLOs of weight 0 and
+//    target 1, gathers of slot 0) contribute exactly 0.
 // Float32 throughout, like the original.
 
 #include <cuda_runtime.h>
@@ -83,7 +94,7 @@ constexpr int kThreads = 256;
 constexpr int kMaxF = 8;  // features per relation (one instantiation each)
 
 struct Dims {
-  int K, D, R, F, T, Q, S;
+  int B, K, D, R, F, T, Q, S;
 };
 
 // Shared-memory layout in 4-byte words (int or float), every segment on a
@@ -137,6 +148,19 @@ struct Tables {
   const float* rps;
 };
 
+// Row b's tables: every table carries a leading row axis
+__device__ __forceinline__ Tables row_tables(const Tables& t, const Dims& d,
+                                             int b) {
+  const size_t rf = (size_t)b * d.R * d.F, rt = (size_t)b * d.R * d.T,
+               q = (size_t)b * d.Q;
+  return {t.rel_gather + rf,        t.w + rt,
+          t.exponents + rt * d.F,   t.term_mask + rt,
+          t.x_scale + rf,           t.slo_kind + q,
+          t.slo_service + q,        t.slo_weight + q,
+          t.slo_target + q,         t.slo_pidx + q,
+          t.slo_ridx + q,           t.rps + (size_t)b * d.S};
+}
+
 __device__ __forceinline__ float at(const float* v, int i, int n) {
   return (unsigned)i < (unsigned)n ? v[i] : __int_as_float(0x7fc00000);
 }
@@ -183,15 +207,15 @@ __device__ __forceinline__ void copy_async(float* dst, const void* src,
   for (int i = done + lane; i < n; i += 32) cp_async4(dst + i, s + i);
 }
 
-// Stage row k of A (and of the cotangent, for the backward) and every
-// table in shared memory: the segments dealt out to the warps, every copy
-// in flight at once, one wait.
+// Stage candidate row `bk` (= b * K + k) of A (and of the cotangent, for
+// the backward) and every table of problem row b in shared memory: the
+// segments dealt out to the warps, every copy in flight at once, one wait.
 __device__ void stage(float* sm, const Layout& L, const Dims& d,
-                      const float* A, const float* ct, int k,
+                      const float* A, const float* ct, size_t bk,
                       const Tables& t) {
   switch (threadIdx.x / 32) {
     case 0:
-      copy_async(sm + L.a, A + (size_t)k * d.D, d.D);
+      copy_async(sm + L.a, A + bk * d.D, d.D);
       copy_async(sm + L.kind, t.slo_kind, d.Q);
       break;
     case 1:
@@ -218,7 +242,7 @@ __device__ void stage(float* sm, const Layout& L, const Dims& d,
       copy_async(sm + L.rps, t.rps, d.S);
       break;
     default:
-      if (ct != nullptr) copy_async(sm + L.ct, ct + (size_t)k * d.S, d.S);
+      if (ct != nullptr) copy_async(sm + L.ct, ct + bk * d.S, d.S);
   }
   asm volatile("cp.async.wait_all;" ::: "memory");
   __syncthreads();
@@ -338,8 +362,8 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ __align__(16) float sm[];
   const Layout L = make_layout(d, false);
   const int* smi = reinterpret_cast<const int*>(sm);
-  const int k = blockIdx.x;
-  stage(sm, L, d, A, nullptr, k, t);
+  const size_t bk = (size_t)blockIdx.x * d.K + blockIdx.y;
+  stage(sm, L, d, A, nullptr, bk, row_tables(t, d, blockIdx.x));
 
   // the SLOs no relation group forms, a thread each from the top of the CTA
   // (lanes the relation groups leave idle): parameter SLOs, and relation
@@ -393,7 +417,7 @@ __global__ void __launch_bounds__(kThreads)
           if (smi[L.svc + q] == s) acc += sm[L.q + q];
       }
       acc = group_sum(acc, width);
-      if (s < d.S && t == 0) out[(size_t)k * d.S + s] = acc;
+      if (s < d.S && t == 0) out[bk * d.S + s] = acc;
     }
   }
 }
@@ -406,8 +430,8 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ __align__(16) float sm[];
   const Layout L = make_layout(d, true);
   int* smi = reinterpret_cast<int*>(sm);
-  const int k = blockIdx.x;
-  stage(sm, L, d, A, ct, k, t);
+  const size_t bk = (size_t)blockIdx.x * d.K + blockIdx.y;
+  stage(sm, L, d, A, ct, bk, row_tables(t, d, blockIdx.x));
 
   // parameter SLOs, a thread each from the top of the CTA (lanes the
   // relation groups leave idle): the cotangent and the index it feeds
@@ -494,7 +518,7 @@ __global__ void __launch_bounds__(kThreads)
       }
       float sums[2] = {from_slo, from_features};
       group_sum(sums, width);
-      if (i < d.D && t == 0) dA[(size_t)k * d.D + i] = sums[0] + sums[1];
+      if (i < d.D && t == 0) dA[bk * d.D + i] = sums[0] + sums[1];
     }
   }
 }
@@ -507,8 +531,8 @@ __global__ void empty_kernel() {}
 template <typename Kernel>
 int prepare(Kernel kernel, const Dims& d, bool backward, size_t* smem,
             int* raised) {
-  if (d.K <= 0 || d.D <= 0 || d.R <= 0 || d.F <= 0 || d.F > kMaxF ||
-      d.T <= 0 || d.Q <= 0 || d.S <= 0)
+  if (d.B <= 0 || d.K <= 0 || d.K > 65535 || d.D <= 0 || d.R <= 0 ||
+      d.F <= 0 || d.F > kMaxF || d.T <= 0 || d.Q <= 0 || d.S <= 0)
     return (int)cudaErrorInvalidValue;
   *smem = (size_t)make_layout(d, backward).total * 4;
   if (*smem > 48 * 1024) {
@@ -537,7 +561,8 @@ int launch_forward(const float* A, const Tables& t, float* out,
   const int err = prepare(rask_forward_kernel<F>, d, false, &smem,
                           raised_forward[F]);
   if (err) return err;
-  rask_forward_kernel<F><<<d.K, kThreads, smem, stream>>>(A, t, out, d);
+  rask_forward_kernel<F><<<dim3(d.B, d.K), kThreads, smem, stream>>>(A, t, out,
+                                                                      d);
   return (int)cudaGetLastError();
 }
 
@@ -548,7 +573,8 @@ int launch_backward(const float* A, const float* ct, const Tables& t,
   const int err = prepare(rask_backward_kernel<F>, d, true, &smem,
                           raised_backward[F]);
   if (err) return err;
-  rask_backward_kernel<F><<<d.K, kThreads, smem, stream>>>(A, ct, t, dA, d);
+  rask_backward_kernel<F><<<dim3(d.B, d.K), kThreads, smem, stream>>>(
+      A, ct, t, dA, d);
   return (int)cudaGetLastError();
 }
 
@@ -556,12 +582,13 @@ int launch_backward(const float* A, const float* ct, const Tables& t,
 }  // namespace repro_torch
 
 // Plain C interface, loaded with ctypes by kernels/rask_objective.py. Every
-// tensor is contiguous; float32 except the int32 index tables. Each entry
-// returns a cudaError_t code (0 = launched).
+// tensor is contiguous, with a leading row axis of B (1 for one problem);
+// float32 except the int32 index tables. Each entry returns a cudaError_t
+// code (0 = launched).
 
 extern "C" int rask_objective_smem_bytes(int D, int R, int F, int T, int Q,
                                          int S, int backward) {
-  repro_torch::Dims d{1, D, R, F, T, Q, S};
+  repro_torch::Dims d{1, 1, D, R, F, T, Q, S};
   return repro_torch::make_layout(d, backward != 0).total * 4;
 }
 
@@ -580,10 +607,10 @@ extern "C" int rask_objective_forward(
     const int* exponents, const float* term_mask, const float* x_scale,
     const int* slo_kind, const int* slo_service, const float* slo_weight,
     const float* slo_target, const int* slo_pidx, const int* slo_ridx,
-    const float* rps, float* out, int K, int D, int R, int F, int T, int Q,
-    int S, void* stream) {
+    const float* rps, float* out, int B, int K, int D, int R, int F, int T,
+    int Q, int S, void* stream) {
   using namespace repro_torch;
-  const Dims d{K, D, R, F, T, Q, S};
+  const Dims d{B, K, D, R, F, T, Q, S};
   const Tables t{rel_gather, w, exponents, term_mask, x_scale, slo_kind,
                  slo_service, slo_weight, slo_target, slo_pidx, slo_ridx,
                  rps};
@@ -606,10 +633,10 @@ extern "C" int rask_objective_backward(
     const int* exponents, const float* term_mask, const float* x_scale,
     const int* slo_kind, const int* slo_service, const float* slo_weight,
     const float* slo_target, const int* slo_pidx, const int* slo_ridx,
-    const float* rps, float* dA, int K, int D, int R, int F, int T, int Q,
-    int S, void* stream) {
+    const float* rps, float* dA, int B, int K, int D, int R, int F, int T,
+    int Q, int S, void* stream) {
   using namespace repro_torch;
-  const Dims d{K, D, R, F, T, Q, S};
+  const Dims d{B, K, D, R, F, T, Q, S};
   const Tables t{rel_gather, w, exponents, term_mask, x_scale, slo_kind,
                  slo_service, slo_weight, slo_target, slo_pidx, slo_ridx,
                  rps};

@@ -84,9 +84,10 @@ def rask_objective(A, rel_gather, w, exponents, term_mask, x_scale, slo_kind,
                    rps, *, n_services: int, max_degree: int):
     """A: (K, D) candidate assignments -> (K, |S|) per-service weighted SLO
     fulfillment (autoscaler Eq. (4) inner evaluation; shapes in
-    ``ref.rask_objective_reference``). Differentiable in ``A``: on a CUDA
-    tensor through the forward and backward kernels, on a CPU tensor
-    through the plain versions."""
+    ``ref.rask_objective_reference``), or (B, K, D) -> (B, K, |S|) over B
+    problem rows whose tables carry a leading B. Differentiable in ``A``:
+    on a CUDA tensor through the forward and backward kernels (one launch
+    each, whatever B), on a CPU tensor through the plain versions."""
     args = (A, rel_gather, w, exponents, term_mask, x_scale, slo_kind,
             slo_service, slo_weight, slo_target, slo_pidx, slo_ridx, rps)
     if _route(A, "rask_objective"):
@@ -99,9 +100,10 @@ def rask_objective_vjp(A, ct, rel_gather, w, exponents, term_mask, x_scale,
                        slo_pidx, slo_ridx, rps, *, n_services: int,
                        max_degree: int):
     """The objective's vector-Jacobian product alone: cotangent ct (K, |S|)
-    -> dJ/dA (K, D), the gradient ``rask_objective``'s backward gives, with
-    no forward and no autograd graph (on a CUDA tensor the backward kernel,
-    on a CPU tensor ``ref.rask_objective_grad``)."""
+    -> dJ/dA (K, D), or over B rows (B, K, |S|) -> (B, K, D), the gradient
+    ``rask_objective``'s backward gives, with no forward and no autograd
+    graph (on a CUDA tensor the backward kernel, on a CPU tensor
+    ``ref.rask_objective_grad``)."""
     tables = (rel_gather, w, exponents, term_mask, x_scale, slo_kind,
               slo_service, slo_weight, slo_target, slo_pidx, slo_ridx, rps)
     if _route(A, "rask_objective_vjp"):

@@ -5,8 +5,11 @@ Counterpart of ``repro/kernels/rask_objective.py``: the forward replaces
 (plain jnp in ``repro``) a kernel of its own. ``RaskObjective`` is the
 ``torch.autograd.Function`` whose forward is the forward kernel and whose
 backward is the backward kernel; ``kernels/ops.py::rask_objective`` sends
-CUDA tensors to it. The source note in the ``.cu`` file says what bounds
-the kernels on the H100 and how they are laid out.
+CUDA tensors to it. Both kernels take one problem (A (K, D)) or B problem
+rows at once (A (B, K, D), every table with a leading B): one launch for a
+whole layout bucket of a fleet, as ``repro``'s ``vmap`` of the Pallas
+kernel gives one batched kernel. The source note in the ``.cu`` file says
+what bounds the kernels on the H100 and how they are laid out.
 
 Plain versions: ``kernels/ref.py::rask_objective_reference`` and
 ``rask_objective_grad``.
@@ -29,8 +32,8 @@ _INDEX_TABLES = ("rel_gather", "exponents", "slo_kind", "slo_service",
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("rask_objective")
-    lib.rask_objective_forward.argtypes = [_P] * 14 + [_I] * 7 + [_P]
-    lib.rask_objective_backward.argtypes = [_P] * 15 + [_I] * 7 + [_P]
+    lib.rask_objective_forward.argtypes = [_P] * 14 + [_I] * 8 + [_P]
+    lib.rask_objective_backward.argtypes = [_P] * 15 + [_I] * 8 + [_P]
     lib.rask_objective_smem_bytes.argtypes = [_I] * 7
     lib.rask_objective_smem_limit.argtypes = [_I]
     lib.rask_objective_max_features.argtypes = []
@@ -70,14 +73,17 @@ _TABLES = ("rel_gather", "w", "exponents", "term_mask", "x_scale",
            "slo_ridx", "rps")
 _TABLE_DTYPES = tuple(torch.int32 if key in _INDEX_TABLES else torch.float32
                       for key in _TABLES)
+_MAX_K = 65535          # candidates sit on gridDim.y
 
 
 def _dims(name: str, A, rel_gather, w, exponents, term_mask, x_scale,
           slo_kind, slo_service, slo_weight, slo_target, slo_pidx, slo_ridx,
           rps, n_services: int, backward: bool, ct=None):
     """Check what the kernel takes (and the cotangent's device, for the
-    backward); return (K, D, R, F, T, Q, S). Each check compares all
-    tables at once and names the first that fails."""
+    backward); return (B, K, D, R, F, T, Q, S). ``A`` is (K, D) with
+    un-batched tables (B = 1), or (B, K, D) with every table carrying a
+    leading B. Each check compares all tables at once and names the first
+    that fails."""
     tables = (rel_gather, w, exponents, term_mask, x_scale, slo_kind,
               slo_service, slo_weight, slo_target, slo_pidx, slo_ridx, rps)
     dev = _build.require_cuda(name, A, *tables,
@@ -87,39 +93,49 @@ def _dims(name: str, A, rel_gather, w, exponents, term_mask, x_scale,
         key, got, want = next(x for x in zip(_TABLES, dtypes, _TABLE_DTYPES)
                               if x[1] != x[2])
         raise ValueError(f"{name}: {key} must be {want}, got {got}")
-    if A.dtype != torch.float32 or A.dim() != 2:
-        raise ValueError(f"{name}: A must be (K, D) float32")
-    K, D = A.shape
-    if exponents.dim() != 3:
-        raise ValueError(f"{name}: exponents must be (R, T, F)")
-    R, T, F = exponents.shape
-    Q = slo_kind.shape[0]
+    if A.dtype != torch.float32 or A.dim() not in (2, 3):
+        raise ValueError(f"{name}: A must be (K, D) or (B, K, D) float32")
+    batched = A.dim() == 3
+    B, K, D = A.shape if batched else (1, *A.shape)
+    if exponents.dim() != 3 + batched:
+        raise ValueError(f"{name}: exponents must be "
+                         f"{'(B, R, T, F)' if batched else '(R, T, F)'}")
+    R, T, F = exponents.shape[batched:]
+    Q = slo_kind.shape[-1]
     S = int(n_services)
+    lead = (B,) if batched else ()
     shapes = tuple(t.shape for t in tables)
-    want = ((R, F), (R, T), (R, T, F), (R, T), (R, F), (Q,), (Q,), (Q,),
-            (Q,), (Q,), (Q,), (S,))
+    want = tuple(lead + s for s in ((R, F), (R, T), (R, T, F), (R, T),
+                                    (R, F), (Q,), (Q,), (Q,), (Q,), (Q,),
+                                    (Q,), (S,)))
     if shapes != want:
         key, got, shape = next(x for x in zip(_TABLES, shapes, want)
                                if x[1] != x[2])
         raise ValueError(f"{name}: {key} has shape {tuple(got)}, want "
                          f"{shape}")
+    if K > _MAX_K:
+        raise ValueError(f"{name}: {K} candidates a row; the kernel takes "
+                         f"at most {_MAX_K}")
     _shape_checks(name, dev.index, D, R, F, T, Q, S, backward)
-    return K, D, R, F, T, Q, S
+    return B, K, D, R, F, T, Q, S
 
 
 def rask_objective_forward_cuda(A, rel_gather, w, exponents, term_mask,
                                 x_scale, slo_kind, slo_service, slo_weight,
                                 slo_target, slo_pidx, slo_ridx, rps, *,
                                 n_services: int) -> torch.Tensor:
-    """(K, D) candidates -> (K, n_services) weighted SLO fulfilment, on the
-    forward kernel. Shapes: ``ref.rask_objective_reference``. Raises on
-    anything the kernel does not take; never computes on another path."""
-    K, D, R, F, T, Q, S = _dims(
+    """(K, D) candidates -> (K, n_services) weighted SLO fulfilment, or
+    (B, K, D) -> (B, K, n_services) over B problem rows with batched tables,
+    in one launch of the forward kernel. Shapes:
+    ``ref.rask_objective_reference``. Raises on anything the kernel does
+    not take; never computes on another path."""
+    B, K, D, R, F, T, Q, S = _dims(
         "rask_objective", A, rel_gather, w, exponents, term_mask, x_scale,
         slo_kind, slo_service, slo_weight, slo_target, slo_pidx, slo_ridx,
         rps, n_services, backward=False)
-    out = torch.empty((K, S), dtype=torch.float32, device=A.device)
-    if K == 0:
+    out = torch.empty((*A.shape[:-1], S), dtype=torch.float32,
+                      device=A.device)
+    if B * K == 0:
         return out
     lib = _lib()
     code = lib.rask_objective_forward(
@@ -127,7 +143,7 @@ def rask_objective_forward_cuda(A, rel_gather, w, exponents, term_mask,
         exponents.data_ptr(), term_mask.data_ptr(), x_scale.data_ptr(),
         slo_kind.data_ptr(), slo_service.data_ptr(), slo_weight.data_ptr(),
         slo_target.data_ptr(), slo_pidx.data_ptr(), slo_ridx.data_ptr(),
-        rps.data_ptr(), out.data_ptr(), K, D, R, F, T, Q, S,
+        rps.data_ptr(), out.data_ptr(), B, K, D, R, F, T, Q, S,
         _build.current_stream(A.device))
     _build.check_launch(lib, "rask_objective", code)
     rask_objective_forward_cuda.launches += 1
@@ -138,17 +154,18 @@ def rask_objective_backward_cuda(A, ct, rel_gather, w, exponents, term_mask,
                                  x_scale, slo_kind, slo_service, slo_weight,
                                  slo_target, slo_pidx, slo_ridx, rps, *,
                                  n_services: int) -> torch.Tensor:
-    """Cotangent ct (K, n_services) -> dJ/dA (K, D), on the backward
-    kernel (``ref.rask_objective_grad``'s function)."""
-    K, D, R, F, T, Q, S = _dims(
+    """Cotangent ct (K, n_services) -> dJ/dA (K, D), or (B, K, n_services)
+    -> (B, K, D) over B rows, in one launch of the backward kernel
+    (``ref.rask_objective_grad``'s function)."""
+    B, K, D, R, F, T, Q, S = _dims(
         "rask_objective_grad", A, rel_gather, w, exponents, term_mask,
         x_scale, slo_kind, slo_service, slo_weight, slo_target, slo_pidx,
         slo_ridx, rps, n_services, backward=True, ct=ct)
-    if ct.dtype != torch.float32 or tuple(ct.shape) != (K, S):
-        raise ValueError(f"rask_objective_grad: ct must be ({K}, {S}) "
-                         f"float32")
-    dA = torch.empty((K, D), dtype=torch.float32, device=A.device)
-    if K == 0:
+    if ct.dtype != torch.float32 or ct.shape != (*A.shape[:-1], S):
+        raise ValueError(f"rask_objective_grad: ct must be "
+                         f"{(*A.shape[:-1], S)} float32")
+    dA = torch.empty(A.shape, dtype=torch.float32, device=A.device)
+    if B * K == 0:
         return dA
     lib = _lib()
     code = lib.rask_objective_backward(
@@ -156,7 +173,7 @@ def rask_objective_backward_cuda(A, ct, rel_gather, w, exponents, term_mask,
         exponents.data_ptr(), term_mask.data_ptr(), x_scale.data_ptr(),
         slo_kind.data_ptr(), slo_service.data_ptr(), slo_weight.data_ptr(),
         slo_target.data_ptr(), slo_pidx.data_ptr(), slo_ridx.data_ptr(),
-        rps.data_ptr(), dA.data_ptr(), K, D, R, F, T, Q, S,
+        rps.data_ptr(), dA.data_ptr(), B, K, D, R, F, T, Q, S,
         _build.current_stream(A.device))
     _build.check_launch(lib, "rask_objective", code)
     rask_objective_backward_cuda.launches += 1

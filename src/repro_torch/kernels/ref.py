@@ -10,10 +10,11 @@ scores take -1e30 (not -inf), the softmax runs in float32, and the
 probabilities are cast to the value dtype before the second product. The
 CPU path runs them (``kernels/ops.py``), the tests hold them against the
 JAX package, and ``chip_smoke.py`` holds each CUDA kernel against them.
-The objective's gathers and segment sums are indexed loads and
-``index_add_`` here, where the JAX versions use one-hot matmuls; the
-results are the same sums (``index_add_`` on a card adds in no fixed
-order, which moves the last bits only).
+The objective's gathers and segment sums are ``gather`` and
+``scatter_add_`` over a leading row axis here, where the JAX versions use
+one-hot matmuls under ``vmap``; the results are the same sums
+(``scatter_add_`` on a card adds in no fixed order, which moves the last
+bits only).
 """
 from __future__ import annotations
 
@@ -206,12 +207,25 @@ def _powers(x, max_degree: int):
 
 
 def _select(pows, exponents):
-    """pows (K, R, d+1, F), exponents (R, T, F) -> x^e per (K, R, T, F)."""
-    K, R, d1, F = pows.shape
-    T = exponents.shape[1]
-    idx = exponents.long()[None, :, :, None, :].expand(K, R, T, 1, F)
-    return torch.gather(pows[:, :, None].expand(K, R, T, d1, F), 3,
-                        idx)[:, :, :, 0, :]
+    """pows (B, K, R, d+1, F), exponents (B, R, T, F) -> x^e per
+    (B, K, R, T, F)."""
+    B, K, R, d1, F = pows.shape
+    T = exponents.shape[2]
+    idx = exponents.long()[:, None, :, :, None, :].expand(B, K, R, T, 1, F)
+    return torch.gather(pows[:, :, :, None].expand(B, K, R, T, d1, F), 4,
+                        idx)[..., 0, :]
+
+
+def _take(x, idx):
+    """x (B, K, N) at per-row indices idx (B, M) -> (B, K, M)."""
+    return torch.gather(x, 2, idx[:, None].expand(-1, x.shape[1], -1))
+
+
+def _add_at(out, idx, src):
+    """out (B, K, N) += src (B, K, M) at per-row indices idx (B, M); a
+    repeated index adds in the order of M."""
+    return out.scatter_add_(2, idx[:, None].expand(-1, src.shape[1], -1),
+                            src)
 
 
 def rask_objective_reference(A, rel_gather, w, exponents, term_mask, x_scale,
@@ -235,22 +249,36 @@ def rask_objective_reference(A, rel_gather, w, exponents, term_mask, x_scale,
     Returns (K, n_services): sum of weight * min(metric/target, 1) per
     service, where the completion SLO (kind 1) reads
     min(pred / (rps * target), 1).
+
+    Over B problem rows at once (``repro``'s ``vmap`` of the kernel): A
+    (B, K, D) with every table carrying a leading B -> (B, K, n_services),
+    in tensor ops over the row axis.
     """
+    tables = (rel_gather, w, exponents, term_mask, x_scale, slo_kind,
+              slo_service, slo_weight, slo_target, slo_pidx, slo_ridx, rps)
+    if A.dim() == 2:            # one problem: the row axis' case B = 1
+        return rask_objective_reference(A[None], *(t[None] for t in tables),
+                                        n_services=n_services,
+                                        max_degree=max_degree)[0]
     A = A.float()
+    B, K, _ = A.shape
+    R, F = rel_gather.shape[1:]
     svc = slo_service.long()
-    xs = A[:, rel_gather.long()] / x_scale                    # (K, R, F)
-    vals = _select(_powers(xs, max_degree), exponents)        # (K, R, T, F)
-    terms = torch.prod(vals, dim=-1) * term_mask              # (K, R, T)
-    preds = torch.sum(terms * w, dim=-1)                      # (K, R)
-    numer = torch.where(slo_kind == 0, A[:, slo_pidx.long()],
-                        preds[:, slo_ridx.long()])
+    xs = _take(A, rel_gather.long().reshape(B, R * F)).reshape(
+        B, K, R, F) / x_scale[:, None]                        # (B, K, R, F)
+    vals = _select(_powers(xs, max_degree), exponents)     # (B, K, R, T, F)
+    terms = torch.prod(vals, dim=-1) * term_mask[:, None]     # (B, K, R, T)
+    preds = torch.sum(terms * w[:, None], dim=-1)             # (B, K, R)
+    numer = torch.where((slo_kind == 0)[:, None],
+                        _take(A, slo_pidx.long()),
+                        _take(preds, slo_ridx.long()))        # (B, K, Q)
     denom = torch.where(slo_kind == 1,
-                        torch.clamp_min(rps[svc] * slo_target, 1e-9),
-                        slo_target)
-    phi = torch.minimum(numer / denom, torch.ones_like(numer))
-    out = torch.zeros((A.shape[0], n_services), dtype=A.dtype,
-                      device=A.device)
-    return out.index_add_(1, svc, slo_weight * phi)
+                        torch.clamp_min(torch.gather(rps, 1, svc)
+                                        * slo_target, 1e-9),
+                        slo_target)                           # (B, Q)
+    phi = torch.minimum(numer / denom[:, None], torch.ones_like(numer))
+    out = torch.zeros((B, K, n_services), dtype=A.dtype, device=A.device)
+    return _add_at(out, svc, slo_weight[:, None] * phi)
 
 
 def rask_objective_grad(A, ct, rel_gather, w, exponents, term_mask, x_scale,
@@ -258,7 +286,8 @@ def rask_objective_grad(A, ct, rel_gather, w, exponents, term_mask, x_scale,
                         slo_pidx, slo_ridx, rps, *, n_services: int,
                         max_degree: int):
     """Analytic VJP of the objective w.r.t. the candidates: cotangent
-    ``ct`` (K, S) -> dJ/dA (K, D) (``repro``'s ``rask_objective_grad``).
+    ``ct`` (K, S) -> dJ/dA (K, D) (``repro``'s ``rask_objective_grad``), or
+    over B rows, ct (B, K, S) -> (B, K, D) with batched tables.
 
     The per-SLO cotangent goes back onto the parameters (``slo_pidx``) and
     the predictions (``slo_ridx``), the polynomial product rule runs over
@@ -267,42 +296,50 @@ def rask_objective_grad(A, ct, rel_gather, w, exponents, term_mask, x_scale,
     (``rel_gather``); indices repeat, so both scatters add. At the clip
     boundary ``ratio == 1`` it takes the half-subgradient, as ``jax.grad``
     of the reference does."""
-    del n_services
+    tables = (rel_gather, w, exponents, term_mask, x_scale, slo_kind,
+              slo_service, slo_weight, slo_target, slo_pidx, slo_ridx, rps)
+    if A.dim() == 2:
+        return rask_objective_grad(A[None], ct[None],
+                                   *(t[None] for t in tables),
+                                   n_services=n_services,
+                                   max_degree=max_degree)[0]
     A = A.float()
     ct = ct.float()
-    K, D = A.shape
-    R, T, F = exponents.shape
+    B, K, D = A.shape
+    R, T, F = exponents.shape[1:]
     svc, pidx, ridx = (slo_service.long(), slo_pidx.long(),
                        slo_ridx.long())
-    wm = w * term_mask                                        # (R, T)
-    xinv = 1.0 / x_scale                                      # (R, F)
-    x = A[:, rel_gather.long()] * xinv                        # (K, R, F)
-    pows = _powers(x, max_degree)                             # (K, R, d+1, F)
+    gather = rel_gather.long().reshape(B, R * F)
+    wm = (w * term_mask)[:, None]                             # (B, 1, R, T)
+    xinv = 1.0 / x_scale                                      # (B, R, F)
+    x = _take(A, gather).reshape(B, K, R, F) * xinv[:, None]  # (B, K, R, F)
+    pows = _powers(x, max_degree)                          # (B, K, R, d+1, F)
     vals = _select(pows, exponents)
     # power rule e * x^(e-1), from the same table (0 where e == 0)
     scale = torch.arange(1, max_degree + 1, dtype=x.dtype, device=x.device)
-    dpows = torch.cat([torch.zeros_like(pows[:, :, :1]),
-                       pows[:, :, :-1] * scale[:, None]], dim=2)
+    dpows = torch.cat([torch.zeros_like(pows[:, :, :, :1]),
+                       pows[:, :, :, :-1] * scale[:, None]], dim=3)
     dvals = _select(dpows, exponents)
-    terms = torch.prod(vals, dim=-1)                          # (K, R, T)
-    preds = torch.sum(terms * wm, dim=-1)                     # (K, R)
+    terms = torch.prod(vals, dim=-1)                          # (B, K, R, T)
+    preds = torch.sum(terms * wm, dim=-1)                     # (B, K, R)
 
-    is_p = (slo_kind == 0).to(A.dtype)
+    is_p = (slo_kind == 0).to(A.dtype)[:, None]               # (B, 1, Q)
     is_c = (slo_kind == 1).to(A.dtype)
-    numer = is_p * A[:, pidx] + (1 - is_p) * preds[:, ridx]
-    denom = is_c * torch.clamp_min(rps[svc] * slo_target, 1e-9) \
-        + (1 - is_c) * slo_target
+    numer = is_p * _take(A, pidx) + (1 - is_p) * _take(preds, ridx)
+    denom = (is_c * torch.clamp_min(torch.gather(rps, 1, svc) * slo_target,
+                                    1e-9)
+             + (1 - is_c) * slo_target)[:, None]              # (B, 1, Q)
     ratio = numer / denom
 
-    dphi = ct[:, svc] * slo_weight                            # (K, Q)
+    dphi = _take(ct, svc) * slo_weight[:, None]               # (B, K, Q)
     clip = torch.where(ratio < 1.0, 1.0,
                        torch.where(ratio == 1.0, 0.5, 0.0))   # min() subgrad
     dnumer = dphi * clip / denom
-    dA = torch.zeros((K, D), dtype=A.dtype, device=A.device)
-    dA.index_add_(1, pidx, dnumer * is_p)
-    dpreds = torch.zeros((K, R), dtype=A.dtype, device=A.device)
-    dpreds.index_add_(1, ridx, dnumer * (1 - is_p))
-    dterms = dpreds[:, :, None] * wm                          # (K, R, T)
+    dA = _add_at(torch.zeros((B, K, D), dtype=A.dtype, device=A.device),
+                 pidx, dnumer * is_p)
+    dpreds = _add_at(torch.zeros((B, K, R), dtype=A.dtype, device=A.device),
+                     ridx, dnumer * (1 - is_p))
+    dterms = dpreds[..., None] * wm                           # (B, K, R, T)
     dx = []
     for f in range(F):
         other = torch.ones_like(terms)
@@ -310,7 +347,7 @@ def rask_objective_grad(A, ct, rel_gather, w, exponents, term_mask, x_scale,
             if f2 != f:
                 other = other * vals[..., f2]
         dx.append(torch.sum(dterms * dvals[..., f] * other, dim=-1))
-    dx = torch.stack(dx, dim=-1) * xinv                       # (K, R, F)
-    dx_a = torch.zeros((K, D), dtype=A.dtype, device=A.device)
-    dx_a.index_add_(1, rel_gather.long().reshape(-1), dx.reshape(K, -1))
+    dx = torch.stack(dx, dim=-1) * xinv[:, None]              # (B, K, R, F)
+    dx_a = _add_at(torch.zeros((B, K, D), dtype=A.dtype, device=A.device),
+                   gather, dx.reshape(B, K, R * F))
     return dA + dx_a

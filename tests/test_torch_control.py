@@ -3,6 +3,8 @@ platform.py, telemetry.py, slo.py, elasticity.py and env/*) against the
 originals in ``repro``: the same inputs give identical outputs — water
 filling, ``apply_plan`` receipts, ``TrainingTable.delta_matrix`` exports,
 workload curves, and the simulator's telemetry under identical plans.
+The multi-host ``Fleet`` and churn have their own file,
+``test_torch_fleet.py``.
 """
 import dataclasses
 
@@ -136,11 +138,19 @@ def test_training_table_delta_matrix_is_repros():
 
 
 def test_unported_topologies_raise():
-    profs = list(paper_profiles().values())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EdgeEnvironment(profs, {"cores": 8.0}, hosts=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EdgeEnvironment(profs, {"cores": 8.0}, placement="capacity")
-    env = EdgeEnvironment(profs, {"cores": 8.0})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        env.run(None, 10, events=[object()])
+    """What stays unported of the fleet: churn that changes the service
+    set (``arrive``, ``depart``) and ``refresh_topology`` after such a
+    change raise, naming ROADMAP item 7 (the transfer priors)."""
+    from repro_torch.core import RASKAgent
+    from repro_torch.env import ChurnEvent, QR_PROFILE, hetero_environment
+    env, knowledge = hetero_environment(duration_s=100.0)
+    agent = RASKAgent(env.platform, knowledge, device="cpu")
+    sid = sorted(env.platform.services())[0]
+    for ev in (ChurnEvent(t=10.0, kind="arrive", profile=QR_PROFILE),
+               ChurnEvent(t=10.0, kind="depart", service=sid)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*7"):
+            env.apply_event(ev, agent)
+    assert sorted(env.platform.services()) == sorted(agent.services)
+    env.platform.deregister(sid)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*7"):
+        agent.refresh_topology()

@@ -454,6 +454,212 @@ def test_rask_objective_index_outside_its_table_gives_nan(cuda_device,
                                equal_nan=True)
 
 
+def _batched_case(dev, B, K, seed, D=12, R=5, T=10, F=3, Q=9, S=4):
+    """B problem rows padded as a fleet's layout bucket pads its hosts
+    (``core/solver.py::FleetBucket``): each row has its own real sizes;
+    padded parameters are 0 (boxed to [0, 0]), padded relations keep a
+    real relation's weights with term_mask 0 and gather slot 0, padded SLOs
+    are kind 0 with weight 0, target 1 and every index 0. Returns the
+    objective's arguments, its sizes, and each row's real (D, S)."""
+    rng = np.random.default_rng(seed)
+    A = np.zeros((B, K, D), np.float32)
+    rel = np.zeros((B, R, F), np.int32)
+    E = rng.integers(0, 3, (B, R, T, F)).astype(np.int32)
+    tm = np.zeros((B, R, T), np.float32)
+    w = rng.standard_normal((B, R, T)).astype(np.float32)
+    xs = rng.uniform(0.5, 2.0, (B, R, F)).astype(np.float32)
+    kind = np.zeros((B, Q), np.int32)
+    svc = np.zeros((B, Q), np.int32)
+    pidx = np.zeros((B, Q), np.int32)
+    ridx = np.zeros((B, Q), np.int32)
+    weight = np.zeros((B, Q), np.float32)
+    target = np.ones((B, Q), np.float32)
+    rps = rng.uniform(0.5, 2.0, (B, S)).astype(np.float32)
+    real = []
+    for b in range(B):
+        d, r, q, s = (int(rng.integers(1, n + 1)) for n in (D, R, Q, S))
+        A[b, :, :d] = rng.uniform(0.5, 1.5, (K, d))
+        rel[b, :r] = rng.integers(0, d, (r, F))
+        tm[b, :r] = rng.random((r, T)) < 0.8
+        tm[b, :r, 0] = 1.0
+        kind[b, :q] = rng.integers(0, 3, q)
+        svc[b, :q] = rng.integers(0, s, q)
+        pidx[b, :q] = rng.integers(0, d, q)
+        ridx[b, :q] = rng.integers(0, r, q)
+        weight[b, :q] = rng.uniform(0.2, 1.0, q)
+        target[b, :q] = rng.uniform(0.5, 3.0, q)
+        real.append((d, s))
+    args = tuple(torch.from_numpy(x).to(dev) for x in (
+        A, rel, w, E, tm, xs, kind, svc, weight, target, pidx, ridx, rps))
+    return args, dict(n_services=S, max_degree=2), real
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 17])
+@pytest.mark.parametrize("K", [1, 4, 6])
+def test_batched_rask_kernels_match_plain_and_the_per_row_kernel(
+        cuda_device, B, K):
+    """Over B padded rows, each kernel is one launch and agrees with the
+    batched plain version at 1e-5 (float32, sums in another order), with
+    each row's un-batched launch bit for bit, and gives exactly 0 on the
+    padded services and parameters."""
+    args, kw, real = _batched_case(cuda_device, B, K, seed=100 * B + K)
+    A, S = args[0], kw["n_services"]
+    ct = torch.randn((B, K, S), device=cuda_device,
+                     generator=torch.Generator(cuda_device).manual_seed(K))
+    n_fwd = rask_objective_forward_cuda.launches
+    n_bwd = rask_objective_backward_cuda.launches
+    got = rask_objective_forward_cuda(*args, n_services=S)
+    gdA = rask_objective_backward_cuda(A, ct, *args[1:], n_services=S)
+    assert rask_objective_forward_cuda.launches == n_fwd + 1
+    assert rask_objective_backward_cuda.launches == n_bwd + 1
+    want = ref.rask_objective_reference(*args, **kw)
+    wdA = ref.rask_objective_grad(A, ct, *args[1:], **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(gdA, wdA, atol=1e-5, rtol=1e-5)
+    for b, (d, s) in enumerate(real):
+        row = [t[b] for t in args]
+        assert torch.equal(got[b], rask_objective_forward_cuda(
+            *row, n_services=S))
+        assert torch.equal(gdA[b], rask_objective_backward_cuda(
+            row[0], ct[b], *row[1:], n_services=S))
+        assert not got[b, :, s:].any() and not gdA[b, :, d:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [65535, 65536])
+def test_batched_rask_kernels_pass_the_grid_y_limit(cuda_device, B):
+    """Rows sit on gridDim.x, so a batch past 65,535 rows (gridDim.y's
+    limit) launches once like any other."""
+    args, kw, _ = _batched_case(cuda_device, B, 2, seed=B, D=4, R=2, T=3,
+                                Q=3, S=2)
+    ct = torch.randn((B, 2, 2), device=cuda_device,
+                     generator=torch.Generator(cuda_device).manual_seed(0))
+    got = rask_objective_forward_cuda(*args, n_services=2)
+    gdA = rask_objective_backward_cuda(args[0], ct, *args[1:], n_services=2)
+    want = ref.rask_objective_reference(*args, **kw)
+    wdA = ref.rask_objective_grad(args[0], ct, *args[1:], **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(gdA, wdA, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_batched_rask_kernels_refuse_tables_past_shared_memory(cuda_device):
+    """A row's padded tables that need more shared memory than the card
+    gives a CTA are refused before any launch, whatever B is."""
+    args, kw, _ = _batched_case(cuda_device, 2, 2, seed=5, R=2000, T=10,
+                                Q=8)
+    n = rask_objective_forward_cuda.launches
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        rask_objective_forward_cuda(*args, n_services=kw["n_services"])
+    assert rask_objective_forward_cuda.launches == n
+
+
+def _fleet_setup(dev, counts=(1, 1, 1, 8, 8), seed=0):
+    """A fleet of the paper's services (``counts[h]`` on host h, 2.5 cores
+    a service) with fitted models on ``dev``, and the same problem with the
+    models' copies on the CPU: two layout buckets under ``auto``."""
+    from repro_torch.core.solver import FleetSolverProblem
+    rng = np.random.default_rng(seed)
+    profs = list(paper_profiles().values())
+    specs, host_of, caps = [], {}, {}
+    for h, c in enumerate(counts):
+        caps[f"h{h}"] = 2.5 * c
+        for j in range(c):
+            p = profs[(h + j) % 3]
+            names = tuple(p.api.names)
+            specs.append(ServiceSpec(
+                name=f"h{h}/s{j}", param_names=names,
+                lower=tuple(x.min_value for x in p.api.parameters),
+                upper=tuple(x.max_value for x in p.api.parameters),
+                resource_mask=tuple(x.name == "cores"
+                                    for x in p.api.parameters),
+                slos=tuple(p.slos),
+                relation_features=tuple(
+                    (t, tuple(names.index(f) for f in fs))
+                    for t, fs in p.knowledge.items())))
+            host_of[specs[-1].name] = f"h{h}"
+    rels, data = [], []
+    for s in specs:
+        for _, feat in s.relation_features:
+            hi = np.asarray([s.upper[j] for j in feat], np.float32)
+            X = rng.uniform(0.1, 1.0, (40, len(feat))).astype(np.float32) * hi
+            Y = (X @ rng.uniform(1, 20, len(feat))).astype(np.float32)
+            rels.append(dict(n_features=len(feat), degree=2, x_scale=hi))
+            data.append((X, Y))
+    sm = BatchedFitPlan(rels, row_capacity=64, device=dev).fit(data)
+    sm_cpu = type(sm)(sm.w.cpu(), sm.exponents.cpu(), sm.term_mask.cpu(),
+                      sm.x_scale.cpu(), sm.max_degree)
+    problem = SolverProblem(specs, device=dev)
+    cpu = SolverProblem(specs, device=torch.device("cpu"))
+    fleets = (FleetSolverProblem(problem, host_of, caps),
+              FleetSolverProblem(cpu, host_of, caps))
+    rps = rng.uniform(5, 60, len(specs)).astype(np.float32)
+    return problem, fleets, (sm, sm_cpu), rps, host_of, caps
+
+
+@pytest.mark.cuda
+def test_fleet_solve_is_one_launch_a_bucket_a_step_and_matches_the_cpu(
+        cuda_device):
+    """The bucketed fleet solve on the card: one backward launch a layout
+    bucket an ascent step and one forward a bucket; each host's score
+    within 1e-3 relative of the CPU's from the same uniforms, and within
+    1e-4 of the card's own per-row loop; every host inside its budget."""
+    problem, (fp, fp_cpu), (sm, sm_cpu), rps, host_of, caps = \
+        _fleet_setup(cuda_device)
+    nb = len(fp.buckets)
+    assert nb == 2
+    x0 = fp_cpu.random_assignment(np.random.default_rng(1))
+    u = fp.uniforms(torch.Generator(cuda_device).manual_seed(3), 6)
+    n_fwd = rask_objective_forward_cuda.launches
+    n_bwd = rask_objective_backward_cuda.launches
+    a, sc = fp.solve_many(sm, rps, x0, u=u)
+    assert rask_objective_forward_cuda.launches == n_fwd + nb
+    assert rask_objective_backward_cuda.launches == n_bwd + 32 * nb
+    a_cpu, sc_cpu = fp_cpu.solve_many(sm_cpu, rps, x0,
+                                      u=[x.cpu() for x in u])
+    _, sc_seq = fp.solve_sequential(sm, rps, x0, u=u)
+    np.testing.assert_array_less(np.abs(sc - sc_cpu),
+                                 1e-3 * np.abs(sc_cpu) + 1e-6)
+    np.testing.assert_allclose(sc_seq, sc, rtol=1e-4, atol=1e-5)
+    for h, cap in caps.items():
+        used = sum(float(a[problem.offsets[i]])
+                   for i, s in enumerate(problem.specs) if host_of[s.name] == h)
+        assert used <= cap
+
+
+@pytest.mark.cuda
+def test_placement_scores_are_one_launch_a_bucket_and_match_the_cpu(
+        cuda_device):
+    """Overlapping candidate rows (and an empty one) scored on the card:
+    one forward and ``iters`` backward launches a bucket, each score
+    within 1e-3 relative of the CPU's from the same uniforms."""
+    from repro_torch.core.solver import PlacementProblem
+    problem, (fp, fp_cpu), (sm, sm_cpu), rps, host_of, caps = \
+        _fleet_setup(cuda_device)
+    n = len(problem.specs)
+    subsets = [()] + [tuple(sorted({i, (i + 3) % n, (i + 7) % n}))
+                      for i in range(n)] + [tuple(range(0, n, 2))]
+    capacities = [4.0] * len(subsets)
+    pp = PlacementProblem(problem, subsets, capacities)
+    pp_cpu = PlacementProblem(fp_cpu.problem, subsets, capacities)
+    x0 = (0.5 * (problem.lower + problem.upper)).astype(np.float32)
+    u = pp.uniforms(torch.Generator(cuda_device).manual_seed(4), 4)
+    n_fwd = rask_objective_forward_cuda.launches
+    n_bwd = rask_objective_backward_cuda.launches
+    got = pp.scores(sm, rps, x0, n_starts=4, iters=16, u=u)
+    nb = len(pp.buckets)
+    assert rask_objective_forward_cuda.launches == n_fwd + nb
+    assert rask_objective_backward_cuda.launches == n_bwd + 16 * nb
+    want = pp_cpu.scores(sm_cpu, rps, x0, n_starts=4, iters=16,
+                         u=[x.cpu() for x in u])
+    assert got[0] == want[0] == 0.0
+    np.testing.assert_array_less(np.abs(got - want),
+                                 1e-3 * np.abs(want) + 1e-6)
+
+
 @pytest.mark.cuda
 def test_rask_objective_kernel_refuses_bad_input(cuda_device):
     args, kw = _objective_case(1, 6, 6, cuda_device)

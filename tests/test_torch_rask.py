@@ -154,15 +154,57 @@ def test_batch_fit_mode_solves_with_the_streaming_fit():
 @pytest.mark.parametrize("option", [dict(backend="slsqp"),
                                     dict(fused=False), dict(pipeline=True),
                                     dict(forecast=True),
-                                    dict(rebalance_every=2),
                                     dict(adapt_budget=True),
-                                    dict(auto_degree=True),
-                                    dict(burn_weight_cap=2.0)])
+                                    dict(auto_degree=True)])
 def test_unported_options_raise_naming_the_roadmap(option):
     env = EdgeEnvironment(list(paper_profiles().values()), {"cores": CAP})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RASKAgent(env.platform, paper_knowledge(), RaskConfig(**option),
                   device="cpu")
+
+
+@pytest.mark.parametrize("option", [dict(rebalance_every=2),
+                                    dict(rebalance_every=2,
+                                         burn_weight_cap=2.0)])
+def test_fleet_options_run_and_match_repro(option):
+    """``rebalance_every`` and ``burn_weight_cap`` on the failover world's
+    fleet with the SLO accountant attached: after the same exploration
+    (plans within 1e-5), the first placement stage — a snapshot, its rows
+    scaled by the burn weights at the cap under a firing alert, one move —
+    makes ``repro``'s move, the port scoring from ``repro``'s fitted
+    models and uniforms (its own first fits differ from ``repro``'s: 8 rows
+    for 10-term relations, see ``tests/test_torch_failover.py``)."""
+    from test_torch_failover import PortAgent, port_models
+    from repro.env import failover_scenario as j_failover
+    from repro.env import sim_slo_budget as j_budget
+    from repro.obs import SLOAccountant as JAccountant
+    from repro_torch.env import failover_scenario, sim_slo_budget
+    from repro_torch.obs import SLOAccountant
+
+    cfg = dict(xi=8, eta=0.0, pgd_starts=4, pgd_iters=12, **option)
+    agents = []
+    for scen, cls, conf, acct, budget, kw in (
+            (j_failover, JaxAgent, JConfig, JAccountant, j_budget, {}),
+            (failover_scenario, PortAgent, RaskConfig, SLOAccountant,
+             sim_slo_budget, dict(device="cpu"))):
+        env, knowledge, _ = scen(duration_s=400.0, seed=0)
+        agent = cls(env.platform, knowledge, conf(**cfg), seed=0, **kw)
+        agent.plans = []
+        agent.attach_accountant(acct(env.platform, budget()))
+        env.run(agent, duration_s=10.0 * cfg["xi"])
+        agent.rounds += 1                         # the next decide's round
+        agents.append((env, agent, agent.observe(env.t)))
+    (jenv, jagent, jobs), (env, agent, obs) = agents
+    for got, want in zip(agent.plans, jagent.plans, strict=True):
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    alerts = sorted(env.platform.services())[:2]  # a firing alert, forced
+    jagent._fit_models()
+    agent.stacked = port_models(jagent.stacked)
+    want = jagent._maybe_rebalance(jobs, alerts)
+    got = agent._maybe_rebalance(obs, alerts)
+    assert got == want and want[1] and len(want[0]) == 1
+    assert {h.host: sorted(h.services()) for h in env.platform.hosts()} == \
+        {h.host: sorted(h.services()) for h in jenv.platform.hosts()}
 
 
 def test_agent_defaults_to_the_card(monkeypatch):
