@@ -210,6 +210,55 @@ and call ms, the plain version's ms, the per-row loop of the un-batched
 launch (CUDA events around B launches queued as a caller queues them),
 the bound and the kernels a call (1, checked).
 
+The beyond-paper decide options (``RaskConfig(pipeline, forecast,
+adapt_budget, transfer_priors)``, the arrive/depart churn) add, each with
+the RASK launch counters zeroed just before its runs and read just after,
+checked against the solves' and snapshots' buckets at the budget each ran
+with, and no plain version on the card:
+
+Phase "pipeline" runs e6's ``pipeline_bench`` world: 48 services (16 x
+the paper triple) on 16 hosts of 8 cores, ``RaskConfig(xi=14,
+eta=0.0)``, 400 s, synchronous and then pipelined. It reports each mode's
+median ``runtime_s``, ``dispatch_s`` and ``collect_s``, the mean
+post-exploration fulfilment, the hidden fraction (1 - pipelined /
+synchronous median runtime, from 10 rounds of the two agents' decides
+taken in turns after the runs, beside the two runs' own medians;
+recorded against ``repro``'s 0.5 bar, not held) and a ``profile_window``
+of 3 decides. It checks the one-cycle lag
+(each emitted plan is the pinned copy of the previous round's dispatch),
+the fill round at round xi, at least one collect that found its event
+complete, at most one device-to-host copy and no synchronising call in a
+pipelined decide, and that a forced migration and an arrival each drop the
+pending result (the next cycle is a fill round).
+
+Phase "forecast" runs e10's ``proactive_bench``: e3's bursty and diurnal
+traces on the paper triple, ``RaskConfig(xi=12, eta=0.0)``, 1200 s,
+reactive and then ``forecast=True``. Per trace: mean post-exploration
+fulfilment, the violation rate at 0.9, proactive cycles, the worst rolling
+error, the design-window uploads over the last 8 cycles (must be 0), and
+the launch calls and device busy ms a forecast decide adds over a
+reactive one (``profile_window``); at most one device-to-host copy a
+decide. A CPU twin of the forecast run, fed the card's uniforms, must
+agree on ``forecast_used`` cycle by cycle and on the fulfilment within
+0.03.
+
+Phase "transfer" runs e10's ``transfer_bench``: the diurnal trace, a QR
+arrival at 400 s of 600, forecast on, with and without transfer priors:
+no post-arrival exploration cycle with priors, at least one without.
+
+Phase "burn_budget" runs e9's ``burn_failover_bench``: the failover world
+(1200 s, hub-0 drained at 720 s), ``RaskConfig(xi=20, eta=0.0,
+rebalance_every=3, adapt_budget=True)`` and ``SLOAccountant(
+sim_slo_budget())``. It reports the fast alert's fire and clear times,
+the pre-outage, dip and recovered fulfilment, and the solve and scorer
+budget of every cycle; the budget must move, a fast alert must fire, and
+every cycle under a firing alert must solve at the full budget. Then
+the forward and backward kernels run on that agent's tables and models at
+K = 2 and 3 and, batched, its fleet bucket and its placement batch at
+K = 2, each held against its plain version at ``RASK_TOL`` and timed,
+and ``profile_window`` times 3 decides at the full budget and 3 at the
+floor.
+
 Prints the card's name and power limit, one JSON line per phase, a
 ``{"kernels": [...]}`` line (one entry a kernel, the float32 flash kernel
 its own), and as the last line
@@ -698,7 +747,8 @@ def profile_window(label, fn, n):
     Device busy time is the summed duration of the device's own events
     (kernels, copies, memsets). A CPU op's device time repeats the kernels
     it launched, so CPU ops are left out of that sum; the rest of the wall
-    clock the device idles. Also counts the kernel launch calls a call."""
+    clock the device idles. Also counts the kernel launch calls a call and
+    the device-to-host copies the device ran a call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -727,6 +777,8 @@ def profile_window(label, fn, n):
             "device_idle_share": max(0.0, 1.0 - busy / wall_us),
             "launches": sum(e.count for e in host
                             if e.key in _LAUNCH_KEYS) / n,
+            "dtoh_copies": sum(e.count for e in dev
+                               if e.key.startswith("Memcpy DtoH")) / n,
             "top_device_ms": [[e.key, dev_us(e) / n / 1e3, e.count / n]
                               for e in top_dev],
             "top_host_self_ms": [[e.key, e.self_cpu_time_total / n / 1e3,
@@ -1072,15 +1124,9 @@ def phase_autoscale(dev):
 
     # the same scenario on the CPU, its starts drawn from the same CUDA
     # generator stream as the card's agent
-    class CudaStarts(RASKAgent):
-        def _start_uniforms(self, seed):
-            g = torch.Generator(dev).manual_seed(seed)
-            self._gen.manual_seed(seed)
-            return torch.rand((self.cfg.pgd_starts - 3, self.problem.dim),
-                              generator=g, device=dev).cpu()
-
     cpu_env = _rask_env(replicas, _e3_mix())
-    cpu_agent = _rask_agent(cpu_env, torch.device("cpu"), cls=CudaStarts)
+    cpu_agent = _rask_agent(cpu_env, torch.device("cpu"),
+                            cls=_cuda_starts(RASKAgent, dev))
     cpu_hist = cpu_env.run(cpu_agent, duration_s=seconds)
     cpu_post = float(np.mean([h.fulfillment for h in cpu_hist
                               if not h.explored]))
@@ -2341,6 +2387,478 @@ def phase_fleet_kernels(dev, keep, failover_agent):
     return res
 
 
+# -- the beyond-paper decide options: pipeline, forecast, budget, transfer ---------
+
+PIPELINE_REPLICAS, PIPELINE_SECONDS, PAIRED_ROUNDS = 16, 400.0, 10
+E10_XI, E10_SECONDS, E10_QUIET = 12, 1200.0, 8
+TRANSFER_SECONDS, TRANSFER_ARRIVE = 600.0, 400.0
+E9_SECONDS = 1200.0
+
+
+def _syncs_in(fn):
+    """The synchronising CUDA calls one call of ``fn`` makes, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return [str(w.message).splitlines()[0] for w in caught
+            if "called a synchronizing" in str(w.message)]
+
+
+def _dispatch_log(cls):
+    """``cls`` noting each solve's layout buckets and budget, each
+    placement snapshot's (and its ``PlacementProblem``), each emitted plan
+    by round, and each pipelined dispatch's round and the pinned host
+    buffer its copy lands in (a reference: nothing more is queued)."""
+    class Logged(cls):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.solves, self.snapshots, self.emitted = [], [], []
+            self.dispatches, self.last_pp = [], None
+
+        def _queue_copy(self, out):
+            host, event = super()._queue_copy(out)
+            self.dispatches.append((self.rounds, host))
+            return host, event
+
+        def _start_uniforms(self, seed):
+            fp = self.fleet_problem
+            self.solves.append((len(fp.buckets) if fp is not None else 1,
+                                self._budget_starts, self._budget_iters))
+            return super()._start_uniforms(seed)
+
+        def _score_uniforms(self, pp):
+            self.snapshots.append((len(pp.buckets), self._score_starts,
+                                   self._score_iters))
+            self.last_pp = pp
+            return super()._score_uniforms(pp)
+
+        def _plan(self, a):
+            self.emitted.append((self.rounds, a.copy()))
+            return super()._plan(a)
+    return Logged
+
+
+def _cuda_starts(cls, dev):
+    """``cls`` drawing its random starts on the CPU from a generator on
+    ``dev`` seeded as the card agent's is, at the current budget: a CPU
+    twin then starts from the card's uniforms."""
+    class Twin(cls):
+        def _start_uniforms(self, seed):
+            self._gen.manual_seed(seed)
+            g = torch.Generator(dev).manual_seed(seed)
+            if self.fleet_problem is not None:
+                return [u.cpu() for u in self.fleet_problem.uniforms(
+                    g, self._budget_starts)]
+            return torch.rand((max(self._budget_starts - 3, 0),
+                               self.problem.dim), generator=g,
+                              device=dev).cpu()
+    return Twin
+
+
+def _expect_launches(agent):
+    """(forward, backward) launches the agent's logged solves and
+    snapshots must have made: a bucket a solve and a snapshot forward,
+    ``iters`` a bucket a solve and ``score_iters`` a bucket a snapshot
+    backward, at the budget each ran with."""
+    solves = agent.solves
+    fwd = sum(b for b, _, _ in solves) + sum(b for b, _, _ in agent.snapshots)
+    bwd = sum(b * it for b, _, it in solves) \
+        + sum(b * it for b, _, it in agent.snapshots)
+    return fwd, bwd
+
+
+def phase_pipeline(dev):
+    """e6's ``pipeline_bench`` world on the card: 48 services (16 x the
+    paper triple) on 16 hosts of 8 cores, ``RaskConfig(xi=14, eta=0.0)``,
+    400 s, synchronous and then pipelined."""
+    import numpy as np
+
+    from repro_torch.core import RASKAgent, RaskConfig
+    from repro_torch.env import ChurnEvent, EdgeEnvironment, \
+        paper_knowledge, paper_profiles
+
+    xi = 14
+    res = {"phase": "pipeline", "services": 3 * PIPELINE_REPLICAS,
+           "hosts": PIPELINE_REPLICAS, "seconds": PIPELINE_SECONDS, "xi": xi}
+    runs = {}
+    for mode in ("sync", "pipelined"):
+        env = EdgeEnvironment(list(paper_profiles().values()), {"cores": 8.0},
+                              replicas=PIPELINE_REPLICAS,
+                              hosts=PIPELINE_REPLICAS, seed=0)
+        agent = _dispatch_log(RASKAgent)(
+            env.platform, paper_knowledge(),
+            RaskConfig(xi=xi, eta=0.0, pipeline=mode == "pipelined"),
+            seed=0, device=dev)
+        torch.cuda.synchronize()
+        _zero_rask_counts()
+        with PlainOnCard() as plain:
+            t0 = time.perf_counter()
+            hist = env.run(agent, duration_s=PIPELINE_SECONDS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _rask_counts()
+        solved = [h for h in hist if not h.explored and h.runtime_s > 0]
+        row = {"median_runtime_ms": 1e3 * statistics.median(
+                   h.runtime_s for h in solved),
+               "median_dispatch_ms": 1e3 * statistics.median(
+                   h.dispatch_s for h in solved),
+               "median_collect_ms": 1e3 * statistics.median(
+                   h.collect_s for h in solved),
+               "mean_fulfillment": float(np.mean(
+                   [h.fulfillment for h in hist[xi:]])), "solved": len(solved),
+               "wall_s": wall,
+               "launches": {"rask_objective": launches[0],
+                            "rask_objective_grad": launches[1]},
+               "launches_expected": _expect_launches(agent),
+               "plain_calls_on_card": plain.calls}
+        check(launches == row["launches_expected"],
+              f"pipeline {mode}: launches {launches}, want "
+              f"{row['launches_expected']}")
+        check(not any(plain.calls.values()),
+              f"pipeline {mode}: plain versions ran on the card")
+        obs = iter([agent.observe(env.t) for _ in range(4)])
+        row["trace"] = profile_window(f"{mode}_decide",
+                                      lambda: agent.decide(next(obs)), 3)
+        row["syncs_in_one_decide"] = _syncs_in(
+            lambda: agent.decide(agent.observe(env.t)))
+        runs[mode] = (env, agent, hist)
+        res[mode] = row
+        log(json.dumps({mode: row}))
+    sync, piped = res["sync"], res["pipelined"]
+    res["hidden_fraction_runs"] = 1.0 - piped["median_runtime_ms"] \
+        / sync["median_runtime_ms"]
+    # the two runs' medians move with the host clock: time the two agents'
+    # decides in turns as well (sync, pipelined, pipelined, sync, ...)
+    paired = {"sync": [], "pipelined": []}
+    order = ["sync", "pipelined", "pipelined", "sync"] * PAIRED_ROUNDS
+    for mode in order:
+        env, agent, _ = runs[mode]
+        agent.decide(agent.observe(env.t))
+        paired[mode].append(1e3 * agent.last_decision.runtime_s)
+    res["paired_median_ms"] = {m: statistics.median(v)
+                               for m, v in paired.items()}
+    res["paired_ms"] = paired
+    res["hidden_fraction"] = 1.0 - res["paired_median_ms"]["pipelined"] \
+        / res["paired_median_ms"]["sync"]
+    res["hidden_fraction_bar_repro"] = 0.5      # e6's acceptance, not held
+    env, agent, hist = runs["pipelined"]
+    d = agent.problem.dim
+    # the one-cycle lag: the plan emitted at round n + 1 is the noised plan
+    # the dispatch at round n copied out (eta = 0: the optimum)
+    emitted = dict(agent.emitted)
+    lagged = [np.array_equal(emitted[r + 1], host.numpy()[d:2 * d])
+              for r, host in agent.dispatches if r + 1 in emitted]
+    res["lag_checked"] = len(lagged)
+    res["fill_round"] = {"explored": hist[xi].explored,
+                         "pipelined": hist[xi].pipelined,
+                         "runtime_s": hist[xi].runtime_s}
+    res["collects"], res["collects_ready"] = agent.collects, \
+        agent.collects_ready
+    check(all(lagged) and len(lagged) >= len(hist) - xi - 1,
+          f"pipeline: {lagged.count(False)} of {len(lagged)} plans not the "
+          "previous dispatch's")
+    check(hist[xi].pipelined and hist[xi].runtime_s == 0.0
+          and all(not h.explored for h in hist[xi + 1:]),
+          f"pipeline: the first solved cycle is no fill round {res['fill_round']}")
+    check(agent.collects_ready >= 1,
+          f"pipeline: no collect found its event complete ({agent.collects})")
+    check(piped["trace"]["dtoh_copies"] <= 1.0
+          and not piped["syncs_in_one_decide"],
+          f"pipeline: a pipelined decide copied {piped['trace']['dtoh_copies']}"
+          f" times, syncs {piped['syncs_in_one_decide']}")
+    # a topology change drops the pending result: a forced move, then an
+    # arrival; each time the next cycle is a fill round
+    drops = {}
+    for change in ("move", "arrive"):
+        env.run(agent, duration_s=10.0)
+        check(agent._pending is not None, f"pipeline {change}: none pending")
+        if change == "move":
+            sid = env.platform.services()[0]
+            src = env.platform.host_of(sid).host
+            dst = next(h.host for h in env.platform.hosts() if h.host != src)
+            env.platform.rebalance({sid: {src: 0.0, dst: 1e3}}, limit=1)
+            agent._build_fleet_problem()
+        else:
+            env.apply_event(ChurnEvent(
+                t=env.t, kind="arrive",
+                profile=paper_profiles()["qr-detector"]), agent)
+        dropped = agent._pending is None
+        nxt = env.run(agent, duration_s=20.0)
+        drops[change] = {"dropped": dropped,
+                         "next": [(h.pipelined, h.explored, h.runtime_s > 0)
+                                  for h in nxt]}
+        check(dropped and nxt[0].runtime_s == 0.0 and not nxt[0].explored
+              and nxt[1].runtime_s > 0.0,
+              f"pipeline {change}: pending not dropped {drops[change]}")
+    res["drops"] = drops
+    log(json.dumps({k: v for k, v in res.items()
+                    if k not in ("sync", "pipelined")}))
+    return res
+
+
+def _e10_patterns(kind, seconds, seed=0):
+    from repro_torch.env import bursty, constant, diurnal
+    fn = bursty if kind == "bursty" else diurnal
+    return {"qr-detector": fn(100.0, duration_s=seconds, seed=seed),
+            "cv-analyzer": fn(10.0, duration_s=seconds, seed=seed + 100),
+            "pc-visualizer": constant(50.0)}
+
+
+def _e10_run(dev, kind, forecast, cls=None, seconds=E10_SECONDS,
+             events=(), **cfg):
+    """e10's ``_run_mode``: the paper triple on 8 cores under e3's
+    ``kind`` trace, ``RaskConfig(xi=12, eta=0.0, forecast=...)``, with
+    ``events`` (churn); records the design-window uploads after every
+    cycle."""
+    from repro_torch.core import RASKAgent, RaskConfig
+    from repro_torch.core.regression import TRACE_COUNTS
+    from repro_torch.env import EdgeEnvironment, paper_knowledge, \
+        paper_profiles
+    env = EdgeEnvironment(list(paper_profiles().values()), {"cores": 8.0},
+                          patterns=_e10_patterns(kind, seconds), seed=0)
+    agent = (cls or RASKAgent)(
+        env.platform, paper_knowledge(),
+        RaskConfig(xi=E10_XI, eta=0.0, forecast=forecast, **cfg), seed=0,
+        device=dev)
+    uploads = []
+    hist = env.run(agent, duration_s=seconds, events=list(events),
+                   on_cycle=lambda rec: uploads.append(
+                       TRACE_COUNTS["h2d_design_upload"]))
+    return env, agent, hist, uploads
+
+
+def _e10_row(hist, uploads):
+    import numpy as np
+    post = [h.fulfillment for h in hist if not h.explored]
+    tail = uploads[-E10_QUIET:]
+    used = [h.forecast_used for h in hist]
+    return {"mean_fulfillment": float(np.mean(post)),
+            "violations_0_9": float(np.mean([f < 0.9 for f in post])),
+            "proactive_cycles": sum(1 for u in used if u),
+            "worst_rolling_err": max((h.forecast_err for h in hist
+                                      if h.forecast_used), default=0.0),
+            "tail_uploads": tail[-1] - tail[0]}
+
+
+def phase_forecast(dev):
+    """e10's ``proactive_bench`` on the card: bursty and diurnal e3 traces,
+    reactive then forecast, each against a CPU twin fed the card's
+    uniforms."""
+    from repro_torch.core import RASKAgent
+
+    res = {"phase": "forecast", "seconds": E10_SECONDS, "xi": E10_XI}
+    for kind in ("bursty", "diurnal"):
+        out = {}
+        for forecast in (False, True):
+            mode = "forecast" if forecast else "reactive"
+            cls = _dispatch_log(RASKAgent)
+            torch.cuda.synchronize()
+            _zero_rask_counts()
+            with PlainOnCard() as plain:
+                t0 = time.perf_counter()
+                env, agent, hist, uploads = _e10_run(dev, kind, forecast, cls)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = _rask_counts()
+            row = _e10_row(hist, uploads)
+            row.update(wall_s=wall, launches={
+                "rask_objective": launches[0],
+                "rask_objective_grad": launches[1]},
+                launches_expected=_expect_launches(agent),
+                plain_calls_on_card=plain.calls,
+                decide=_steady_ms(hist))
+            check(launches == row["launches_expected"],
+                  f"forecast {kind} {mode}: launches {launches}")
+            check(not any(plain.calls.values()),
+                  f"forecast {kind} {mode}: plain versions on the card")
+            check(row["tail_uploads"] == 0,
+                  f"forecast {kind} {mode}: {row['tail_uploads']} design "
+                  "uploads in the quiet tail")
+            obs = iter([agent.observe(env.t) for _ in range(4)])
+            row["trace"] = profile_window(f"{kind}_{mode}_decide",
+                                          lambda: agent.decide(next(obs)), 3)
+            out[mode] = (row, hist)
+        # the CPU twin of the forecast run, from the card's uniforms
+        _, _, cpu_hist, _ = _e10_run(torch.device("cpu"), kind, True,
+                                     _cuda_starts(RASKAgent, dev))
+        row, hist = out["forecast"]
+        react = out["reactive"][0]
+        cpu_row = _e10_row(cpu_hist, [0] * len(cpu_hist))
+        row["cpu"] = {k: cpu_row[k] for k in ("mean_fulfillment",
+                                             "violations_0_9",
+                                             "proactive_cycles")}
+        row["fulfillment_gap_cpu"] = abs(row["mean_fulfillment"]
+                                         - cpu_row["mean_fulfillment"])
+        row["forecast_used_equal_cpu"] = [h.forecast_used for h in hist] \
+            == [h.forecast_used for h in cpu_hist]
+        row["added_launches_a_decide"] = row["trace"]["launches"] \
+            - react["trace"]["launches"]
+        row["added_busy_ms_a_decide"] = row["trace"]["device_busy_ms"] \
+            - react["trace"]["device_busy_ms"]
+        res[kind] = {"reactive": react, "forecast": row}
+        log(json.dumps({kind: res[kind]}))
+        check(row["forecast_used_equal_cpu"],
+              f"forecast {kind}: forecast_used differs from the CPU twin's")
+        check(row["fulfillment_gap_cpu"] <= 0.03,
+              f"forecast {kind}: fulfillment {row['mean_fulfillment']} vs "
+              f"{cpu_row['mean_fulfillment']} on the CPU")
+        check(row["proactive_cycles"] > 0,
+              f"forecast {kind}: the gate never opened")
+        check(row["trace"]["dtoh_copies"] <= 1.0,
+              f"forecast {kind}: {row['trace']['dtoh_copies']} copies a "
+              "decide")
+    return res
+
+
+def phase_transfer(dev):
+    """e10's ``transfer_bench`` on the card: the diurnal trace, a QR
+    arrival at 400 s of 600, forecast on, with and without priors."""
+    from repro_torch.core import RASKAgent
+    from repro_torch.env import ChurnEvent, paper_profiles
+
+    res = {"phase": "transfer", "seconds": TRANSFER_SECONDS,
+           "arrive_t": TRANSFER_ARRIVE}
+    _zero_rask_counts()
+    cls = _dispatch_log(RASKAgent)
+    expected = [0, 0]
+    with PlainOnCard() as plain:
+        for label, priors in (("with_priors", True),
+                              ("without_priors", False)):
+            ev = ChurnEvent(t=TRANSFER_ARRIVE, kind="arrive",
+                            profile=paper_profiles()["qr-detector"])
+            _, agent, hist, _ = _e10_run(
+                dev, "diurnal", True, cls, seconds=TRANSFER_SECONDS,
+                transfer_priors=priors, events=[ev])
+            post = [h for h in hist if h.t > TRANSFER_ARRIVE]
+            res[label] = {
+                "post_arrival_cycles": len(post),
+                "post_arrival_explored": sum(h.explored for h in post),
+                "mean_post_fulfillment": float(statistics.mean(
+                    h.fulfillment for h in post)),
+                "services": len(agent.services)}
+            f, b = _expect_launches(agent)
+            expected[0] += f
+            expected[1] += b
+        torch.cuda.synchronize()
+        launches = _rask_counts()
+    res["launches"] = {"rask_objective": launches[0],
+                       "rask_objective_grad": launches[1]}
+    res["priors_skip_exploration"] = \
+        res["with_priors"]["post_arrival_explored"] == 0 \
+        and res["without_priors"]["post_arrival_explored"] > 0
+    log(json.dumps(res))
+    check(res["priors_skip_exploration"],
+          f"transfer: {res['with_priors']} / {res['without_priors']}")
+    check(launches == tuple(expected), f"transfer: launches {launches}, "
+          f"want {expected}")
+    check(not any(plain.calls.values()), "transfer: plain versions on card")
+    return res
+
+
+def phase_burn_budget(dev):
+    """e9's ``burn_failover_bench`` on the card: the failover world with
+    ``RaskConfig(xi=20, eta=0.0, rebalance_every=3, adapt_budget=True)``
+    and the simulated SLO accountant; then the RASK kernels at the shrunk
+    budget's shapes on that agent's tables and models."""
+    import numpy as np
+
+    from repro_torch.core import RASKAgent, RaskConfig
+    from repro_torch.env import failover_scenario, sim_slo_budget
+    from repro_torch.obs import SLOAccountant
+
+    env, knowledge, events = failover_scenario(duration_s=E9_SECONDS, seed=0)
+    agent = _dispatch_log(RASKAgent)(
+        env.platform, knowledge,
+        RaskConfig(xi=20, eta=0.0, rebalance_every=3, adapt_budget=True),
+        seed=0, device=dev)
+    acct = SLOAccountant(env.platform, sim_slo_budget())
+    agent.attach_accountant(acct)
+    fail_t = events[0].t
+    levels = []
+    torch.cuda.synchronize()
+    _zero_rask_counts()
+    with PlainOnCard() as plain:
+        t0 = time.perf_counter()
+        hist = env.run(agent, duration_s=E9_SECONDS, events=events,
+                       on_cycle=lambda rec: levels.append(
+                           (rec.t, rec.alerts, agent.last_decision.pgd_starts,
+                            agent.last_decision.pgd_iters,
+                            agent.last_decision.score_starts,
+                            agent.last_decision.score_iters)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _rask_counts()
+    fast = [(t, ev) for t, _, pol, ev in acct.alert_log if pol == "fast"]
+    fires = [t for t, ev in fast if ev == "fire" and t > fail_t]
+    clears = [t for t, ev in fast if ev == "clear" and t > fail_t]
+    cfg = agent.cfg
+    # a firing alert restores the full solve budget before the solve
+    alert_levels = {(s, i) for _, a, s, i, _, _ in levels if a and s}
+    pre = [h.fulfillment for h in hist if h.t <= fail_t and not h.explored]
+    post = [h.fulfillment for h in hist if h.t > fail_t]
+    settled = [h.fulfillment for h in hist if h.t > fail_t + 100.0]
+    want = _expect_launches(agent)
+    res = {"phase": "burn_budget", "seconds": E9_SECONDS, "fail_t": fail_t,
+           "alert_fire_t": min(fires) if fires else None,
+           "alert_clear_t": max(clears) if clears else None,
+           "fast_alert_log": fast,
+           "alert_cycles": sum(1 for h in hist if h.alerts),
+           "alert_cycle_levels": sorted(alert_levels),
+           "mean_pre_failover": float(np.mean(pre)),
+           "min_post_failover": float(np.min(post)),
+           "mean_recovered": float(np.mean(settled)),
+           "moves": agent.moves_total, "wall_s": wall,
+           "budget_levels": levels,
+           "solve_levels": sorted({(s, i) for _, _, s, i, _, _ in levels
+                                   if s}),
+           "launches": {"rask_objective": launches[0],
+                        "rask_objective_grad": launches[1]},
+           "launches_expected": want, "plain_calls_on_card": plain.calls,
+           "decide": _steady_ms(hist)}
+    log(json.dumps({k: v for k, v in res.items() if k != "budget_levels"}))
+    check(launches == want, f"burn_budget: launches {launches}, want {want}")
+    check(not any(plain.calls.values()), "burn_budget: plain on the card")
+    check(len(res["solve_levels"]) >= 2,
+          f"burn_budget: the budget never moved {res['solve_levels']}")
+    check(res["alert_cycles"] > 0
+          and alert_levels == {(cfg.pgd_starts, cfg.pgd_iters)},
+          f"burn_budget: alert cycles {res['alert_cycles']} solved at "
+          f"{sorted(alert_levels)}, want the full budget")
+
+    # the kernels at the shrunk budget's shapes, on this agent's tables
+    rps_g = torch.from_numpy(agent._rps_vector(None)).to(dev)
+    cases = []
+    for K in (2, 3):
+        cases += _rask_cases(agent, env.t, K, 40 + K, f"e9_K{K}")
+    for bk in agent.fleet_problem.buckets:
+        cases += _batched_cases(bk, agent.stacked, rps_g, 2,
+                                f"e9_fleet_B{len(bk.hosts)}_K2")
+    agent.placement_scores(agent.observe(env.t))
+    for bk in agent.last_pp.buckets:
+        cases += _batched_cases(bk, agent.stacked, rps_g, 2,
+                                f"e9_placement_B{len(bk.hosts)}_K2")
+    res["kernel_cases"] = cases
+    # a decide's cost at the full and the floor budget (adaptation and the
+    # placement stage paused, so each window holds one level)
+    agent.cfg.adapt_budget, agent.cfg.rebalance_every = False, 0
+    for starts, iters in ((agent.cfg.pgd_starts, agent.cfg.pgd_iters),
+                          (agent.cfg.adapt_starts_floor,
+                           agent.cfg.adapt_iters_floor)):
+        agent._budget_starts, agent._budget_iters = starts, iters
+        obs = iter([agent.observe(env.t) for _ in range(4)])
+        res[f"trace_K{starts}_iters{iters}"] = profile_window(
+            f"e9_decide_K{starts}_iters{iters}",
+            lambda: agent.decide(next(obs)), 3)
+    log(json.dumps({k: v for k, v in res.items() if k.startswith("trace")}))
+    return res
+
+
 # -- the summary ------------------------------------------------------------------
 
 def kernel_entry(rows, kernel, case, launches, source, replaces,
@@ -2464,6 +2982,24 @@ def main(argv=None):
                              for p in ("hetero", "scale", "placement"))
                       for k in ("rask_objective", "rask_objective_grad")}
 
+    pipeline = phase_pipeline(dev)
+    print(json.dumps(pipeline), flush=True)
+    forecast = phase_forecast(dev)
+    print(json.dumps(forecast), flush=True)
+    transfer = phase_transfer(dev)
+    print(json.dumps(transfer), flush=True)
+    burn = phase_burn_budget(dev)
+    print(json.dumps(burn), flush=True)
+    option_launches = {
+        "pipeline": {k: sum(pipeline[m]["launches"][k]
+                            for m in ("sync", "pipelined"))
+                     for k in ("rask_objective", "rask_objective_grad")},
+        "forecast": {k: sum(forecast[t][m]["launches"][k]
+                            for t in ("bursty", "diurnal")
+                            for m in ("reactive", "forecast"))
+                     for k in ("rask_objective", "rask_objective_grad")},
+        "transfer": transfer["launches"], "burn_budget": burn["launches"]}
+
     kernels = {"kernels": [
         # local layers: 22 of 26
         kernel_entry(rows, "decode_attention", "local",
@@ -2504,12 +3040,16 @@ def main(argv=None):
                            "serving_loop": loop_launches["rask_objective"],
                            "fleet_solve": fleet_launches["rask_objective"],
                            "failover":
-                               failover["launches"]["rask_objective"]},
+                               failover["launches"]["rask_objective"],
+                           **{p: v["rask_objective"]
+                              for p, v in option_launches.items()}},
         "rask_objective_grad": {
             "autoscale": auto["launches"]["rask_objective_grad"],
             "serving_loop": loop_launches["rask_objective_grad"],
             "fleet_solve": fleet_launches["rask_objective_grad"],
-            "failover": failover["launches"]["rask_objective_grad"]}}
+            "failover": failover["launches"]["rask_objective_grad"],
+            **{p: v["rask_objective_grad"]
+               for p, v in option_launches.items()}}}
     # and their times at e11's shapes (attention in bf16; the RASK kernels
     # on the loop's own agent, whose errors count in the entry's worst)
     e11_cases = {"decode_attention": ("e11_stacked", "e11_dict"),
@@ -2545,6 +3085,20 @@ def main(argv=None):
             for r in rows}
         entry["max_abs_err"] = max([entry["max_abs_err"]]
                                    + [r["max_abs_err"] for r in rows])
+    # the adaptive budget's shapes (K = 2 and 3; batches at K = 2) on the
+    # burn_budget agent's tables: times beside, errors in the worst
+    for entry in kernels["kernels"]:
+        rows = [r for r in burn["kernel_cases"]
+                if r["kernel"] == entry["name"]]
+        if not rows:
+            continue
+        entry["adapt_budget"] = {
+            r["case"]: {k: r[k] for k in ("K", "ms", "call_ms", "plain_ms",
+                                          "library_ms", "max_abs_err")}
+            | {"bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
+            for r in rows}
+        entry["max_abs_err"] = max([entry["max_abs_err"]]
+                                   + [r["max_abs_err"] for r in rows])
     print(json.dumps(kernels), flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -2560,7 +3114,8 @@ def main(argv=None):
              "ssm_trace": ssm_trace, "engine_compare": engine_compare,
              "serving_loop": loop, "fleet_solve": fleet_solve,
              "failover": failover, "fleet_kernels": fleet_kernels,
-             **kernels},
+             "pipeline": pipeline, "forecast": forecast,
+             "transfer": transfer, "burn_budget": burn, **kernels},
             indent=1))
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

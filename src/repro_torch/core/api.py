@@ -183,10 +183,7 @@ def water_fill(demands: np.ndarray, floors: np.ndarray,
 
 @dataclasses.dataclass
 class DecisionInfo:
-    """Side-channel metadata of one ``decide()`` call (for CycleRecords).
-
-    The port keeps the fields its agent fills; ``repro``'s pipeline and
-    forecast fields return with those features (ROADMAP)."""
+    """Side-channel metadata of one ``decide()`` call (for CycleRecords)."""
 
     explored: bool = False
     runtime_s: float = 0.0                # steady-state fit + solve duration
@@ -206,6 +203,22 @@ class DecisionInfo:
     # fast-burn alert, and the worst long-window burn rate seen this cycle
     burn_alerts: int = 0
     max_burn: float = 0.0
+    # pipelined decide (RaskConfig(pipeline=True)): per-phase blocked times.
+    # ``dispatch_s`` is the host time to queue this cycle's solve on the
+    # agent's stream (the device runs it while the environment applies the
+    # plan), ``collect_s`` the wait for the PREVIOUS cycle's solve and its
+    # copy; ``runtime_s`` is their sum — the decide latency the control
+    # loop actually blocks on
+    pipelined: bool = False
+    dispatch_s: float = 0.0
+    collect_s: float = 0.0
+    # proactive scaling (RaskConfig(forecast=True)): services whose hybrid
+    # gate solved against predicted-horizon load this cycle, and the worst
+    # rolling relative forecast error across gate-evaluated services —
+    # forecast_used == 0 with forecast on means every service fell back to
+    # reactive rps (gate closed: cold forecaster or error spike)
+    forecast_used: int = 0
+    forecast_err: float = 0.0
 
 
 @dataclasses.dataclass

@@ -29,8 +29,8 @@ shared, monotonically increasing timestamp vector — no per-sample dicts.
 
 The window migration (``export_window``/``import_window``/``transfer``)
 carries a service's telemetry with it when the fleet moves it. The
-original's lagged-window export (``lagged_windows``/``lag_tail``) serves
-the load forecaster and comes back with it (ROADMAP Queue 1, item 4).
+lagged-window export (``lagged_windows``/``lag_tail``) feeds the load
+forecaster (``core/forecast.py``).
 """
 from __future__ import annotations
 
@@ -430,6 +430,57 @@ class TrainingTable:
         X = mat[keep, :-1]
         Y = mat[keep, -1]
         return np.ascontiguousarray(X), np.ascontiguousarray(Y)
+
+    # -- lagged-window export (load forecasting, core/forecast.py) -------------
+    def lagged_windows(self, service: str, column: str, lags: int,
+                       horizon: int = 1, since: Optional[int] = None
+                       ) -> Tuple[np.ndarray, np.ndarray, int]:
+        """Autoregressive training pairs over the visible window: X[i] holds
+        ``lags`` consecutive values of ``column`` (oldest first) ending
+        ``horizon`` rows before the target Y[i] — the feed of the per-service
+        load forecaster's ridge fit.  With ``since`` (a TOTAL row index, see
+        ``appended``) only pairs whose target row is at total index >= since
+        come back — the cursor-driven delta export (one new pair per cycle
+        at steady state).  Pairs touching a non-finite value are dropped.
+        Returns (X (k, lags), Y (k,), new_cursor); pass new_cursor back as
+        the next call's ``since``.  A cursor whose next pair would need lag
+        rows older than ``evicted`` has lost history to compaction — the
+        consumer must rebuild with since=None instead (mirror of
+        ``delta_matrix``'s contract)."""
+        base = self._base.get(service, 0)
+        n = self._n.get(service, 0)
+        lo = self._start(service)
+        cursor = base + n
+        L, h = int(lags), max(int(horizon), 1)
+        col = self.columns(service, [column])[:, 0]      # visible rows (m,)
+        m = col.shape[0]
+        j0 = L + h - 1                     # first formable target (window-rel.)
+        if since is not None:
+            j0 = max(j0, int(since) - (base + lo))
+        if L <= 0 or m - j0 <= 0:
+            return (np.zeros((0, max(L, 0)), np.float32),
+                    np.zeros(0, np.float32), cursor)
+        sw = np.lib.stride_tricks.sliding_window_view(col, L)  # (m-L+1, L)
+        X = sw[j0 - h - L + 1: m - h - L + 1]
+        Y = col[j0:]
+        keep = np.isfinite(X).all(axis=1) & np.isfinite(Y)
+        return (np.ascontiguousarray(X[keep], dtype=np.float32),
+                np.ascontiguousarray(Y[keep], dtype=np.float32), cursor)
+
+    def lag_tail(self, service: str, column: str, lags: int
+                 ) -> Tuple[np.ndarray, bool]:
+        """The newest ``lags`` values of ``column`` (oldest first) — the
+        forecaster's prediction input.  Left-padded with zeros while fewer
+        rows exist; the returned flag is True only when the window is full
+        and every value finite (a partial window must not be trusted)."""
+        col = self.columns(service, [column])[:, 0]
+        L = int(lags)
+        out = np.zeros(L, np.float32)
+        tail = col[-L:] if col.shape[0] else col
+        k = tail.shape[0]
+        if k:
+            out[L - k:] = np.where(np.isfinite(tail), tail, 0.0)
+        return out, bool(k == L and np.isfinite(tail).all())
 
     def delta_matrix(self, service: str, features: Sequence[str], target: str,
                      since: int) -> Tuple[np.ndarray, np.ndarray, int]:

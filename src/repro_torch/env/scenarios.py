@@ -17,11 +17,11 @@ services they run see different load shapes at the same time:
 * ``mixed_patterns`` — per-service-type diurnal / bursty / constant load;
 * ``hetero_environment`` / ``two_tier_environment`` — wired scenarios;
 * ``failover_scenario`` — the tiered fleet plus one scripted host outage;
-* ``parse_churn`` — the CLI churn grammar (all five kinds; the simulator
-  refuses ``arrive`` and ``depart``, ROADMAP Queue 1 item 7).
+* ``churn_scenario`` — the tiered fleet under throttling, an arrival and a
+  departure;
+* ``parse_churn`` — the CLI churn grammar (all five kinds).
 
-``repro``'s ``churn_scenario`` (an arrival and a departure) waits for item
-7, and ``backlog_scenario`` for the latency-SLI work.
+``repro``'s ``backlog_scenario`` waits for the latency-SLI work.
 """
 from __future__ import annotations
 
@@ -221,6 +221,26 @@ def failover_scenario(duration_s: float = 1200.0, seed: int = 0,
     env, knowledge = hetero_environment(duration_s=duration_s, seed=seed)
     t = float(fail_at) if fail_at is not None else round(0.6 * duration_s)
     return env, knowledge, [ChurnEvent(t=t, kind=kind, host=host)]
+
+
+def churn_scenario(duration_s: float = 1800.0, seed: int = 0
+                   ) -> Tuple[EdgeEnvironment, Dict, List[ChurnEvent]]:
+    """Mixed mid-run churn on the tiered fleet: the gateway loses 40% of
+    its capacity (thermal throttling), a new QR container arrives, and one
+    original service departs — arrival/departure re-enter a short
+    exploration phase while the new relations gather >= 3 rows, exactly
+    like the initial xi phase."""
+    env, knowledge = hetero_environment(duration_s=duration_s, seed=seed)
+    victim = sorted(env.platform.services())[0]
+    events = [
+        ChurnEvent(t=round(0.35 * duration_s), kind="degrade",
+                   host="gateway-0", factor=0.6),
+        ChurnEvent(t=round(0.55 * duration_s), kind="arrive",
+                   profile=QR_PROFILE),
+        ChurnEvent(t=round(0.75 * duration_s), kind="depart",
+                   service=victim),
+    ]
+    return env, knowledge, events
 
 
 def parse_churn(spec: str, profiles: Sequence[ServiceProfile] = ()

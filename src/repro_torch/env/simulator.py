@@ -34,10 +34,7 @@ fulfillment — the measurement every figure of the paper's evaluation is
 built from. Legacy agents exposing only ``cycle(t)`` still work.
 
 This is the port's copy of ``repro/env/simulator.py`` (numpy; the agent it
-drives decides on its own device). Churn that changes the service set —
-``arrive`` and ``depart`` events — needs the transfer priors of ROADMAP
-Queue 1 item 7 and raises ``NotImplementedError`` naming it; host failure,
-drain and capacity degradation run as in ``repro``.
+drives decides on its own device), churn events of all five kinds included.
 """
 from __future__ import annotations
 
@@ -304,12 +301,18 @@ class CycleRecord:
     alerts: int = 0
     max_burn: float = 0.0
     budget_consumed: float = 0.0
-
-
-_SERVICE_SET_TODO = (
-    "churn event {what!r} changes the service set, which needs the transfer "
-    "priors and refresh_topology's service-set branch: not ported to "
-    "repro_torch yet (ROADMAP Queue 1, slice B deferral 7)")
+    # pipelined decide (RaskConfig(pipeline=True)): the blocked time splits
+    # into the dispatch of THIS cycle's solve and the collect of the
+    # previous one — runtime_s is their sum, the solve itself overlaps the
+    # apply + scrape window
+    pipelined: bool = False
+    dispatch_s: float = 0.0
+    collect_s: float = 0.0
+    # proactive scaling (RaskConfig(forecast=True)): services solved against
+    # predicted-horizon load this cycle, and the worst rolling relative
+    # forecast error (DecisionInfo passthrough)
+    forecast_used: int = 0
+    forecast_err: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -328,9 +331,6 @@ class ChurnEvent:
       * ``"arrive"``     — a new service container from ``profile`` placed on
         ``host`` (or the least-loaded device), fed by ``pattern``;
       * ``"depart"``     — service ``service`` leaves the fleet.
-
-    The port applies the first three; ``arrive`` and ``depart`` change the
-    service set and raise ``NotImplementedError`` (ROADMAP Queue 1, item 7).
 
     After every event the driving agent is re-bound to the new topology
     (``refresh_topology``) before its next cycle.
@@ -409,6 +409,7 @@ class EdgeEnvironment:
         self.services: Dict[str, SimulatedService] = {}
         self.patterns: Dict[str, Pattern] = {}
         rng = np.random.default_rng(seed)
+        self._rng = rng                     # churn arrivals draw from it too
         self._routes: Optional[List[tuple]] = None   # rebuilt after churn
         n_total = len(profiles) * replicas
         assign = self._placements(placement, hostnames, n_total)
@@ -444,6 +445,7 @@ class EdgeEnvironment:
                 self.services[key] = backend
                 pat = (patterns or {}).get(profile.type)
                 self.patterns[key] = pat if pat else constant(profile.default_rps)
+        self._instance_of = instance_of     # per-type numbering continues
         self.t = 0.0
 
     def _placements(self, placement, hostnames: List[str],
@@ -535,15 +537,45 @@ class EdgeEnvironment:
     def add_service(self, profile: ServiceProfile,
                     pattern: Optional[Pattern] = None,
                     host: Optional[str] = None) -> str:
-        """A new service container arriving mid-run (``repro``'s
-        ``add_service``): not ported, since the agent's re-binding to a
-        changed service set needs the transfer priors."""
-        raise NotImplementedError(_SERVICE_SET_TODO.format(what="arrive"))
+        """A new service container arrives mid-run: registered on ``host``
+        (default: least-loaded), simulated in the shared pool, fed by
+        ``pattern`` (default: the profile's constant rate).  Returns the
+        sid.  The agent refits once the newcomer has >= 3 observed cycles
+        (until then it re-enters exploration, like the initial xi phase)."""
+        c = self._instance_of.get(profile.type, 0)
+        self._instance_of[profile.type] = c + 1
+        backend = SimulatedService(
+            profile, np.random.default_rng(self._rng.integers(2 ** 31)),
+            pool=self.pool)
+        defaults = dict(profile.defaults)
+        if isinstance(self.platform, Fleet):
+            # pick the device first so the sid carries its real host name
+            host = host or self.platform._least_loaded()
+            sid = ServiceId(host, profile.type, f"c{c}")
+            self.platform.place(sid, profile.api, backend,
+                                list(profile.slos), defaults, host=host)
+        else:
+            sid = ServiceId(self.platform.host, profile.type, f"c{c}")
+            self.platform.register(sid, profile.api, backend,
+                                   list(profile.slos), defaults)
+        key = str(sid)
+        self.services[key] = backend
+        self.patterns[key] = pattern if pattern \
+            else constant(profile.default_rps)
+        self._routes = None
+        return key
 
     def remove_service(self, sid: str) -> None:
-        """A service departing mid-run (``repro``'s ``remove_service``):
-        not ported, for the reason ``add_service`` gives."""
-        raise NotImplementedError(_SERVICE_SET_TODO.format(what="depart"))
+        """A service departs mid-run: deregistered (holdings released), its
+        workload stops; the pooled container idles at zero load (pool slots
+        are append-only)."""
+        key = str(sid)
+        backend = self.services.pop(key)
+        self.platform.deregister(key)
+        self.patterns.pop(key, None)
+        self.pool.rps[backend.i] = 0.0
+        self.pool.queue[backend.i] = 0.0
+        self._routes = None
 
     def apply_event(self, ev: ChurnEvent, agent=None) -> None:
         """Apply one scripted churn event, then re-bind the agent
@@ -623,7 +655,12 @@ class EdgeEnvironment:
                     alerts=info.burn_alerts if info else 0,
                     max_burn=info.max_burn if info else 0.0,
                     budget_consumed=fleet_burn.budget_consumed
-                    if fleet_burn else 0.0)
+                    if fleet_burn else 0.0,
+                    pipelined=info.pipelined if info else False,
+                    dispatch_s=info.dispatch_s if info else 0.0,
+                    collect_s=info.collect_s if info else 0.0,
+                    forecast_used=info.forecast_used if info else 0,
+                    forecast_err=info.forecast_err if info else 0.0)
                 history.append(rec)
                 if on_cycle:
                     on_cycle(rec)

@@ -136,21 +136,3 @@ def test_training_table_delta_matrix_is_repros():
                             jt.design_matrix(svc, ["x"], "y")):
                 np.testing.assert_array_equal(g, w)
 
-
-def test_unported_topologies_raise():
-    """What stays unported of the fleet: churn that changes the service
-    set (``arrive``, ``depart``) and ``refresh_topology`` after such a
-    change raise, naming ROADMAP item 7 (the transfer priors)."""
-    from repro_torch.core import RASKAgent
-    from repro_torch.env import ChurnEvent, QR_PROFILE, hetero_environment
-    env, knowledge = hetero_environment(duration_s=100.0)
-    agent = RASKAgent(env.platform, knowledge, device="cpu")
-    sid = sorted(env.platform.services())[0]
-    for ev in (ChurnEvent(t=10.0, kind="arrive", profile=QR_PROFILE),
-               ChurnEvent(t=10.0, kind="depart", service=sid)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*7"):
-            env.apply_event(ev, agent)
-    assert sorted(env.platform.services()) == sorted(agent.services)
-    env.platform.deregister(sid)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*7"):
-        agent.refresh_topology()

@@ -848,3 +848,180 @@ def test_served_loop_launches_follow_steps_and_admissions(cuda_device):
         "wgmma": base.n_layers * admitted, "tf32x3": 0}
     for r in svc.ledger + list(eng.active.values()):
         assert all(0 <= t < base.vocab for t in r.generated)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [2, 3])
+def test_rask_kernels_at_the_shrunk_budget(cuda_device, K):
+    """The adaptive budget's shapes: K = 2 and 3 candidates (one problem,
+    and a fleet bucket of padded rows) against the plain versions at 1e-5,
+    and a solve at K starts and 8 iterations — one forward and 8 backward
+    launches — within 1e-3 relative of the CPU's from the same uniforms."""
+    from repro_torch.core.solver import pgd_solve
+    args, kw = _objective_case(1, K, 7 + K, cuda_device)
+    S = kw["n_services"]
+    ct = torch.randn((K, S), device=cuda_device,
+                     generator=torch.Generator(cuda_device).manual_seed(K))
+    torch.testing.assert_close(
+        rask_objective_forward_cuda(*args, n_services=S),
+        ref.rask_objective_reference(*args, **kw), atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(
+        rask_objective_backward_cuda(args[0], ct, *args[1:], n_services=S),
+        ref.rask_objective_grad(args[0], ct, *args[1:], **kw), atol=1e-5,
+        rtol=1e-5)
+    bargs, bkw, _ = _batched_case(cuda_device, 5, K, seed=K)
+    bct = torch.randn((5, K, bkw["n_services"]), device=cuda_device,
+                      generator=torch.Generator(cuda_device).manual_seed(9))
+    torch.testing.assert_close(
+        rask_objective_forward_cuda(*bargs, n_services=bkw["n_services"]),
+        ref.rask_objective_reference(*bargs, **bkw), atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(
+        rask_objective_backward_cuda(bargs[0], bct, *bargs[1:],
+                                     n_services=bkw["n_services"]),
+        ref.rask_objective_grad(bargs[0], bct, *bargs[1:], **bkw),
+        atol=1e-5, rtol=1e-5)
+    problem, sm = _objective_setup(1, K, 7 + K, cuda_device)[2:4]
+    rps = args[-1]
+    x0 = args[0][0]
+    u = torch.rand((max(K - 3, 0), problem.dim), device=cuda_device,
+                   generator=torch.Generator(cuda_device).manual_seed(5))
+    n_fwd = rask_objective_forward_cuda.launches
+    n_bwd = rask_objective_backward_cuda.launches
+    a, score = pgd_solve(x0, u, problem.tables, sm, rps, 8.0, n_starts=K,
+                         iters=8, lr=0.18, n_services=S)
+    torch.cuda.synchronize()
+    assert rask_objective_forward_cuda.launches == n_fwd + 1
+    assert rask_objective_backward_cuda.launches == n_bwd + 8
+    cpu = torch.device("cpu")
+    t_cpu = type(problem.tables)(*(t.to(cpu) for t in problem.tables))
+    sm_cpu = type(sm)(sm.w.cpu(), sm.exponents.cpu(), sm.term_mask.cpu(),
+                      sm.x_scale.cpu(), sm.max_degree, sm.labels)
+    _, want = pgd_solve(x0.cpu(), u.cpu(), t_cpu, sm_cpu, rps.cpu(), 8.0,
+                        n_starts=K, iters=8, lr=0.18, n_services=S)
+    assert abs(float(score) - float(want)) <= 1e-3 * abs(float(want)) + 1e-6
+    assert float(a[problem.resource_mask].sum()) <= 8.0
+
+
+def _pipelined_agent(dev, seconds=100.0, **cfg):
+    from repro_torch.core import RASKAgent, RaskConfig
+    from repro_torch.env import EdgeEnvironment, paper_knowledge
+    env = EdgeEnvironment(list(paper_profiles().values()), {"cores": 8.0},
+                          seed=0)
+    agent = RASKAgent(env.platform, paper_knowledge(),
+                      RaskConfig(xi=6, eta=0.05, pipeline=True, **cfg),
+                      seed=0, device=dev)
+    return env, agent
+
+
+@pytest.mark.cuda
+def test_pipelined_agent_lags_one_cycle_on_its_stream(cuda_device):
+    """On the card the pipelined decide queues its dispatch on the agent's
+    own stream; the plan emitted at round n + 1 is the noised plan that
+    the dispatch at round n computed, the first solved round is a fill
+    round, and ``refresh_topology`` drops the pending result (the next
+    round is a fill round again)."""
+    env, agent = _pipelined_agent(cuda_device)
+    assert agent._cuda_stream is not None
+    outs, plans, streams = [], [], []
+    queue, plan, dispatch = agent._queue_copy, agent._plan, \
+        agent._dispatch_fused
+
+    def on_dispatch(*args):
+        streams.append(torch.cuda.current_stream(cuda_device))
+        return dispatch(*args)
+
+    def on_queue(out):
+        outs.append(out.clone())
+        return queue(out)
+    agent._dispatch_fused, agent._queue_copy = on_dispatch, on_queue
+    agent._plan = lambda a: (plans.append(np.array(a, np.float32)),
+                             plan(a))[1]
+    hist = env.run(agent, duration_s=160.0)
+    torch.cuda.synchronize()
+    assert all(s == agent._cuda_stream for s in streams)
+    assert hist[6].explored and hist[6].pipelined      # the fill round
+    d = agent.problem.dim
+    for out, emitted in zip(outs[:-1], plans[7:], strict=True):
+        np.testing.assert_array_equal(emitted, out.cpu().numpy()[d:2 * d])
+    assert agent.collects == len(hist) - 7
+    agent.refresh_topology()
+    assert agent._pending is None
+    more = env.run(agent, duration_s=20.0)
+    assert more[0].runtime_s == 0.0 and not more[0].explored
+    assert more[1].runtime_s > 0.0
+
+
+@pytest.mark.cuda
+def test_collect_reads_the_pinned_copy_only_after_its_event(cuda_device,
+                                                            monkeypatch):
+    """Each dispatch ends in a spin of ~0.1 s on the agent's stream ahead
+    of the copy, so the collect finds its event still pending: it waits on
+    that event, and only then reads the pinned buffer, whose values are
+    the device output's bit for bit."""
+    from repro_torch.core import rask
+    env, agent = _pipelined_agent(cuda_device)
+    log, outs = [], []
+
+    class LoggedEvent(torch.cuda.Event):
+        def synchronize(self):
+            log.append(("wait", self.query()))
+            super().synchronize()
+            log.append(("done", self.query()))
+
+    monkeypatch.setattr(torch.cuda, "Event", LoggedEvent)
+    split = rask.RASKAgent._split_out
+    monkeypatch.setattr(rask.RASKAgent, "_split_out", staticmethod(
+        lambda out, d, n: (log.append(("read", out.copy())),
+                           split(out, d, n))[1]))
+    queue = agent._queue_copy
+
+    def on_queue(out):
+        torch.cuda._sleep(200_000_000)
+        outs.append(out)
+        return queue(out)
+    agent._queue_copy = on_queue
+    env.run(agent, duration_s=120.0)
+    reads = [i for i, e in enumerate(log) if e[0] == "read"]
+    assert len(reads) == len(outs) - 1 >= 4
+    for k, i in enumerate(reads):
+        assert log[i - 2] == ("wait", False) and log[i - 1] == ("done", True)
+        np.testing.assert_array_equal(log[i][1], outs[k].cpu().numpy())
+    assert agent.collects == len(reads) and agent.collects_ready == 0
+
+
+@pytest.mark.cuda
+def test_forecaster_on_the_card_matches_the_cpu(cuda_device):
+    """The forecaster's streaming fit and prediction on the card against
+    the same on the CPU: predictions and the blended load within 1e-3 of
+    their span. The Gram systems agree to float32 rounding; the 9-term AR
+    normal equations over correlated lags are ill-conditioned, and the
+    card's and the CPU's LU solves of them differ by up to ~2e-4 of the
+    prediction (one run: 1.7e-4)."""
+    from repro_torch.core.forecast import LoadForecaster
+    from repro_torch.core.telemetry import TrainingTable
+    rng = np.random.default_rng(0)
+    table = TrainingTable()
+    sids = [f"edge-0/s/c{i}" for i in range(6)]
+    for i, sid in enumerate(sids):
+        base = 10.0 * (i + 1)
+        for t in range(70):
+            table.append(sid, {"rps": float(base * (1.3 + np.sin(t / 4.0))
+                                             + rng.normal(0, 0.5))})
+    got = []
+    for dev in (cuda_device, torch.device("cpu")):
+        fc = LoadForecaster(sids, ["s"] * 6, [40.0] * 6, lags=8, horizon=1,
+                            row_capacity=64, device=dev)
+        kind, pairs = fc.prep(table)
+        fc.state = fc.plan.stream_rebuild(pairs)
+        wp, pl = fc.prior_arrays()
+        w = fc.plan.stream_fit_arrays(fc.state, torch.from_numpy(wp).to(dev),
+                                      torch.from_numpy(pl).to(dev))
+        lagm = torch.from_numpy(fc.lag_matrix(table)).to(dev)
+        use = torch.ones(6, device=dev)
+        rps = torch.full((6,), 20.0, device=dev)
+        pred, eff = fc.predict_tracer(w, lagm, use, rps)
+        got.append((pred.cpu().numpy(), eff.cpu().numpy()))
+    (pc, ec), (pp, ep) = got
+    span = float(np.abs(pp).max())
+    np.testing.assert_allclose(pc, pp, rtol=0, atol=1e-3 * span)
+    np.testing.assert_allclose(ec, ep, rtol=0, atol=1e-3 * span)

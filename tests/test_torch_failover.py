@@ -63,7 +63,7 @@ def repro_uniforms(buckets, key, n_rows, n_starts):
     D_max))`` for its bucket's D_max."""
     keys = jax.random.split(key, max(n_rows, 1))
     return [torch.from_numpy(np.stack([np.asarray(jax.random.uniform(
-        keys[int(k)], (n_starts - 3, bk.arrays["lower"].shape[1])))
+        keys[int(k)], (max(n_starts - 3, 0), bk.arrays["lower"].shape[1])))
         for k in bk.host_idx])) for bk in buckets]
 
 
@@ -77,11 +77,11 @@ class PortAgent(_Recorder, RASKAgent):
         k_solve, _ = jax.random.split(jax.random.PRNGKey(seed))
         fp = self.fleet_problem
         return repro_uniforms(fp.buckets, k_solve, len(fp.hosts),
-                              self.cfg.pgd_starts)
+                              self._budget_starts)
 
     def _score_uniforms(self, pp):
         return repro_uniforms(pp.buckets, jax.random.PRNGKey(0),
-                              pp.n_candidates, self.cfg.score_starts)
+                              pp.n_candidates, self._score_starts)
 
 
 def port_models(sm):

@@ -54,7 +54,7 @@ class PortAgent(_Recorder, RASKAgent):
 
     def _start_uniforms(self, seed):
         k_solve, _ = jax.random.split(jax.random.PRNGKey(seed))
-        u = jax.random.uniform(k_solve, (self.cfg.pgd_starts - 3,
+        u = jax.random.uniform(k_solve, (max(self._budget_starts - 3, 0),
                                          self.problem.dim))
         return torch.from_numpy(np.array(u))
 
@@ -152,9 +152,7 @@ def test_batch_fit_mode_solves_with_the_streaming_fit():
 
 
 @pytest.mark.parametrize("option", [dict(backend="slsqp"),
-                                    dict(fused=False), dict(pipeline=True),
-                                    dict(forecast=True),
-                                    dict(adapt_budget=True),
+                                    dict(fused=False),
                                     dict(auto_degree=True)])
 def test_unported_options_raise_naming_the_roadmap(option):
     env = EdgeEnvironment(list(paper_profiles().values()), {"cores": CAP})

@@ -208,4 +208,5 @@ def test_port_imports_neither_jax_nor_repro():
     assert len(loaded) >= 46                      # every module was imported
     assert {"repro_torch.obs.slo_accounting", "repro_torch.serve.service",
             "repro_torch.serve.loop", "repro_torch.env.scenarios",
-            "repro_torch.core.fleet", "repro_torch.launch.failover"} <= loaded
+            "repro_torch.core.fleet", "repro_torch.launch.failover",
+            "repro_torch.core.forecast"} <= loaded

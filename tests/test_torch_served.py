@@ -291,7 +291,7 @@ class PortAgent(_Recorder, RASKAgent):
 
     def _start_uniforms(self, seed):
         k_solve, _ = jax.random.split(jax.random.PRNGKey(seed))
-        u = jax.random.uniform(k_solve, (self.cfg.pgd_starts - 3,
+        u = jax.random.uniform(k_solve, (max(self._budget_starts - 3, 0),
                                          self.problem.dim))
         return torch.from_numpy(np.array(u))
 
