@@ -259,6 +259,73 @@ K = 2, each held against its plain version at ``RASK_TOL`` and timed,
 and ``profile_window`` times 3 decides at the full budget and 3 at the
 floor.
 
+The paper's comparison (the SLSQP reference and the seed's loop objective
+of core/solver.py, ``RaskConfig(backend="slsqp", fused=False,
+auto_degree=True)``, core/agents, obs/registry.py and prometheus.py) adds,
+each phase with the RASK launch counters zeroed just before its runs and
+read just after:
+
+Phase "backends" (e7's ``decide_slsqp``/``decide_loop`` and
+``examples/compare_solvers.py``): the paper triple with 1 and 3 replicas
+(|S| = 3, 9), trained 300 s as e3 trains (xi 20, PGD) and transplanted
+into a fresh agent of each of ``pgd``, ``slsqp`` and ``slsqp`` with
+``fused=False``, 120 s at the default loads. Per configuration: median
+and p90 decide ms, RASK launches a decide, SLSQP evaluations a solve,
+the synchronising calls in one decide (``set_sync_debug_mode``: fused
+SLSQP at most one a scipy evaluation, and one forward launch each) and a
+``profile_window`` of 2 decides (launch calls, busy, idle). Gates: on the
+trained agent's warm-started problem PGD scores at least SLSQP's - 5%
+(``tests/test_solver.py``'s parity bar), and ``solve_slsqp`` on the card
+scores within 1e-4 relative of its CPU twin's from the same models and
+x0.
+
+Phase "auto_degree": ``auto_degree=True`` on the paper triple under e3's
+diurnal mix, 600 s, beside the fixed degree: the degrees each selection
+picked, decide ms on selection cycles and the others, fulfilment against
+the fixed degree. Gate: ``select_degree`` on the card, on the agent's own
+last selection of each service, picks the CPU's degree (unless the best
+two errors lie within 1%), and its errors agree within 1e-4 relative.
+
+Phase "rask_kernels_k1": both RASK kernels at one candidate (K = 1, B =
+1) on the |S| = 3 and 9 agents of "decide_timing", and at the
+auto-degree tables (the |S| = 9 agent refitted at mixed degrees 1-6,
+cv-analyzer at 6: T = 84; the "auto_degree" agent's own) at K = 1 and 6,
+each against its plain version at ``RASK_TOL`` and timed like
+"rask_kernels". At these degrees a prediction sums up to 84 terms of
+large weights of both signs, so each bar adds 32 float32 ulp of the
+sums' magnitude (``_sum_magnitudes``; without it the first full run's
+forward parted by 4.9e-5 at T = 84, K = 1, over a bar of 2.8e-5, and a
+probe's backward by 7.6e-5 at K = 6 over 4.6e-5).
+
+Phase "sota" is e3 cut to one rep of 900 s a trace (e3: 1800 s x 2):
+e3's bursty and diurnal traces (QR to 100 rps, CV to 10 rps with seed +
+100, PC constant 50; 8 cores), RASK with SLSQP and with PGD (each a
+transplant of one 300 s trained run), the VPA and the DQN (pretrained
+once, 1500 steps a service, on the trained RASK's tp_max surfaces). Per
+agent: mean, peak (load >= 0.4) and low fulfilment, violations at
+0.8/0.9/0.95/1.0 over all and peak cycles, and e3's
+``violation_reduction_vs_best_baseline`` (the paper's 28%, reported and
+not gated); the DQN's pretrain wall seconds and the launch calls of one
+TD step. Every run has a CPU twin in a child process that never touches
+the card (beside the card's runs; the PGD twin takes the card's random
+starts seed by seed). Gates: every run completes with fulfilment in [0,
+1]; the VPA's card run equals its CPU twin cycle by cycle; RASK (PGD)'s
+mean fulfilment lies within 0.03 of its twin's. RASK (SLSQP) is one local
+search warm-started from the last optimum, so free-running a float32
+rounding apart sends a solve to another local optimum and the warm start
+keeps the run there (the first probe of this phase: identical inputs at
+round 36, the card's solve 4.119 and the CPU's 4.367, then 0.717 against
+0.852 mean fulfilment); its free-running twin is reported, and a second
+twin in lockstep (the card's plans emitted, the card's optima as warm
+starts) solves from the card's inputs: median score gap <= 1e-4, 90% of
+the solves within 1e-3.
+
+Phase "metrics": ``golden_signals`` over the "sota" SLSQP agent (diurnal)
+with an ``SLOAccountant`` attached for 60 more seconds, ``snapshot``, and
+one GET of ``MetricsServer`` on port 0 over loopback: the text carries
+``repro_slo_budget_consumed``, ``repro_service_fulfillment`` and the
+solver internals (``repro_decide_*``), and the GET equals ``render``.
+
 Prints the card's name and power limit, one JSON line per phase, a
 ``{"kernels": [...]}`` line (one entry a kernel, the float32 flash kernel
 its own), and as the last line
@@ -909,10 +976,31 @@ def _objective_work(args, n_services, backward):
     return nbytes, K * bwd
 
 
-def _rask_cases(agent, t, K, seed, case):
+def _sum_magnitudes(args, ct, kw):
+    """What the kernels' float32 sums carry: the plain forward and backward
+    with |w| and |ct|, every SLO unclipped (targets scaled by 1e6, the
+    results by 1e6 back), i.e. the sums of the terms' magnitudes (the
+    features are >= 0, so every term of a sum of |w| terms is). A degree-6
+    fit of few rows has large weights of both signs, so these exceed the
+    results by orders of magnitude, and two float32 sum orders part by a
+    few ulp of them, not of the results. Returns (forward, backward)
+    maxima."""
+    from repro_torch.kernels import ref
+    big = list(args)
+    big[2] = args[2].abs()
+    big[9] = args[9] * 1e6
+    fwd = ref.rask_objective_reference(*big, **kw) * 1e6
+    bwd = ref.rask_objective_grad(big[0], ct.abs(), *big[1:], **kw) * 1e6
+    return fwd.abs().max().item(), bwd.abs().max().item()
+
+
+def _rask_cases(agent, t, K, seed, case, cancellation=False):
     """The forward and backward kernels on ``agent``'s tables and fitted
     models, K random candidates and the load before ``t``, each held
-    against its plain version at ``RASK_TOL`` and timed; one row each."""
+    against its plain version at ``RASK_TOL`` and timed; one row each.
+    ``cancellation``: each bar also carries 32 float32 ulp of its sums'
+    magnitude (``_sum_magnitudes``): two orders of an 84-term sum with
+    cancellation part by that, whichever is right."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.rask_objective import (
         rask_objective_backward_cuda, rask_objective_forward_cuda)
@@ -928,12 +1016,16 @@ def _rask_cases(agent, t, K, seed, case):
     want_f = ref.rask_objective_reference(*args, **kw)
     want_b = ref.rask_objective_grad(A, ct, *args[1:], **kw)
     torch.cuda.synchronize()
+    magnitudes = _sum_magnitudes(args, ct, kw) if cancellation \
+        else (0.0, 0.0)
     rows = []
     for name, got, want, backward in (
             ("rask_objective", fwd, want_f, False),
             ("rask_objective_grad", bwd, want_b, True)):
         err = (got - want).abs().max().item()
-        bar = RASK_TOL * (1.0 + want.abs().max().item())
+        magnitude = magnitudes[backward]
+        bar = RASK_TOL * (1.0 + want.abs().max().item()) \
+            + 32 * 2.0 ** -23 * magnitude
         check(bool(torch.isfinite(got).all()),
               f"{name} {case}: non-finite output")
         check(err <= bar, f"{name} {case}: error {err} > {bar}")
@@ -944,6 +1036,7 @@ def _rask_cases(agent, t, K, seed, case):
                "relations": args[3].shape[0],
                "terms": args[3].shape[1], "slos": args[6].shape[0],
                "max_abs_err": err, "tolerance": bar,
+               "sum_magnitude": magnitude,
                "bytes": nbytes, "flops": flops,
                "bound": bound_ms(nbytes, flops, "float32")}
         if backward:
@@ -1006,7 +1099,7 @@ def phase_rask_crosscheck(env, agent):
     rows = [len(Y) for _, Y in data]
     check(max(rows) <= agent._row_capacity,
           f"rask_crosscheck: window {max(rows)} outgrew the ring")
-    relations = [dict(n_features=len(f), degree=agent._degree(sid),
+    relations = [dict(n_features=len(f), degree=agent._default_degree(sid),
                       x_scale=scale)
                  for sid, _, f, scale in agent._rel_static]
     cpu_plan = BatchedFitPlan(relations, agent._row_capacity,
@@ -2859,6 +2952,645 @@ def phase_burn_budget(dev):
     return res
 
 
+# -- the paper's comparison: SLSQP, auto_degree, the baselines, metrics ---------
+
+BACKENDS = (("pgd", {}), ("slsqp", {"backend": "slsqp"}),
+            ("slsqp_loop", {"backend": "slsqp", "fused": False}))
+BACKEND_SECONDS = 120.0
+SOTA_SECONDS = 900.0            # e3 runs 1800 s, 2 reps
+SOTA_TRAIN_SECONDS = 300.0      # e3's _trained_rask
+SOTA_TOL = 0.03                 # the fulfilment bar of PRs 17-19
+AUTO_SECONDS = 600.0
+
+
+def _launch_counts():
+    f, b = _rask_counts()
+    return {"rask_objective": f, "rask_objective_grad": b}
+
+
+def _train_rask(dev, replicas=1, seed=0, cls=None):
+    """e3's ``_trained_rask``: RASK (xi 20, eta 0, PGD) on the default
+    constant-load environment, ``SOTA_TRAIN_SECONDS``, on ``dev``."""
+    from repro_torch.core import RASKAgent, RaskConfig
+    from repro_torch.env import paper_knowledge
+    env = _rask_env(replicas, seed=seed)
+    agent = (cls or RASKAgent)(env.platform, paper_knowledge(),
+                               RaskConfig(xi=20, eta=0.0), seed=seed,
+                               device=dev)
+    env.run(agent, duration_s=SOTA_TRAIN_SECONDS)
+    return env, agent
+
+
+def _transplant(trained, env, dev, cls, seed=0, **cfg):
+    """e3's transplant: a fresh agent on ``env`` (xi 0, eta 0) takes a deep
+    copy of the trained agent's table, its rounds and its warm start; its
+    first decide rebuilds the fit from that table."""
+    import copy
+
+    from repro_torch.core import RaskConfig
+    from repro_torch.env import paper_knowledge
+    agent = cls(env.platform, paper_knowledge(),
+                RaskConfig(xi=0, eta=0.0, **cfg), seed=seed, device=dev)
+    agent.table = copy.deepcopy(trained["table"])
+    agent.rounds = trained["rounds"]
+    agent._cached_x = None if trained["x"] is None else trained["x"].copy()
+    return agent
+
+
+def _trained_state(agent):
+    import copy
+    return {"table": copy.deepcopy(agent.table), "rounds": agent.rounds,
+            "x": None if agent._cached_x is None else agent._cached_x.copy()}
+
+
+def _noting(cls):
+    """``cls`` keeping each solve's SLSQP evaluations and the random-start
+    uniforms it drew by seed (``starts``), or taking them from a table
+    handed over (a twin on another device then starts from the same
+    draws). It also keeps what a lockstep twin replays (``log``: each
+    emitted plan vector, warm start, optimum and score); given such a
+    ``replay`` log, it emits the logged plans and warm-starts from the
+    logged optima, while solving for itself (its own plans and scores in
+    ``log``)."""
+    import numpy as np
+
+    class Noted(cls):
+        given = None
+        replay = None
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.evals, self.starts = [], {}
+            self.log = {"plans": [], "x0s": [], "cached": [], "scores": []}
+
+        def decide(self, obs):
+            plan = super().decide(obs)
+            info = self.last_decision
+            if not info.explored and self.cfg.backend == "slsqp":
+                self.evals.append(self.problem.last_nfev)
+            log = self.log
+            log["scores"].append(None if info.explored else info.score)
+            if self.replay is not None:
+                self._cached_x = self.replay["cached"][
+                    len(log["cached"])]
+            log["cached"].append(None if self._cached_x is None
+                                 else np.array(self._cached_x))
+            return plan
+
+        def _plan(self, a):
+            log = self.log["plans"]
+            log.append(np.array(a, np.float32))
+            if self.replay is not None:
+                a = self.replay["plans"][len(log) - 1]
+            return super()._plan(a)
+
+        def _x0(self):
+            x = super()._x0()           # the same rng draws either way
+            log = self.log["x0s"]
+            log.append(np.array(x, np.float32))
+            if self.replay is not None:
+                x = self.replay["x0s"][len(log) - 1]
+            return x
+
+        def _start_uniforms(self, seed):
+            if self.given is None:
+                u = super()._start_uniforms(seed)
+                self.starts[seed] = u.cpu().numpy()
+                return u
+            self._gen.manual_seed(seed)
+            return torch.as_tensor(self.given[seed], device=self.device)
+    return Noted
+
+
+def phase_backends(dev):
+    """e7's ``decide_slsqp``/``decide_loop`` and ``compare_solvers`` on the
+    card: the paper triple with 1 and 3 replicas (|S| = 3, 9), each
+    transplanted from a trained agent (e3's way) into a fresh agent of
+    each backend, ``BACKEND_SECONDS`` at the default loads."""
+    import numpy as np
+
+    from repro_torch.core import RASKAgent
+    from repro_torch.core.regression import StackedModels
+    from repro_torch.core.solver import SolverProblem
+
+    res, total = {"phase": "backends"}, dict.fromkeys(
+        ("rask_objective", "rask_objective_grad"), 0)
+    cpu = torch.device("cpu")
+    for replicas in (1, 3):
+        S = 3 * replicas
+        tenv, trained = _train_rask(dev, replicas)
+        state = _trained_state(trained)
+        rows = {}
+        for name, cfg in BACKENDS:
+            env = _rask_env(replicas)
+            agent = _transplant(state, env, dev, _noting(RASKAgent), **cfg)
+            torch.cuda.synchronize()
+            _zero_rask_counts()
+            t0 = time.perf_counter()
+            hist = env.run(agent, duration_s=BACKEND_SECONDS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _launch_counts()
+            n = sum(not h.explored for h in hist)
+            check(n == len(hist), f"backends {name} S{S}: {n} solved of "
+                  f"{len(hist)}")
+            for k in total:
+                total[k] += launches[k]
+            syncs = _syncs_in(lambda: agent.decide(agent.observe(env.t)))
+            sync_evals = agent.evals[-1] if agent.evals else None
+            obs = iter([agent.observe(env.t) for _ in range(4)])
+            window = profile_window(f"decide_{name}_S{S}",
+                                    lambda: agent.decide(next(obs)), 2)
+            post = float(np.mean([h.fulfillment for h in hist]))
+            rows[name] = {
+                "decide": _steady_ms(hist), "wall_s": wall,
+                "launches": launches,
+                "kernel_launches_per_decide": {k: v / n for k, v in
+                                               launches.items()},
+                "evals_per_solve": (statistics.median(agent.evals)
+                                    if agent.evals else None),
+                "evals_max": max(agent.evals) if agent.evals else None,
+                "syncs_in_one_decide": len(syncs),
+                "evals_in_that_decide": sync_evals,
+                "sync_messages": syncs[:3], "profile": window,
+                "fulfillment": post}
+            log(f"backends S{S} {name}: {rows[name]['decide']} "
+                f"syncs {len(syncs)} evals {sync_evals}")
+            if name == "slsqp":
+                # fused SLSQP: one device-to-host copy a scipy evaluation
+                check(len(syncs) <= sync_evals + 1,
+                      f"backends slsqp S{S}: {len(syncs)} syncs for "
+                      f"{sync_evals} evaluations")
+                check(launches["rask_objective"] == sum(agent.evals[:n]),
+                      f"backends slsqp S{S}: {launches} for "
+                      f"{sum(agent.evals[:n])} evaluations")
+            if name == "pgd":
+                check(launches["rask_objective"] == n and
+                      launches["rask_objective_grad"] ==
+                      agent.cfg.pgd_iters * n,
+                      f"backends pgd S{S}: {launches} for {n} solves")
+
+        # repro's parity bar on one warm-started problem, and the card's
+        # SLSQP against its CPU twin from the same models and x0
+        p, sm = trained.problem, trained.stacked
+        rps = trained._rps_vector(trained.platform.window_states(
+            tenv.t - 5.0, tenv.t))
+        x0, cap = trained._cached_x, trained.capacity
+        a_s, s_slsqp = p.solve_slsqp(sm, rps, x0, cap)
+        evals = p.last_nfev
+        _, s_pgd = p.solve_pgd(sm, rps, x0, cap, seed=0)
+        twin = SolverProblem(p.specs, device=cpu)
+        sm_cpu = StackedModels(sm.w.cpu(), sm.exponents.cpu(),
+                               sm.term_mask.cpu(), sm.x_scale.cpu(),
+                               sm.max_degree, sm.labels)
+        _, s_cpu = twin.solve_slsqp(sm_cpu, rps, x0, cap)
+        gate = {"score_pgd": s_pgd, "score_slsqp": s_slsqp,
+                "slsqp_evals": evals, "score_slsqp_cpu": s_cpu,
+                "slsqp_card_vs_cpu": abs(s_slsqp - s_cpu) / abs(s_cpu),
+                "tolerance": 1e-4, "parity_bar": 0.05}
+        rows["parity"] = gate
+        log(f"backends S{S} parity: {gate}")
+        check(s_pgd >= s_slsqp - 0.05 * abs(s_slsqp),
+              f"backends S{S}: PGD {s_pgd} under SLSQP {s_slsqp} - 5%")
+        check(gate["slsqp_card_vs_cpu"] <= 1e-4,
+              f"backends S{S}: SLSQP card {s_slsqp} vs CPU {s_cpu}")
+        res[f"S{S}"] = rows
+    res["launches"] = total
+    return res
+
+
+def _selecting(cls):
+    """``cls`` noting each ``select_degree`` call of its own (round,
+    service, design rows, scale, pick, errors) in ``selections``, through
+    a wrapper of ``core/rask.py``'s ``select_degree`` that lives while
+    ``noting()`` is entered."""
+    import contextlib
+
+    from repro_torch.core import rask as rask_mod
+
+    class Selecting(cls):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.selections = {}
+
+        def _degree(self, sid, X, Y, scale):
+            self._noting_key = (self.rounds, sid)
+            return super()._degree(sid, X, Y, scale)
+
+        @contextlib.contextmanager
+        def noting(self):
+            inner = rask_mod.select_degree
+
+            def select(X, Y, *args, **kwargs):
+                best, errs = inner(X, Y, *args, **kwargs)
+                self.selections[self._noting_key] = {
+                    "X": X, "Y": Y, "scale": kwargs.get("x_scale"),
+                    "best": best, "errs": errs}
+                return best, errs
+            rask_mod.select_degree = select
+            try:
+                yield
+            finally:
+                rask_mod.select_degree = inner
+    return Selecting
+
+
+def phase_auto_degree(dev):
+    """RASK with ``auto_degree=True`` on the paper triple under e3's
+    diurnal mix (8 cores, xi 20, ``AUTO_SECONDS``) on the card, beside the
+    fixed degree 2; then ``select_degree`` on the card against the CPU on
+    the agent's own last selection of each service."""
+    import numpy as np
+
+    from repro_torch.core import RASKAgent, RaskConfig
+    from repro_torch.core.regression import select_degree
+    from repro_torch.env import paper_knowledge
+
+    res, agents = {"phase": "auto_degree"}, {}
+    for mode in ("auto", "fixed"):
+        env = _rask_env(1, _e3_mix())
+        agent = _selecting(RASKAgent)(
+            env.platform, paper_knowledge(),
+            RaskConfig(xi=20, auto_degree=(mode == "auto")), seed=0,
+            device=dev)
+        torch.cuda.synchronize()
+        _zero_rask_counts()
+        with agent.noting():
+            hist = env.run(agent, duration_s=AUTO_SECONDS)
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        agents[mode] = (env, agent)
+        n = sum(not h.explored for h in hist)
+        check(launches["rask_objective"] == n and
+              launches["rask_objective_grad"] == agent.cfg.pgd_iters * n,
+              f"auto_degree {mode}: {launches} for {n} solves")
+        row = {"launches": launches, "solved": n,
+               "post_explore_fulfillment": float(np.mean(
+                   [h.fulfillment for h in hist if not h.explored])),
+               "decide": _steady_ms(hist),
+               "degrees_fitted": list(agent._fit_plan_key[1])}
+        if mode == "auto":
+            row["selections"] = [
+                {"round": r, "sid": s, "best": x["best"],
+                 "errs": x["errs"], "rows": len(x["Y"])}
+                for (r, s), x in sorted(agent.selections.items())]
+            rounds = {r for r, _ in agent.selections}
+            on = [1e3 * h.runtime_s for i, h in enumerate(hist)
+                  if not h.explored and i in rounds]
+            off = [1e3 * h.runtime_s for i, h in enumerate(hist)
+                   if not h.explored and i not in rounds][1:]
+            row.update(selection_rounds=sorted(rounds),
+                       decide_ms_selection_cycles=on,
+                       decide_ms_median_selection=statistics.median(on)
+                       if on else None,
+                       decide_ms_median_other=statistics.median(off))
+        else:
+            check(not agent.selections, "auto_degree fixed: a selection ran")
+        res[mode] = row
+        log(f"auto_degree {mode}: {row}")
+
+    # the card's select_degree against the CPU's on the agent's own table
+    env, agent = agents["auto"]
+    check(agent.selections, "auto_degree: no selection ran")
+    last = {sid: x for (_, sid), x in sorted(agent.selections.items())}
+    cmp = {}
+    for sid, x in last.items():
+        best, errs = select_degree(x["X"], x["Y"], x_scale=x["scale"],
+                                   device=dev)
+        best_c, errs_c = select_degree(x["X"], x["Y"], x_scale=x["scale"])
+        srt = sorted(errs_c.values())
+        tied = (srt[1] - srt[0]) <= 0.01 * srt[0]
+        gap = max(abs(errs[d] - errs_c[d]) / max(abs(errs_c[d]), 1e-30)
+                  for d in errs)
+        cmp[sid] = {"card": best, "cpu": best_c, "errs_rel_gap": gap,
+                    "best_two_within_1pct": tied, "agent": x["best"]}
+        check(best == best_c or tied,
+              f"auto_degree {sid}: card picks {best}, CPU {best_c}")
+        check(tied or gap <= 1e-4,
+              f"auto_degree {sid}: errs apart by {gap}")
+    res["card_vs_cpu"] = cmp
+    res["fulfillment_gain_vs_fixed"] = \
+        res["auto"]["post_explore_fulfillment"] - \
+        res["fixed"]["post_explore_fulfillment"]
+    res["launches"] = {k: res["auto"]["launches"][k]
+                       + res["fixed"]["launches"][k]
+                       for k in res["auto"]["launches"]}
+    log(json.dumps({"auto_degree_card_vs_cpu": cmp}))
+    return res, agents["auto"]
+
+
+def _refit(agent, degrees):
+    """A shallow copy of ``agent`` whose stacked models are refitted on its
+    own training table at ``degrees`` (one a relation)."""
+    import copy
+
+    from repro_torch.core.regression import BatchedFitPlan, pad_capacity
+    data = [agent.table.design_matrix(sid, f, target)
+            for sid, target, f, _ in agent._rel_static]
+    plan = BatchedFitPlan(
+        [dict(n_features=len(f), degree=d, x_scale=scale)
+         for (_, _, f, scale), d in zip(agent._rel_static, degrees)],
+        pad_capacity(max(len(Y) for _, Y in data)), ridge=agent.cfg.ridge,
+        device=agent.device)
+    twin = copy.copy(agent)
+    twin.stacked = plan.fit(data)
+    return twin
+
+
+def phase_rask_kernels_k1(dev, agents, auto):
+    """Both RASK kernels at one candidate (K = 1, B = 1: an SLSQP
+    evaluation) on the |S| = 3 and 9 agents of "decide_timing", and at the
+    auto-degree tables: the |S| = 9 agent refitted at mixed degrees 1-6
+    (cv-analyzer at 6: T = 84) and the "auto_degree" agent's own, at K = 1
+    and 6; each against its plain version at ``RASK_TOL`` and timed."""
+    from repro_torch.kernels.rask_objective import empty_launch_cuda
+
+    rows = []
+    for S in (3, 9):
+        env, agent = agents[S]
+        rows += _rask_cases(agent, env.t, 1, 100 + S, f"S{S}_K1")
+    env, agent = agents[9]
+    low = iter([1, 2, 3, 4, 5, 1, 2, 3, 4])
+    degrees = [6 if agent._sid_types[sid] == "cv-analyzer" else next(low)
+               for sid, *_ in agent._rel_static]
+    mixed = _refit(agent, degrees)
+    check(mixed.stacked.w.shape[1] == 84 and sorted(set(degrees)) ==
+          [1, 2, 3, 4, 5, 6], f"rask_kernels_k1: tables {degrees}")
+    aenv, aagent = auto
+    for case, (e, a) in (("T84", (env, mixed)), ("auto", (aenv, aagent))):
+        for K in (1, 6):
+            new = _rask_cases(a, e.t, K, 200 + K, f"{case}_K{K}",
+                              cancellation=True)
+            for r in new:
+                r["degrees"] = [lab[3] for lab in a.stacked.labels]
+            rows += new
+    empty_ms, _ = time_ms([lambda: empty_launch_cuda(dev)], 200)
+    for row in rows:
+        row["ms_over_empty_launch"] = row["ms"] / empty_ms
+    res = {"phase": "rask_kernels_k1", "cases": rows,
+           "empty_launch_ms": empty_ms}
+    log(json.dumps({"rask_kernels_k1": [
+        (r["kernel"], r["case"], r["ms"], r["max_abs_err"]) for r in rows]}))
+    return res
+
+
+def _sota_metrics(hist):
+    """e3's per-run figures: the fulfilment curve and the relative load of
+    the service with the widest load range (``benchmarks/common.py::
+    run_agent``), then mean, peak (load >= 0.4) and low fulfilment and
+    the violation rates at 0.8/0.9/0.95/1.0."""
+    import numpy as np
+    f = np.asarray([h.fulfillment for h in hist])
+    keys = list(hist[0].rps)
+    span = {k: max(h.rps[k] for h in hist) - min(h.rps[k] for h in hist)
+            for k in keys}
+    ref = max(span, key=span.get)
+    top = max(h.rps[ref] for h in hist)
+    load = np.asarray([h.rps[ref] / max(top, 1e-9) for h in hist])
+    peak = load >= 0.4
+    return {"mean_fulfillment": float(f.mean()),
+            "peak_fulfillment": float(f[peak].mean()),
+            "low_fulfillment": float(f[~peak].mean()),
+            "violations": {str(t): float(np.mean(f < t))
+                           for t in (0.8, 0.9, 0.95, 1.0)},
+            "violations_peak": {str(t): float(np.mean(f[peak] < t))
+                                for t in (0.8, 0.9, 0.95, 1.0)},
+            "fulfillment_in_0_1": bool(np.all((f >= 0.0) & (f <= 1.0))),
+            "cycles": len(f)}
+
+
+def _sota_run(kind, name, dev, state, starts=None, dqn=None, replay=None):
+    """One e3 run of agent ``name`` on ``dev`` under ``kind``: the RASK
+    agents transplanted from ``state`` (``starts``: the random starts to
+    take, else drawn and noted; ``replay``: a card run's log to replay in
+    lockstep), the VPA, or the DQN whose pretrained networks ``dqn`` are
+    deep-copied in. Returns (metrics, per-cycle
+    (fulfilment, applied) pairs, the agent's starts, env, agent, wall s)."""
+    import copy
+
+    from repro_torch.core import RASKAgent
+    from repro_torch.core.agents import DQNAgent, DQNConfig, VPAAgent
+    env = _rask_env(1, _e10_patterns(kind, SOTA_SECONDS))
+    if name in ("rask", "rask_pgd"):
+        cls = _noting(RASKAgent)
+        cls.given, cls.replay = starts, replay
+        agent = _transplant(state, env, dev, cls,
+                            backend="slsqp" if name == "rask" else "pgd")
+    elif name == "vpa":
+        agent = VPAAgent(env.platform)
+    else:
+        agent = DQNAgent(env.platform, DQNConfig(train_steps=1500), seed=0,
+                         device=dev)
+        agent.nets = copy.deepcopy(dqn)
+    t0 = time.perf_counter()
+    hist = env.run(agent, duration_s=SOTA_SECONDS)
+    wall = time.perf_counter() - t0
+    cycles = [(h.fulfillment, h.receipt.applied()) for h in hist]
+    return (_sota_metrics(hist), cycles, getattr(agent, "starts", None),
+            env, agent, wall)
+
+
+def _dqn_pretrained(dev, models, rps, feats):
+    """e3's DQN (``train_steps=1500``, seed 0) pretrained on ``dev`` on the
+    trained RASK's tp_max surfaces; returns (agent, wall s)."""
+    from repro_torch.core.agents import DQNAgent, DQNConfig
+    from repro_torch.core.regression import PolynomialModel
+    env = _rask_env(1)
+    agent = DQNAgent(env.platform, DQNConfig(train_steps=1500), seed=0,
+                     device=dev)
+    models = {s: PolynomialModel(torch.as_tensor(w, device=dev), e, sc, d)
+              for s, (w, e, sc, d) in models.items()}
+    t0 = time.perf_counter()
+    losses = agent.pretrain(models, rps, feats)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return agent, time.perf_counter() - t0, losses
+
+
+def _sota_twin(kind, name, state, starts, dqn_inputs, replay=None):
+    """A CPU twin of one e3 run, in a child process that never touches the
+    card (``name == "dqn"``: pretrains on the CPU first, then runs both
+    traces). With ``replay`` (the card run's ``log``) a lockstep twin runs
+    too and its solve scores come back."""
+    sys.path.insert(0, str(SRC))
+    torch.set_num_threads(1)
+    cpu = torch.device("cpu")
+    if name == "dqn":
+        agent, wall, losses = _dqn_pretrained(cpu, *dqn_inputs)
+        return {k: _sota_run(k, "dqn", cpu, None, dqn=agent.nets)[0]
+                for k in ("bursty", "diurnal")} | {
+                    "pretrain_wall_s": wall, "losses": losses}
+    metrics, cycles, _, _, agent, _ = _sota_run(kind, name, cpu, state,
+                                                starts)
+    out = {"metrics": metrics, "cycles": cycles}
+    if replay is not None:
+        lock = _sota_run(kind, name, cpu, state, starts, replay=replay)[4]
+        out["lockstep_scores"] = lock.log["scores"]
+    return out
+
+
+def phase_sota(dev):
+    """e3 cut to one rep of ``SOTA_SECONDS`` a trace: RASK (SLSQP) and
+    RASK (PGD), each transplanted from one trained run (a deep copy of its
+    table, rounds and warm start), the VPA and the DQN (pretrained once on
+    the trained RASK's surfaces, 1500 steps), under e3's bursty and
+    diurnal traces on the card; each run's CPU twin runs in a child
+    process beside the card's runs."""
+    import multiprocessing
+
+    import numpy as np
+
+    from repro_torch.env import paper_knowledge
+
+    res = {"phase": "sota", "seconds": SOTA_SECONDS, "reps": 1}
+    tenv, trained = _train_rask(dev)
+    state = _trained_state(trained)
+    sids = trained.services
+    models = {s: (m["tp_max"].w.cpu().numpy(), m["tp_max"].exponents,
+                  m["tp_max"].x_scale, m["tp_max"].degree)
+              for s, m in trained.models.items()}
+    feats = {s: tuple(paper_knowledge()[trained.platform.service(s).sid.type]
+                      ["tp_max"]) for s in sids}
+    rps = {s: trained.platform.service(s).backend.profile.default_rps
+           for s in sids}
+    dqn_inputs = (models, rps, feats)
+    launches = dict.fromkeys(("rask_objective", "rask_objective_grad"), 0)
+    with multiprocessing.get_context("spawn").Pool(2) as pool:
+        jobs = {("both", "dqn"): pool.apply_async(
+            _sota_twin, (None, "dqn", None, None, dqn_inputs))}
+        for kind in ("bursty", "diurnal"):
+            jobs[(kind, "vpa")] = pool.apply_async(
+                _sota_twin, (kind, "vpa", state, None, None))
+        dqn, dqn_wall, dqn_losses = _dqn_pretrained(dev, *dqn_inputs)
+        net = next(iter(dqn.nets.values()))
+        g = torch.Generator(dev).manual_seed(0)
+        B, n = dqn.cfg.batch_size, net.state_dim
+        batch = (torch.rand((B, n), generator=g, device=dev),
+                 torch.zeros(B, dtype=torch.int64, device=dev),
+                 torch.rand(B, generator=g, device=dev),
+                 torch.rand((B, n), generator=g, device=dev),
+                 torch.zeros(B, device=dev))
+        td_launches, _ = kernels_per_call(
+            lambda: net.td_step(*batch, dqn.cfg.lr))
+        res["dqn_pretrain"] = {"wall_s": dqn_wall, "losses": dqn_losses,
+                               "td_step_launch_calls": td_launches}
+        card, keep, card_scores = {}, {}, {}
+        for kind in ("bursty", "diurnal"):
+            for name in ("rask", "rask_pgd", "vpa", "dqn"):
+                torch.cuda.synchronize()
+                _zero_rask_counts()
+                metrics, cycles, starts, env, agent, wall = _sota_run(
+                    kind, name, dev, state, dqn=dqn.nets)
+                torch.cuda.synchronize()
+                got = _launch_counts()
+                for k in launches:
+                    launches[k] += got[k]
+                metrics.update(wall_s=wall, launches=got)
+                if name == "rask_pgd":
+                    jobs[(kind, name)] = pool.apply_async(
+                        _sota_twin, (kind, name, state, starts, None))
+                if name == "rask":
+                    jobs[(kind, name)] = pool.apply_async(
+                        _sota_twin, (kind, name, state, None, None,
+                                     agent.log))
+                card[(kind, name)] = (metrics, cycles)
+                if name == "rask":
+                    keep[kind] = (env, agent)
+                    card_scores[kind] = agent.log["scores"]
+                log(f"sota {kind} {name}: {metrics}")
+        cpu = {key: job.get(timeout=900) for key, job in jobs.items()}
+    for kind in ("bursty", "diurnal"):
+        per = {}
+        for name in ("rask", "rask_pgd", "vpa", "dqn"):
+            metrics, cycles = card[(kind, name)]
+            twin = cpu[("both", "dqn")][kind] if name == "dqn" \
+                else cpu[(kind, name)]["metrics"]
+            metrics["cpu"] = twin
+            metrics["gap_to_cpu"] = abs(metrics["mean_fulfillment"]
+                                        - twin["mean_fulfillment"])
+            check(metrics["fulfillment_in_0_1"] and metrics["cycles"] ==
+                  int(SOTA_SECONDS / 10), f"sota {kind} {name}: {metrics}")
+            if name == "vpa":
+                same = cycles == cpu[(kind, name)]["cycles"]
+                metrics["equals_cpu_cycle_by_cycle"] = same
+                check(same, f"sota {kind} vpa: the card's cycles differ "
+                      "from the CPU's")
+            if name == "rask_pgd":
+                check(metrics["gap_to_cpu"] <= SOTA_TOL,
+                      f"sota {kind} {name}: {metrics['mean_fulfillment']} "
+                      f"on the card vs {twin['mean_fulfillment']} on CPU")
+            if name == "rask":
+                # SLSQP is one local search warm-started from the last
+                # optimum: free-running, a float32 rounding apart sends a
+                # solve to another local optimum and the warm start keeps
+                # the run there, so the twin is held in lockstep (it
+                # emits the card's plans and warm starts from the card's
+                # optima) and the solves are compared from the same inputs
+                lock = np.asarray([(c, p) for c, p in zip(
+                    card_scores[kind], cpu[(kind, name)]["lockstep_scores"],
+                    strict=True) if c is not None], np.float64)
+                gaps = np.abs(lock[:, 0] - lock[:, 1]) / np.abs(lock[:, 1])
+                metrics["lockstep"] = {
+                    "solves": len(gaps), "median_gap": float(np.median(gaps)),
+                    "max_gap": float(gaps.max()),
+                    "share_within_1e-3": float(np.mean(gaps <= 1e-3)),
+                    "first_over_1e-3": int(np.argmax(gaps > 1e-3))
+                    if (gaps > 1e-3).any() else None}
+                check(np.median(gaps) <= 1e-4 and np.mean(gaps <= 1e-3)
+                      >= 0.9, f"sota {kind} rask: lockstep solves apart "
+                      f"{metrics['lockstep']}")
+            per[name] = metrics
+        best_base = min(per["vpa"]["violations_peak"]["0.9"],
+                        per["dqn"]["violations_peak"]["0.9"])
+        rask_v = min(per["rask"]["violations_peak"]["0.9"],
+                     per["rask_pgd"]["violations_peak"]["0.9"])
+        per["violation_reduction_vs_best_baseline"] = \
+            float(1.0 - rask_v / best_base) if best_base > 0 else 0.0
+        res[kind] = per
+    res["dqn_pretrain"]["cpu_wall_s"] = cpu[("both", "dqn")][
+        "pretrain_wall_s"]
+    res["launches"] = launches
+    res["paper_claim"] = "28% fewer SLO violations at high load (reported, " \
+        "not gated)"
+    return res, keep["diurnal"]
+
+
+def phase_metrics(dev, env, agent):
+    """``golden_signals`` over the "sota" RASK agent (the diurnal run, its
+    decide on the card) with an ``SLOAccountant`` attached for 60 more
+    seconds; then ``snapshot``, and one GET of ``MetricsServer`` (port 0)
+    over loopback."""
+    import urllib.request
+
+    from repro_torch import obs
+    from repro_torch.env import sim_slo_budget
+
+    acct = obs.SLOAccountant(env.platform, sim_slo_budget())
+    agent.attach_accountant(acct)
+    env.run(agent, duration_s=60.0)
+    reg = obs.MetricRegistry()
+    obs.golden_signals(reg, env.platform, accountant=acct, agent=agent)
+    text = obs.snapshot(reg)
+    with obs.MetricsServer(reg, port=0) as srv:
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/metrics",
+                                    timeout=30) as r:
+            body = r.read().decode()
+    families = sorted({line.split(" ")[2] for line in text.splitlines()
+                       if line.startswith("# TYPE ")})
+    res = {"phase": "metrics", "families": families,
+           "lines": len(text.splitlines()), "bytes": len(text),
+           "get_equals_render": body == text,
+           "decide_lines": [line for line in text.splitlines()
+                            if line.startswith("repro_decide")]}
+    log(json.dumps(res))
+    for family in ("repro_slo_budget_consumed", "repro_service_fulfillment",
+                   "repro_decide_us", "repro_decide_score",
+                   "repro_decide_pgd_iters"):
+        check(family in families, f"metrics: {family} missing")
+    check(body == text, "metrics: the GET differs from render")
+    return res
+
+
 # -- the summary ------------------------------------------------------------------
 
 def kernel_entry(rows, kernel, case, launches, source, replaces,
@@ -2904,6 +3636,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="also write the full report (JSON) here")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; this script needs an NVIDIA "
@@ -2990,6 +3723,18 @@ def main(argv=None):
     print(json.dumps(transfer), flush=True)
     burn = phase_burn_budget(dev)
     print(json.dumps(burn), flush=True)
+    backends = phase_backends(dev)
+    print(json.dumps(backends), flush=True)
+    auto_degree, auto_agent = phase_auto_degree(dev)
+    print(json.dumps(auto_degree), flush=True)
+    k1 = phase_rask_kernels_k1(dev, agents, auto_agent)
+    print(json.dumps(k1), flush=True)
+    del auto_agent
+    sota, (sota_env, sota_agent) = phase_sota(dev)
+    print(json.dumps(sota), flush=True)
+    metrics = phase_metrics(dev, sota_env, sota_agent)
+    print(json.dumps(metrics), flush=True)
+    del sota_env, sota_agent
     option_launches = {
         "pipeline": {k: sum(pipeline[m]["launches"][k]
                             for m in ("sync", "pipelined"))
@@ -2998,7 +3743,9 @@ def main(argv=None):
                             for t in ("bursty", "diurnal")
                             for m in ("reactive", "forecast"))
                      for k in ("rask_objective", "rask_objective_grad")},
-        "transfer": transfer["launches"], "burn_budget": burn["launches"]}
+        "transfer": transfer["launches"], "burn_budget": burn["launches"],
+        "backends": backends["launches"],
+        "auto_degree": auto_degree["launches"], "sota": sota["launches"]}
 
     kernels = {"kernels": [
         # local layers: 22 of 26
@@ -3099,6 +3846,20 @@ def main(argv=None):
             for r in rows}
         entry["max_abs_err"] = max([entry["max_abs_err"]]
                                    + [r["max_abs_err"] for r in rows])
+    # one candidate (K = 1: an SLSQP evaluation) and the auto-degree tables
+    # (T = 84, mixed degrees): times beside, errors in the worst
+    for entry in kernels["kernels"]:
+        rows = [r for r in k1["cases"] if r["kernel"] == entry["name"]]
+        if not rows:
+            continue
+        entry["k1_and_auto_degree"] = {
+            r["case"]: {k: r[k] for k in ("K", "terms", "ms", "call_ms",
+                                          "plain_ms", "library_ms",
+                                          "max_abs_err")}
+            | {"bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
+            for r in rows}
+        entry["max_abs_err"] = max([entry["max_abs_err"]]
+                                   + [r["max_abs_err"] for r in rows])
     print(json.dumps(kernels), flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -3115,8 +3876,12 @@ def main(argv=None):
              "serving_loop": loop, "fleet_solve": fleet_solve,
              "failover": failover, "fleet_kernels": fleet_kernels,
              "pipeline": pipeline, "forecast": forecast,
-             "transfer": transfer, "burn_budget": burn, **kernels},
+             "transfer": transfer, "burn_budget": burn,
+             "backends": backends, "auto_degree": auto_degree,
+             "rask_kernels_k1": k1, "sota": sota, "metrics": metrics,
+             "wall_s": time.perf_counter() - t_start, **kernels},
             indent=1))
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 

@@ -86,12 +86,25 @@ Beyond-paper options, as in ``repro``:
     (``_prior_args``), so an arrival does not send the fleet back into
     exploration.
 
-Options not ported yet raise ``NotImplementedError`` naming their ROADMAP
-item when set to a non-default value: ``backend="slsqp"``,
-``fused=False`` and ``auto_degree``. ``repro``'s ``aot``, ``shard`` and
-``objective_impl`` fields are left out: they choose how JAX compiles,
-shards and which implementation scores; here nothing compiles, one card
-takes the whole solve, and the tensors' device picks the implementation.
+The reference paths (``_classic_cycle``), as in ``repro``: fit, then solve,
+each on its own. ``backend="slsqp"`` is the paper-faithful scipy SLSQP
+(``SolverProblem.solve_slsqp``: on the fused objective one device-to-host
+copy a scipy evaluation), ``fused=False`` the seed's per-relation
+``fit_polynomial`` loop and per-service loop objective (e7's pre-PR
+baseline). Both solve the aggregate capacity, draw their noise from the
+numpy rng and leave the pipeline, the forecaster and the streaming fit
+out, as ``repro`` does; ``backend="pgd"`` with ``fused=False`` solves
+through ``SolverProblem.solve_pgd`` from the agent's ``_start_uniforms``.
+
+``auto_degree`` (beyond-paper): every ``auto_degree_every`` rounds each
+service's degree is chosen by ``select_degree``'s test-split MSE (six fits
+a relation on the agent's device); a pass that changes no degree keeps the
+streaming fit's device window.
+
+``repro``'s ``aot``, ``shard`` and ``objective_impl`` fields are left out:
+they choose how JAX compiles, shards and which implementation scores; here
+nothing compiles, one card takes the whole solve, and the tensors' device
+picks the implementation.
 """
 from __future__ import annotations
 
@@ -109,7 +122,7 @@ from .api import DecisionInfo, PlanningAgent, ScalingPlan
 from .forecast import LoadForecaster
 from .platform import MUDAP
 from .regression import BatchedFitPlan, PolynomialModel, StackedModels, \
-    pad_capacity
+    fit_polynomial, pad_capacity, select_degree
 from .solver import FleetSolverProblem, PlacementProblem, ServiceSpec, \
     SolverProblem, cached_fn, pgd_solve
 from .telemetry import TrainingTable
@@ -117,21 +130,6 @@ from .telemetry import TrainingTable
 # Structural knowledge K: per service, target -> feature parameter names.
 # E.g. {"tp_max": ("cores", "data_quality")} — Eq. (7).
 Knowledge = Mapping[str, Mapping[str, Sequence[str]]]
-
-# the ROADMAP items (Queue 1, slice B deferrals) of the options that are not
-# ported yet, with the default that stays allowed
-_UNPORTED = {
-    "backend": ("pgd", "9 (SLSQP and fused=False)"),
-    "fused": (True, "9 (SLSQP and fused=False)"),
-    "auto_degree": (False, "8 (auto_degree)"),
-}
-
-
-def _todo(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet: ROADMAP Queue 1, slice B "
-        f"deferral {item}")
-
 
 @dataclasses.dataclass
 class RaskConfig:
@@ -142,16 +140,17 @@ class RaskConfig:
     eta: float = 0.0            # Gaussian action-noise ratio
     delta: int = 2              # default polynomial degree
     delta_per_service: Optional[Dict[str, int]] = None
-    backend: str = "pgd"        # only "pgd"; "slsqp" is not ported yet
+    backend: str = "pgd"        # "pgd" (default) | "slsqp" (paper reference)
     cache: bool = True          # §IV-B3 warm-start from last assignment
     ridge: float = 1e-6
     eta_decay: float = 1.0      # beyond-paper: <1.0 decays noise after xi
-    auto_degree: bool = False   # not ported yet
+    auto_degree: bool = False   # beyond-paper: per-service degree by CV
+    auto_degree_every: int = 10
     pgd_starts: int = 6
     pgd_iters: int = 32
     pgd_lr: float = 0.18
     resource: str = "cores"     # the shared-capacity resource name
-    fused: bool = True          # only True; the seed loop is not ported yet
+    fused: bool = True          # batched fit + fused objective (False: seed loop)
     # streaming device-resident fit: the padded design window lives on the
     # device as per-relation rings + Gram accumulators, and each cycle
     # uploads only the rows appended since the last cycle's cursor; the
@@ -228,12 +227,6 @@ class RaskConfig:
     transfer_strength: float = 1.0
     transfer_min_rows: int = 3
 
-    def check_ported(self) -> None:
-        for name, (default, item) in _UNPORTED.items():
-            value = getattr(self, name)
-            if value != default:
-                raise _todo(f"RaskConfig({name}={value!r})", item)
-
 
 # host-side stand-in for "no new rows this cycle" (rebuild cycles push the
 # window via ``stream_rebuild`` and then run the delta push empty)
@@ -263,7 +256,6 @@ class RASKAgent(PlanningAgent):
                  device=None):
         super().__init__()
         self.cfg = config if config is not None else RaskConfig()
-        self.cfg.check_ported()
         self.device = resolve_device(device)
         self.platform = platform
         self.knowledge = knowledge
@@ -277,6 +269,7 @@ class RASKAgent(PlanningAgent):
         self.rounds = -1            # Algo 1 line 2: first cycle -> 0
         self.services = platform.services()
         self.capacity = platform.capacity[self.cfg.resource]
+        self._degrees: Dict[str, int] = {}      # auto_degree's picks
         self._cached_x: Optional[np.ndarray] = None
         # a pipelined agent on the card queues ALL of its device work on
         # one stream of its own: the tensors that outlive a dispatch (the
@@ -285,7 +278,7 @@ class RASKAgent(PlanningAgent):
         # that one stream, so they need no wait_stream/record_stream, and
         # the host only ever waits on the dispatch's event
         self._cuda_stream = torch.cuda.Stream(self.device) \
-            if self.cfg.pipeline and self.device.type == "cuda" else None
+            if self._pipelined() and self.device.type == "cuda" else None
         # pipelined decide state: the in-flight dispatched solve (collected
         # by the NEXT decide) and a topology generation counter — bumped by
         # every fleet rebuild (migration, churn), it drops a pending result
@@ -305,6 +298,7 @@ class RASKAgent(PlanningAgent):
         self._placement_cache: Dict[tuple, PlacementProblem] = {}
         self._score_gen = torch.Generator(self.device)
         self.moves_total = 0
+        self._models_loop: Dict[str, Dict[str, PolynomialModel]] = {}
         self._models_view: Optional[Dict[str, Dict[str, PolynomialModel]]] = None
         self.stacked: Optional[StackedModels] = None
         self._row_capacity = 0      # padded-fit bucket (power-of-two growth)
@@ -397,8 +391,11 @@ class RASKAgent(PlanningAgent):
 
     @property
     def models(self) -> Dict[str, Dict[str, PolynomialModel]]:
-        """Seed-style {service: {target: PolynomialModel}} view, sliced
-        lazily out of the stacked tensors."""
+        """Seed-style {service: {target: PolynomialModel}} view: in fused
+        mode sliced lazily out of the stacked tensors, in loop mode the
+        dict the fit writes into."""
+        if not self.cfg.fused:
+            return self._models_loop
         if self._models_view is None and self.stacked is not None:
             self._models_view = self.problem.models_dict(self.stacked)
         return self._models_view if self._models_view is not None else {}
@@ -422,7 +419,7 @@ class RASKAgent(PlanningAgent):
                                     for p in api.parameters),
                 slos=tuple(svc.slos),
                 relation_features=tuple(rels)))
-        return SolverProblem(specs, device=self.device)
+        return SolverProblem(specs, fused=self.cfg.fused, device=self.device)
 
     # -- SLO error-budget control plane (obs) -----------------------------------
     def attach_accountant(self, accountant) -> None:
@@ -485,7 +482,7 @@ class RASKAgent(PlanningAgent):
             # most) and hold off further shrinking until the alert clears
             self._restore_budget()
         moves, scored = self._maybe_rebalance(obs, alerts)
-        if self.cfg.pipeline:
+        if self._pipelined():
             return self._decide_pipelined(obs, moves, scored, alerts)
         t0 = time.perf_counter()
         out = self._solve_cycle(obs)                        # lines 6-11
@@ -722,6 +719,8 @@ class RASKAgent(PlanningAgent):
     def _solve_cycle(self, obs):
         """One full fit+solve+NOISE pass; returns (optimum, noised plan
         vector, score), or None while models are incomplete."""
+        if not self._fused_pgd():
+            return self._classic_cycle(obs)
         prep = self._prepare_fit()                          # lines 6-9
         if prep is None:
             self.stacked = None
@@ -729,6 +728,92 @@ class RASKAgent(PlanningAgent):
         # per-decide randomness, drawn from the numpy rng as repro draws it
         seed = int(self.rng.integers(2 ** 31))
         return self._decide_fused(prep, obs, seed, self._x0())
+
+    # -- which decide runs --------------------------------------------------------
+    def _fused_pgd(self) -> bool:
+        """The default decide: the fused fit + PGD solve on the device (the
+        pipeline, the forecaster and the streaming fit ride only on it)."""
+        return self.cfg.fused and self.cfg.backend == "pgd"
+
+    def _pipelined(self) -> bool:
+        return self.cfg.pipeline and self._fused_pgd()
+
+    def _streaming(self) -> bool:
+        return self.cfg.streaming_fit and self._fused_pgd()
+
+    def _forecast_on(self) -> bool:
+        return self.cfg.forecast and self._fused_pgd()
+
+    # -- the two-stage (reference / baseline) cycle ---------------------------
+    def _classic_cycle(self, obs):
+        """Fit then solve as separate steps — the SLSQP reference or the
+        seed's loop path (``fused=False``); None while models are
+        incomplete. The noise comes from the numpy rng, drawn before the
+        warm start, as ``repro`` draws it."""
+        self._fit_models()
+        if not self._models_complete():
+            # not enough samples to fit every relation (e.g. xi=0 at cycle
+            # 1): keep exploring — there is no model to solve against yet
+            return None
+        rps = self._rps_vector(obs)
+        models = self.stacked if (self.cfg.fused and self.stacked is not None) \
+            else self.models
+        seed = int(self.rng.integers(2 ** 31)) \
+            if self.cfg.backend == "pgd" else 0
+        eps = self.rng.normal(0.0, 1.0, self.problem.dim).astype(np.float32) \
+            if self._eta_t() > 0 else None
+        x0 = self._x0()
+        if self.cfg.backend == "pgd":
+            # the aggregate problem's starts (a fleet's own draws are per
+            # layout bucket: the solve then seeds its generator itself)
+            u = self._start_uniforms(seed) if self.fleet_problem is None \
+                else None
+            a, score = self.problem.solve_pgd(
+                models, rps, x0, self.capacity, u=u, seed=seed,
+                n_starts=self._budget_starts, iters=self._budget_iters,
+                lr=self.cfg.pgd_lr)
+        else:                                                # line 10
+            a, score = self.problem.solve_slsqp(models, rps, x0,
+                                                self.capacity)
+        return a, (a if eps is None else self._noise(a, eps)), score
+
+    def _models_complete(self) -> bool:
+        if self.cfg.fused:
+            return self.stacked is not None
+        for sid in self.services:
+            svc = self.platform.service(sid)
+            for target in self.knowledge[svc.sid.type]:
+                if target not in self.models.get(sid, {}):
+                    return False
+        return True
+
+    def _fit_models(self) -> None:
+        """The reference paths' fit (lines 6-9): one batched fit over the
+        design window (fused), or the seed's ``fit_polynomial`` a relation
+        with >= 3 rows, on the agent's device."""
+        if self.cfg.fused:
+            data = self._collect_fit_data()
+            if data is None:
+                self.stacked = None
+                return
+            self.stacked = self._fit_plan.fit(data)
+            self._models_view = None      # seed-style view rebuilt lazily
+            return
+        for sid in self.services:
+            svc = self.platform.service(sid)
+            k = self.knowledge[svc.sid.type]
+            self._models_loop.setdefault(sid, {})
+            for target, feats in k.items():
+                X, Y = self.table.design_matrix(sid, feats, target)
+                if len(Y) < 3:
+                    continue
+                scale = np.asarray(
+                    [svc.api.parameter(f).max_value for f in feats],
+                    np.float32)
+                degree = self._degree(sid, X, Y, scale)
+                self._models_loop[sid][target] = fit_polynomial(
+                    X, Y, degree, x_scale=scale, ridge=self.cfg.ridge,
+                    features=feats, target=target, device=self.device)
 
     # -- Eq. (3) --------------------------------------------------------------
     def _explore(self) -> np.ndarray:
@@ -766,9 +851,9 @@ class RASKAgent(PlanningAgent):
         forecaster's lands in ``self._fc_prep`` for ``_dispatch_fused`` —
         both advance their cursors here, exactly once per decide."""
         prep = self._prepare_fit_structural()
-        if prep is not None and self.cfg.forecast:
+        if prep is not None and self._forecast_on():
             fc = self._ensure_forecaster()
-            self._fc_prep = fc.prep(self.table, self.cfg.streaming_fit)
+            self._fc_prep = fc.prep(self.table, self._streaming())
         else:
             self._fc_prep = None
         return prep
@@ -779,17 +864,22 @@ class RASKAgent(PlanningAgent):
         or ``("batch", data)`` with the full design window
         (``streaming_fit=False``, or a streaming rebuild). None while some
         relation still lacks >= 3 usable rows AND has no transfer prior
-        (the agent keeps exploring)."""
-        streaming = self.cfg.streaming_fit
-        if streaming:
+        (the agent keeps exploring). An ``auto_degree`` round goes through
+        ``_collect_fit_data``, which selects the degrees."""
+        streaming = self._streaming()
+        auto_due = self.cfg.auto_degree and \
+            self.rounds % self.cfg.auto_degree_every == 0
+        if streaming and not auto_due:
             deltas = self._stream_deltas()
             if deltas is not None:
                 return ("delta", deltas)
-        data = self._collect_fit_data()   # (re)builds the plan
+        data = self._collect_fit_data()   # (re)builds plan, checks degrees
         if data is None:
             self._stream = None
             return None
         if streaming:
+            # an auto-degree pass that did NOT change the plan key leaves
+            # the stream state valid: keep pushing deltas
             deltas = self._stream_deltas()
             if deltas is not None:
                 return ("delta", deltas)
@@ -860,7 +950,7 @@ class RASKAgent(PlanningAgent):
                 # exploration (the prior decays as real rows land)
                 return None
             max_rows = max(max_rows, len(Y))
-            degrees.append(self._degree(sid))
+            degrees.append(self._degree(sid, X, Y, scale))
             data.append((X, Y))
         self._row_capacity = max(self._row_capacity, pad_capacity(max_rows))
         key = (self._row_capacity, tuple(degrees))
@@ -877,10 +967,29 @@ class RASKAgent(PlanningAgent):
              in zip(self._rel_static, degrees)],
             row_capacity=cap, ridge=self.cfg.ridge, device=self.device)
 
-    def _degree(self, sid: str) -> int:
+    def _degree(self, sid: str, X, Y, scale) -> int:
+        """A relation's degree for this fit: the per-service setting, else
+        with ``auto_degree`` (and >= 10 rows) ``select_degree``'s pick on
+        the agent's device, refreshed every ``auto_degree_every`` rounds
+        and kept per service, else ``delta``."""
         if self.cfg.delta_per_service and sid in self.cfg.delta_per_service:
             return self.cfg.delta_per_service[sid]
+        if self.cfg.auto_degree and len(Y) >= 10:
+            if (sid not in self._degrees
+                    or self.rounds % self.cfg.auto_degree_every == 0):
+                best, _ = select_degree(X, Y, x_scale=scale,
+                                        device=self.device)
+                self._degrees[sid] = best
+            return self._degrees[sid]
         return self.cfg.delta
+
+    def _default_degree(self, sid: str) -> int:
+        """The degree relation ``sid`` will fit with absent new data (the
+        configured/per-service default or the last auto-selected value) —
+        what the prior key must match."""
+        if self.cfg.delta_per_service and sid in self.cfg.delta_per_service:
+            return self.cfg.delta_per_service[sid]
+        return self._degrees.get(sid, self.cfg.delta)
 
     # -- proactive scaling (core/forecast.py) ---------------------------------
     def _ensure_forecaster(self) -> LoadForecaster:
@@ -916,7 +1025,7 @@ class RASKAgent(PlanningAgent):
         """DecisionInfo's forecast fields (empty off the forecast path, so
         the dataclass defaults apply)."""
         fc = self._forecast
-        if not self.cfg.forecast or fc is None:
+        if not self._forecast_on() or fc is None:
             return {}
         return dict(forecast_used=fc.last_used, forecast_err=fc.last_err)
 
@@ -934,7 +1043,7 @@ class RASKAgent(PlanningAgent):
                    feats: Tuple[str, ...]) -> bool:
         if not (self.cfg.transfer_priors and self._transfer_priors):
             return False
-        return (self._sid_types.get(sid), target, self._degree(sid),
+        return (self._sid_types.get(sid), target, self._default_degree(sid),
                 len(feats)) in self._transfer_priors
 
     def _prior_args(self) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -955,8 +1064,8 @@ class RASKAgent(PlanningAgent):
             live = False
             for i, (sid, target, feats, _) in enumerate(self._rel_static):
                 w = self._transfer_priors.get(
-                    (self._sid_types.get(sid), target, self._degree(sid),
-                     len(feats)))
+                    (self._sid_types.get(sid), target,
+                     self._default_degree(sid), len(feats)))
                 if w is None or w.shape[0] > T:
                     continue
                 need = minr - min(self.table.count(sid), minr)
@@ -1009,7 +1118,7 @@ class RASKAgent(PlanningAgent):
         kind, payload = prep
         rps_np = self._rps_vector(obs)
         fc = self._forecast \
-            if (self.cfg.forecast and self._fc_prep is not None) else None
+            if (self._forecast_on() and self._fc_prep is not None) else None
         if fc is not None:
             # score the prediction that targeted THIS round, then build the
             # cycle's gate inputs: lag windows, AR priors, use mask
@@ -1020,7 +1129,7 @@ class RASKAgent(PlanningAgent):
         wp, pl = self._prior_args()
         rps = upload(rps_np, dev)
         x0_t = upload(np.asarray(x0, np.float32), dev)
-        streaming = self.cfg.streaming_fit
+        streaming = self._streaming()
         if streaming:
             if kind == "batch":
                 # invalidated (first fit, churn, plan change): rebuild the
@@ -1193,12 +1302,10 @@ class RASKAgent(PlanningAgent):
         fitted model (exploration phase)."""
         if self.fleet_problem is None:
             return {}
-        if self.stacked is None:
-            data = self._collect_fit_data()
-            if data is None:
-                return {}
-            self.stacked = self._fit_plan.fit(data)
-            self._models_view = None
+        if not self._models_complete():
+            self._fit_models()
+        if not self._models_complete():
+            return {}
         problem = self.problem
         rps = self._rps_vector(obs)
         x0 = self._cached_x if self._cached_x is not None else \
@@ -1214,7 +1321,9 @@ class RASKAgent(PlanningAgent):
         # the ADAPTIVE scoring budget (the seed stays fixed): per budget
         # level the scores are deterministic, and the hysteresis gate plus
         # the restore-on-shift adaptation absorb the level changes
-        vec = pp.scores(self.stacked, rps, x0, n_starts=self._score_starts,
+        models = self.stacked \
+            if (self.cfg.fused and self.stacked is not None) else self.models
+        vec = pp.scores(models, rps, x0, n_starts=self._score_starts,
                         iters=self._score_iters, lr=self.cfg.pgd_lr,
                         u=self._score_uniforms(pp))
         out: Dict[str, Dict[str, float]] = {}
@@ -1332,6 +1441,9 @@ class RASKAgent(PlanningAgent):
         self._fit_plan = None
         self._fit_plan_key = None
         self._stream = None               # device window follows the plan
+        for sid in list(self._models_loop):
+            if sid not in set(self.services):
+                self._models_loop.pop(sid)
 
     # -- NOISE (Eq. 5) ------------------------------------------------------------
     def _eta_t(self) -> float:

@@ -16,13 +16,17 @@ padded tensors — ``w`` (R, T_max) zero on padded terms, ``exponents``
 exponent 0, so its value contributes a factor of exactly 1; a padded term
 has ``term_mask`` 0, so the ridge pins its weight to 0.
 
-Two fits, as in ``repro``: ``fit_batched_arrays`` over the full padded
-design window, and the streaming engine of ``BatchedFitPlan``, which keeps
-the window on the device as per-relation rings plus Gram accumulators
+Three fits, as in ``repro``: ``fit_polynomial`` for one relation (the
+seed's loop, ``RaskConfig(fused=False)``, and ``select_degree``'s test-split
+MSE, ``RaskConfig(auto_degree=True)``; these two solve in float64, see
+``_fit64``), ``fit_batched_arrays`` over the full
+padded design window, and the streaming engine of ``BatchedFitPlan``, which
+keeps the window on the device as per-relation rings plus Gram accumulators
 (``StreamState``) and per cycle uploads only the rows appended since the
 last cycle. Every product here is an elementwise multiply and sum, so the
 fit never runs on TF32, whatever ``torch.backends.cuda.matmul.allow_tf32``
-says; the LU solve runs with TF32 switched off around it.
+says; the LU solve runs with TF32 switched off around it (an
+ill-conditioned degree-6 system solved on TF32 would pick another degree).
 
 ``TRACE_COUNTS`` keeps ``repro``'s two runtime transfer counters:
 ``h2d_design_upload`` (every upload of a full padded design window) and
@@ -126,15 +130,109 @@ class PolynomialModel:
     target: str = ""
 
     def predict(self, x):
-        """Estimate the target for raw (unscaled) feature vector(s) x (..., F)."""
+        """Estimate the target for raw (unscaled) feature vector(s) x (..., F);
+        differentiable in a tensor ``x`` (the seed's loop objective takes
+        its gradient through here)."""
         dev = self.w.device
-        x = torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        if torch.is_tensor(x):
+            x = x.to(device=dev, dtype=torch.float32)
+        else:
+            x = torch.as_tensor(np.asarray(x, np.float32), device=dev)
         xs = x / torch.as_tensor(self.x_scale, device=dev)
         lead = xs.shape[:-1]
         phi = _expand_gather(xs.reshape(-1, xs.shape[-1]),
                              torch.as_tensor(self.exponents, device=dev),
                              self.degree)
         return (phi * self.w).sum(-1).reshape(lead)
+
+
+def _fit64(Xs, Y, degree: int, ridge: float):
+    """One relation's ridge system on ``Xs``'s device (``repro``'s ``_fit``,
+    with its scale-aware lambda ridge * (1 + tr(A) / T)) in float64:
+    Xs (N, F) float32 scaled features, Y (N,) -> w (T,) float64.
+
+    ``repro`` solves this system in float32. From degree 3 up its Gram
+    matrices are so ill-conditioned that float32 rounding sets the weights
+    (and ``select_degree``'s test errors) to a few percent, so no other
+    float32 sum order can reproduce them, and the card's would not match
+    the CPU's. In float64 the card and the CPU agree, and the fit is at
+    least as close to ``repro``'s as another float32 one."""
+    exps = torch.from_numpy(polynomial_exponents(Xs.shape[1], degree)).to(
+        Xs.device)
+    phi = _expand_gather(Xs.double(), exps, degree)          # (N, T)
+    A = _gram(phi)
+    lam = ridge * (1.0 + torch.diagonal(A).sum() / A.shape[0])
+    A = A + lam * torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
+    with _no_tf32():
+        w = torch.linalg.solve_ex(A, _xty(phi, Y.double())[:, None],
+                                  check_errors=False)[0]
+    return w[:, 0]
+
+
+def _fit_scaled(X, Y, degree: int, x_scale, ridge: float, device):
+    """(float64 weights, scale) of one relation on ``device`` (the CPU by
+    default); ``x_scale`` defaults to the column max."""
+    X = np.atleast_2d(np.asarray(X, np.float32))
+    Y = np.asarray(Y, np.float32).reshape(-1)
+    if x_scale is None:
+        x_scale = np.maximum(np.abs(X).max(axis=0), 1e-9)
+    x_scale = np.asarray(x_scale, np.float32)
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    return _fit64(upload(X / x_scale, dev), upload(Y, dev), degree,
+                  float(np.float32(ridge))), x_scale
+
+
+def fit_polynomial(X, Y, degree: int, x_scale: Optional[Sequence[float]] = None,
+                   ridge: float = 1e-6, features: Sequence[str] = (),
+                   target: str = "", device=None) -> PolynomialModel:
+    """Fit Eq. (2) for one relation on ``device`` (the CPU by default; the
+    system is solved in float64, the weights kept in float32). ``x_scale``
+    (default: column max) conditions the expansion — raw features like
+    data_quality in [100, 1000] raised to delta=6 would otherwise overflow
+    float32."""
+    w, x_scale = _fit_scaled(X, Y, degree, x_scale, ridge, device)
+    n = x_scale.shape[0]
+    return PolynomialModel(w.float(), polynomial_exponents(n, degree),
+                           x_scale, degree, tuple(features), target)
+
+
+def mse(model: PolynomialModel, X, Y) -> float:
+    pred = model.predict(X)
+    y = torch.as_tensor(np.asarray(Y, np.float32), device=pred.device)
+    return float(torch.mean((pred - y) ** 2))
+
+
+def train_test_split(X, Y, test_frac: float = 0.2, seed: int = 0):
+    """Deterministic 80/20 split used by E2 (Table IV)."""
+    n = len(Y)
+    idx = np.random.default_rng(seed).permutation(n)
+    cut = max(1, int(round(n * test_frac)))
+    te, tr = idx[:cut], idx[cut:]
+    X = np.asarray(X)
+    Y = np.asarray(Y)
+    return X[tr], Y[tr], X[te], Y[te]
+
+
+def select_degree(X, Y, degrees: Sequence[int] = (1, 2, 3, 4, 5, 6),
+                  x_scale=None, seed: int = 0, device=None
+                  ) -> Tuple[int, dict]:
+    """E2 / §VI-C2: pick the service-specific degree by test-split MSE.
+    The fits and their test errors run in float64 on ``device`` (the CPU
+    by default; see ``_fit64``), and the errors come back to the host in
+    one copy."""
+    Xtr, Ytr, Xte, Yte = train_test_split(X, Y, seed=seed)
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    errs_t = []
+    for d in degrees:
+        w, scale = _fit_scaled(Xtr, Ytr, d, x_scale, 1e-6, dev)
+        xs = upload(np.atleast_2d(np.asarray(Xte, np.float32)) / scale, dev)
+        exps = torch.from_numpy(polynomial_exponents(xs.shape[1], d)).to(dev)
+        pred = (_expand_gather(xs.double(), exps, d) * w).sum(-1)
+        y = upload(np.asarray(Yte, np.float32), dev).double()
+        errs_t.append(torch.mean((pred - y) ** 2))
+    errs = dict(zip(degrees, torch.stack(errs_t).cpu().tolist()))
+    best = min(errs, key=errs.get)
+    return best, errs
 
 
 @dataclasses.dataclass

@@ -1,9 +1,20 @@
 """Numerical solver for RASK's SOLVE step — paper Eq. (4), on the card (the
-port of ``repro/core/solver.py``'s PGD path).
+port of ``repro/core/solver.py``).
 
     SOLVE := max_A  sum_i sum_j  phi(q_j, p_i ^ w_i(p_i))
              s.t.   sum_i p_i <= C_p          (global resource constraint)
                     p_min <= p <= p_max       (per-parameter bounds)
+
+Two interchangeable backends, as in ``repro``: ``solve_pgd`` (the default,
+below) and ``solve_slsqp``, the paper-faithful reference (scipy SLSQP [39],
+§V-A) with exact gradients. On the fused objective one SLSQP evaluation is
+one upload of the iterate, the forward kernel on it as one candidate
+(K = 1), the backward kernel, the soft capacity penalty and ONE
+device-to-host copy of [value | gradient] (``_vg_cat``). The seed's
+per-service loop objective survives as ``objective_loop`` (plain PyTorch
+over ``PolynomialModel.predict``, autograd for the gradient, two transfers
+an evaluation): the parity reference and e7's pre-PR baseline, selected by
+``SolverProblem(specs, fused=False)``.
 
 Multi-start projected-gradient ascent: the K starts are one (K, D) batch,
 every ascent step takes its gradient from the objective's vector-Jacobian
@@ -26,8 +37,11 @@ The uniform draws of the random starts are an argument ``u``
 leading B, capacity (B,). Each ascent step is one launch of the backward
 kernel for all B rows, and the finals' scores one launch of the forward.
 One problem is the case B = 1 (unbatched arguments are accepted as such).
-Three callers batch rows:
+Four callers batch rows:
 
+* ``SolverProblem.solve_many`` — B independent instances of one layout
+  (one shared model set or a batch of them), each with its own load,
+  warm start and capacity;
 * ``FleetSolverProblem`` — a multi-host Fleet's per-host subproblems,
   grouped into power-of-two layout buckets (``bucket_key``), each bucket
   padded to its member maxima (``FleetBucket``) and solved with its
@@ -45,10 +59,6 @@ the thresholds (``_AUTO_BUCKET_MIN_HOSTS``, ``_AUTO_PAD_FACTOR``) are
 ``repro``'s, tuned there for XLA-CPU's dispatch floor and kept so that the
 port's layouts equal ``repro``'s. ``repro``'s ``shard`` option (spreading
 each bucket over devices) is left out: one card takes the whole solve.
-
-Not ported yet (ROADMAP Queue 1, slice B deferral 9): the SLSQP reference
-and the seed's loop objective (``fused=False``), and with them
-``SolverProblem.solve_many``.
 """
 from __future__ import annotations
 
@@ -58,8 +68,10 @@ from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence, \
     Tuple, Union
 
 import numpy as np
+import scipy.optimize
 import torch
 
+from ..device import upload
 from ..kernels import ops as kernel_ops
 from .regression import PolynomialModel, StackedModels, pad_capacity, \
     stack_models
@@ -285,12 +297,14 @@ class SolverProblem:
     (padded features re-read index 0 — harmless, their exponent is 0), and
     the per-SLO arrays (kind, service, weight, target, parameter index,
     relation index) drive a branch-free phi computation. ``tables`` holds
-    them on ``device``.
+    them on ``device``. ``fused=False`` makes ``objective`` (and with it
+    ``solve_slsqp``) the seed's per-service loop.
     """
 
-    def __init__(self, specs: Sequence[ServiceSpec],
+    def __init__(self, specs: Sequence[ServiceSpec], fused: bool = True,
                  device: Optional[torch.device] = None):
         self.specs = list(specs)
+        self.fused = fused
         self.device = torch.device("cpu") if device is None \
             else torch.device(device)
         self.offsets: List[int] = []
@@ -311,6 +325,12 @@ class SolverProblem:
         self._host_bounds = (torch.from_numpy(self.lower),
                              torch.from_numpy(self.upper),
                              torch.from_numpy(self.resource_mask))
+        self._bounds = list(zip(self.lower.tolist(), self.upper.tolist()))
+        # the cotangent of -objective for one candidate: the fused SLSQP
+        # gradient is the backward kernel's VJP of it
+        self._neg_ct = torch.full((1, len(self.specs)), -1.0,
+                                  device=self.device)
+        self.last_nfev = 0          # objective evaluations of the last SLSQP
 
     # -- static phi/gather tables for the objective ---------------------------
     def _build_tables(self) -> None:
@@ -391,13 +411,82 @@ class SolverProblem:
     # -- objective ------------------------------------------------------------
     def objective(self, a, models: Models, rps):
         """Weighted total SLO fulfillment (higher is better) of decision
-        vector a (D,) under the models and the per-service load rps (|S|,)."""
+        vector a (D,) under the models and the per-service load rps (|S|,);
+        differentiable in ``a`` (the kernels' autograd function on the
+        fused path, autograd through the loop otherwise)."""
+        if not self.fused:
+            return self.objective_loop(a, models, rps)
         return self.per_service_fulfillment(a, models, rps).sum()
 
     def per_service_fulfillment(self, a, models: Models, rps):
         """Per-service weighted phi totals (|S|,)."""
         return segments_from_tables(a, self.tables, self.stack(models), rps,
                                     len(self.specs))
+
+    def objective_loop(self, a, models, rps):
+        """The seed's per-service Python-loop objective (graph grows with
+        |S|), plain PyTorch over ``PolynomialModel.predict`` on ``a``'s
+        device — kept as the parity reference and e7's pre-PR baseline.
+        ``torch.minimum`` takes the half-subgradient at a tie, as
+        ``jnp.minimum`` does."""
+        if isinstance(models, StackedModels):
+            models = self.models_dict(models)
+        one = torch.ones((), dtype=a.dtype, device=a.device)
+        total = 0.0
+        for i, s in enumerate(self.specs):
+            p = a[self.offsets[i]:self.offsets[i] + s.n_params]
+            preds = {}
+            for target, feat_idx in s.relation_features:
+                x = torch.stack([p[j] for j in feat_idx])
+                preds[target] = models[s.name][target].predict(x)
+            for q in s.slos:
+                if q.metric in s.param_names:
+                    value = p[s.param_names.index(q.metric)]
+                    phi = torch.minimum(value / q.target, one)
+                elif q.metric == COMPLETION:
+                    # §V-B(a): solver uses tp_max for the completion SLO —
+                    # completion_est = tp_max / RPS, phi capped at 1.
+                    tp = preds[THROUGHPUT_MAX]
+                    phi = torch.minimum(
+                        tp / torch.clamp_min(rps[i] * q.target, 1e-9), one)
+                elif q.metric in preds:
+                    phi = torch.minimum(preds[q.metric] / q.target, one)
+                else:
+                    raise KeyError(
+                        f"SLO metric {q.metric!r} of service {s.name} is "
+                        f"neither a parameter nor a regression target")
+                total = total + q.weight * phi
+        return total
+
+    def _neg_objective(self, a, models, rps, capacity):
+        # soft-penalized constraint keeps SLSQP's line search informative even
+        # when the iterate is pushed outside the feasible region by noise.
+        mask = self.tables.resource_mask.to(a.device)
+        res = torch.where(mask, a, 0.0).sum()
+        penalty = 1e3 * torch.clamp_min(res - capacity, 0.0) ** 2
+        return -self.objective(a, models, rps) + penalty
+
+    def _vg_cat(self, a, models: Models, rps, capacity):
+        """[value | gradient] of ``_neg_objective`` at a (D,) as ONE tensor
+        on the problem's device (the fused path): the forward kernel scores
+        ``a`` as one candidate (K = 1), the backward kernel gives the
+        gradient of -objective from the cotangent -1 (no autograd graph),
+        and the penalty 1e3 * max(res - C, 0)^2 and its gradient are added
+        in tensor ops. Nothing here waits on the card."""
+        sm, t = self.stack(models), self.tables
+        A = a[None]
+        args = (t.rel_gather, sm.w, sm.exponents, sm.term_mask, sm.x_scale,
+                t.slo_kind, t.slo_service, t.slo_weight, t.slo_target,
+                t.slo_pidx, t.slo_ridx, rps)
+        kw = dict(n_services=len(self.specs), max_degree=sm.max_degree)
+        seg = kernel_ops.rask_objective(A, *args, **kw)              # (1, S)
+        grad = kernel_ops.rask_objective_vjp(A, self._neg_ct, *args,
+                                             **kw)[0]                # (D,)
+        maskf = t.resource_mask.to(a.dtype)
+        excess = torch.clamp_min(torch.where(t.resource_mask, a, 0.0).sum()
+                                 - capacity, 0.0)
+        value = -seg.sum() + 1e3 * excess ** 2
+        return torch.cat([value.reshape(1), grad + 2e3 * excess * maskf])
 
     # -- projection onto {box} ∩ {sum of resources <= C} --------------------
     def project(self, a, capacity):
@@ -409,7 +498,57 @@ class SolverProblem:
             lo, hi, mask = (b.to(a.device) for b in self._host_bounds)
         return project_capacity(a, lo, hi, mask, capacity, iters=50)
 
-    # -- the solve ------------------------------------------------------------
+    # -- backend 1: paper-faithful SLSQP reference ----------------------------
+    def solve_slsqp(self, models: Models, rps, x0, capacity: float,
+                    maxiter: int = 100) -> Tuple[np.ndarray, float]:
+        """scipy SLSQP (ftol 1e-6) from ``x0`` within the bounds and the
+        capacity constraint, on the soft-penalized objective; returns
+        (assignment, score) on the host. Fused: each evaluation is one
+        ``_vg_cat`` and ONE device-to-host copy, and the solution is
+        projected on the host, where it already is. Loop
+        (``fused=False``): the seed's evaluation (autograd through
+        ``objective_loop``, value and gradient fetched apart: two
+        transfers) and its eager 50-step projection epilogue on the
+        problem's device. ``last_nfev`` keeps the evaluation count."""
+        dev = self.device
+        if self.fused:
+            models = self.stack(models)   # one conversion, outside the loop
+        rps_t = upload(np.asarray(rps, np.float32), dev)
+        cap = float(np.float32(capacity))
+        mask = self.resource_mask
+
+        if self.fused:
+            def f(a):
+                out = self._vg_cat(upload(np.asarray(a, np.float32), dev),
+                                   models, rps_t, cap)
+                out = out.cpu().numpy().astype(np.float64)
+                return out[0], out[1:]
+        else:
+            def f(a):   # seed path: two transfers per iteration
+                x = torch.tensor(np.asarray(a, np.float32), device=dev,
+                                 requires_grad=True)
+                v = self._neg_objective(x, models, rps_t, cap)
+                v.backward()
+                return (v.detach().item(),
+                        x.grad.cpu().numpy().astype(np.float64))
+
+        res_jac = -mask.astype(np.float64)
+        cons = [{"type": "ineq",
+                 "fun": lambda a: capacity - float(np.sum(a[mask])),
+                 "jac": lambda a: res_jac}]
+        res = scipy.optimize.minimize(
+            f, np.asarray(x0, np.float64), jac=True, method="SLSQP",
+            bounds=self._bounds, constraints=cons,
+            options={"maxiter": maxiter, "ftol": 1e-6})
+        self.last_nfev = int(res.nfev)
+        x = torch.from_numpy(np.asarray(res.x, np.float32))
+        if self.fused:
+            a = self.project(x, cap)
+        else:
+            a = self.project(x.to(dev), cap).cpu()
+        return a.numpy(), -float(res.fun)
+
+    # -- backend 2 (default): multi-start PGD ---------------------------------
     def solve_pgd(self, models: Models, rps, x0, capacity: float, *,
                   u: Optional[torch.Tensor] = None, n_starts: int = 6,
                   iters: int = 32, lr: float = 0.18, seed: int = 0
@@ -431,6 +570,45 @@ class SolverProblem:
             n_services=len(self.specs))
         out = torch.cat([a, score.reshape(1)]).cpu().numpy()
         return out[:-1], float(out[-1])
+
+    def solve_many(self, models: Models, rps, x0, capacities, *,
+                   n_starts: int = 6, iters: int = 32, lr: float = 0.18,
+                   seed: int = 0, u: Optional[torch.Tensor] = None
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+        """Solve B independent instances of this problem layout as ONE
+        batched ``pgd_solve`` (B rows a launch) instead of a Python loop.
+
+        rps (B, |S|), x0 (B, dim), capacities (B,) are per-problem;
+        ``models`` is either one ``StackedModels`` shared by every instance
+        or a stacked batch of them (leaves with a leading B). ``u`` (B,
+        n_starts - 3, dim) defaults to draws of a generator seeded with
+        ``seed``. Returns (assignments (B, dim), scores (B,)) on the
+        host."""
+        dev = self.device
+        sm = self.stack(models)
+        x0 = torch.as_tensor(np.asarray(x0, np.float32), device=dev)
+        B = x0.shape[0]
+
+        def rows(t):            # one contiguous copy a row
+            return t[None].expand(B, *t.shape).contiguous()
+
+        if sm.w.dim() == 2:
+            sm = StackedModels(rows(sm.w), rows(sm.exponents),
+                               rows(sm.term_mask), rows(sm.x_scale),
+                               sm.max_degree, sm.labels)
+        if u is None:
+            gen = torch.Generator(dev).manual_seed(int(seed))
+            u = torch.rand((B, max(n_starts - 3, 0), self.dim),
+                           generator=gen, device=dev)
+        a, scores = pgd_solve(
+            x0, torch.as_tensor(u, dtype=torch.float32, device=dev),
+            ProblemTables(*(rows(t) for t in self.tables)), sm,
+            torch.as_tensor(np.asarray(rps, np.float32), device=dev),
+            torch.as_tensor(np.asarray(capacities, np.float32), device=dev),
+            n_starts=n_starts, iters=iters, lr=lr,
+            n_services=len(self.specs))
+        out = torch.cat([a.reshape(-1), scores]).cpu().numpy()
+        return out[:B * self.dim].reshape(B, self.dim), out[B * self.dim:]
 
     # -- Eq. (3): RAND_PARAM — uniform draw within bounds + constraint -------
     def random_assignment(self, rng: np.random.Generator,

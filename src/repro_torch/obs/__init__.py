@@ -1,11 +1,13 @@
-"""Observability: SLO error-budget accounting and burn-rate alerts (the
-port's copy of ``repro/obs``'s accounting plane).
+"""Observability: SLO error-budget accounting, burn-rate alerts, and a
+golden-signals metric registry with Prometheus text-format exposition (the
+port's copy of ``repro/obs``).
 
 ``SLOAccountant`` turns raw ``TimeSeriesDB`` scrapes into rolling SLIs,
 error budgets, and Google-SRE multiwindow multiburn alerts that
-``RASKAgent`` consumes as a scaling signal. ``repro``'s golden-signals
-registry and Prometheus exposition (``registry.py``, ``prometheus.py``)
-are not ported yet (ROADMAP Queue 1, item 22).
+``RASKAgent`` consumes as a scaling signal; ``MetricRegistry`` +
+``golden_signals`` + ``render`` expose the same state (plus solver
+internals from ``DecisionInfo``) to scrapes, and ``MetricsServer`` serves
+them on ``/metrics``.
 """
 from .slo_accounting import (
     FAST_BURN,
@@ -18,6 +20,8 @@ from .slo_accounting import (
     error_rates,
     sli_flags,
 )
+from .registry import Metric, MetricRegistry, golden_signals
+from .prometheus import MetricsServer, render, snapshot
 
 __all__ = [
     "BurnPolicy",
@@ -29,4 +33,10 @@ __all__ = [
     "error_rate",
     "error_rates",
     "sli_flags",
+    "Metric",
+    "MetricRegistry",
+    "golden_signals",
+    "MetricsServer",
+    "render",
+    "snapshot",
 ]

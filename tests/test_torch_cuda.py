@@ -233,8 +233,9 @@ def _objective_case(replicas, K, seed, dev):
     return _objective_setup(replicas, K, seed, dev)[:2]
 
 
-def _objective_setup(replicas, K, seed, dev):
-    """``_objective_case``, with the problem and the stacked models."""
+def _objective_setup(replicas, K, seed, dev, degree_of=None):
+    """``_objective_case``, with the problem and the stacked models;
+    ``degree_of(i)`` sets service i's degree (default 1 + i % 3)."""
     rng = np.random.default_rng(seed)
     specs = []
     for r in range(replicas):
@@ -256,7 +257,8 @@ def _objective_setup(replicas, K, seed, dev):
             hi = np.asarray([s.upper[j] for j in feat], np.float32)
             X = rng.uniform(0.1, 1.0, (40, len(feat))).astype(np.float32) * hi
             Y = (X @ rng.uniform(1, 20, len(feat))).astype(np.float32)
-            rels.append(dict(n_features=len(feat), degree=1 + i % 3,
+            rels.append(dict(n_features=len(feat),
+                             degree=(degree_of or (lambda j: 1 + j % 3))(i),
                              x_scale=hi))
             data.append((X, Y))
     sm = BatchedFitPlan(rels, row_capacity=64, device=dev).fit(data)
@@ -1025,3 +1027,188 @@ def test_forecaster_on_the_card_matches_the_cpu(cuda_device):
     span = float(np.abs(pp).max())
     np.testing.assert_allclose(pc, pp, rtol=0, atol=1e-3 * span)
     np.testing.assert_allclose(ec, ep, rtol=0, atol=1e-3 * span)
+
+
+# -- the paper's comparison: SLSQP, auto_degree, the baselines ---------------
+
+
+def _auto_degree_tables(dev):
+    """The |S| = 9 layout with the degrees ``auto_degree`` may pick, 1 to 6
+    mixed over the relations (cv-analyzer's three features at degree 6:
+    T = C(9, 3) = 84 terms, the rest padded by ``term_mask``)."""
+    degrees = (1, 6, 2, 3, 6, 4, 5, 6, 6)      # QR, CV, PC a replica
+    return _objective_setup(3, 1, 83, dev, degree_of=degrees.__getitem__)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["S3", "S9", "T84"])
+def test_rask_kernels_at_one_candidate_and_the_auto_degree_tables(
+        cuda_device, case):
+    """Both kernels at K = 1 (an SLSQP evaluation) on the |S| = 3 and 9
+    layouts and on mixed degrees 1-6 (T = 84), against their plain
+    versions at 1e-5 of scale; K = 1 is one launch each, as K = 6."""
+    if case == "T84":
+        args, kw, _, sm = _auto_degree_tables(cuda_device)
+        assert sm.w.shape[1] == 84 and sm.max_degree == 6
+        assert sorted({int(m.sum()) for m in sm.term_mask.cpu()}) != [84]
+    else:
+        args, kw = _objective_case(1 if case == "S3" else 3, 1, 7,
+                                   cuda_device)
+    A = args[0]
+    assert A.shape[0] == 1
+    ct = -torch.ones((1, kw["n_services"]), device=cuda_device)
+    n_fwd = rask_objective_forward_cuda.launches
+    n_bwd = rask_objective_backward_cuda.launches
+    got = rask_objective_forward_cuda(*args, n_services=kw["n_services"])
+    gdA = rask_objective_backward_cuda(A, ct, *args[1:],
+                                       n_services=kw["n_services"])
+    want = ref.rask_objective_reference(*args, **kw)
+    wdA = ref.rask_objective_grad(A, ct, *args[1:], **kw)
+    torch.cuda.synchronize()
+    assert rask_objective_forward_cuda.launches == n_fwd + 1
+    assert rask_objective_backward_cuda.launches == n_bwd + 1
+    for g, w in ((got, want), (gdA, wdA)):
+        assert torch.isfinite(g).all()
+        bar = 1e-5 * (1.0 + float(w.abs().max()))
+        assert float((g - w).abs().max()) <= bar
+
+
+def _slsqp_case(dev, fused, seed=5):
+    """The |S| = 9 problem on ``dev`` and its CPU twin, the same fitted
+    models on each, a load and a feasible warm start."""
+    args, kw, problem, sm = _objective_setup(3, 1, seed, dev)
+    cpu = SolverProblem(problem.specs, fused=fused, device="cpu")
+    card = SolverProblem(problem.specs, fused=fused, device=dev)
+    from repro_torch.core.regression import StackedModels
+    sm_cpu = StackedModels(sm.w.cpu(), sm.exponents.cpu(),
+                           sm.term_mask.cpu(), sm.x_scale.cpu(),
+                           sm.max_degree, sm.labels)
+    rng = np.random.default_rng(seed)
+    x0 = cpu.random_assignment(rng, 24.0)
+    return card, cpu, sm, sm_cpu, args[-1].cpu().numpy(), x0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False])
+def test_solve_slsqp_on_the_card_matches_the_cpu(cuda_device, fused):
+    """SLSQP on the card from the CPU's models and x0. At every point the
+    card's scipy run evaluated, the card's value and gradient equal the
+    CPU's within 1e-5 of (1 + the largest); fused, each evaluation
+    launches the forward and the backward kernel once. SLSQP is one local
+    search: values a float32 rounding apart can send the two runs to
+    different local optima (this case: 12.80 on the card, 12.65 on the
+    CPU, ROADMAP Queue 3), so the two ends are held to feasibility and to
+    5% of each other (``repro``'s PGD/SLSQP parity bar), not to 1e-4."""
+    card, cpu, sm, sm_cpu, rps, x0 = _slsqp_case(cuda_device, fused)
+    models = sm if fused else card.models_dict(sm)
+    cpu_models = sm_cpu if fused else cpu.models_dict(sm_cpu)
+    points = []
+    name = "_vg_cat" if fused else "_neg_objective"
+    inner = getattr(card, name)
+
+    def noted(a, *args):
+        points.append(a.detach().cpu().numpy().copy())
+        return inner(a, *args)
+    setattr(card, name, noted)
+    n_fwd = rask_objective_forward_cuda.launches
+    n_bwd = rask_objective_backward_cuda.launches
+    a, s = card.solve_slsqp(models, rps, x0, 24.0)
+    evals = card.last_nfev
+    assert len(points) == evals > 1
+    if fused:
+        assert rask_objective_forward_cuda.launches - n_fwd == evals
+        assert rask_objective_backward_cuda.launches - n_bwd == evals
+    else:
+        assert rask_objective_forward_cuda.launches == n_fwd
+    setattr(card, name, inner)
+    rps_c, rps_d = torch.from_numpy(rps), torch.from_numpy(rps).to(
+        cuda_device)
+    for x in points:
+        if fused:
+            got = card._vg_cat(torch.from_numpy(x).to(cuda_device), sm,
+                               rps_d, 24.0).cpu().numpy()
+            want = cpu._vg_cat(torch.from_numpy(x), sm_cpu, rps_c,
+                               24.0).numpy()
+        else:
+            vg = []
+            for p, m, r, dev in ((card, models, rps_d, cuda_device),
+                                 (cpu, cpu_models, rps_c, "cpu")):
+                t = torch.tensor(x, device=dev, requires_grad=True)
+                v = p._neg_objective(t, m, r, 24.0)
+                v.backward()
+                vg.append(np.concatenate([[v.item()],
+                                          t.grad.cpu().numpy()]))
+            got, want = vg
+        assert np.abs(got - want).max() <= 1e-5 * (1 + np.abs(want).max())
+    a_cpu, s_cpu = cpu.solve_slsqp(cpu_models, rps, x0, 24.0)
+    assert abs(s - s_cpu) <= 0.05 * abs(s_cpu)
+    for p, x in ((card, a), (cpu, a_cpu)):
+        assert x[p.resource_mask].sum() <= 24.0 + 1e-4
+        assert np.all(x >= p.lower - 1e-5) and np.all(x <= p.upper + 1e-5)
+
+
+@pytest.mark.cuda
+def test_dqn_td_step_on_the_card_matches_the_cpu(cuda_device):
+    """The same DQN (the same seeded initial weights on both devices) takes
+    two TD steps on the same batch: losses and weights within 1e-5."""
+    from repro_torch.core.agents.dqn import DQNConfig, ServiceDQN
+    prof = paper_profiles()["cv-analyzer"]
+    nets = [ServiceDQN(prof.api, prof.slos, DQNConfig(), 3, dev)
+            for dev in (cuda_device, torch.device("cpu"))]
+    rng = np.random.default_rng(0)
+    n = nets[1].state_dim
+    batch = (rng.random((64, n), np.float32),
+             rng.integers(nets[1].n_actions, size=64),
+             rng.random(64, np.float32), rng.random((64, n), np.float32),
+             np.zeros(64, np.float32))
+    out = []
+    for net in nets:
+        b = [torch.from_numpy(np.asarray(x)).to(net.device) for x in batch]
+        losses = [float(net.td_step(*b, 3e-4)) for _ in range(2)]
+        out.append((losses, [p.detach().cpu() for p in
+                             net.net.parameters()]))
+    np.testing.assert_allclose(out[0][0], out[1][0], rtol=1e-5, atol=1e-6)
+    for p, q in zip(out[0][1], out[1][1]):
+        torch.testing.assert_close(p, q, rtol=1e-5, atol=1e-5)
+    s = batch[0][0]
+    np.testing.assert_allclose(nets[0].q_values(s), nets[1].q_values(s),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_select_degree_on_the_card_matches_the_cpu(cuda_device):
+    """The float64 fits of ``select_degree`` on the card and on the CPU:
+    the same pick, errors within 1e-6 relative."""
+    from repro_torch.core.regression import select_degree
+    rng = np.random.default_rng(4)
+    prof = paper_profiles()["cv-analyzer"]
+    names = list(prof.api.names)
+    hi = np.asarray([prof.api.parameter(x).max_value for x in names],
+                    np.float32)
+    X = (rng.uniform(0.1, 1.0, (41, 3)) * hi).astype(np.float32)
+    Y = np.asarray([prof.tp_max(dict(zip(names, x))) for x in X],
+                   np.float32)
+    best, errs = select_degree(X, Y, x_scale=hi, device=cuda_device)
+    best_c, errs_c = select_degree(X, Y, x_scale=hi)
+    assert best == best_c
+    for d in errs:
+        assert errs[d] == pytest.approx(errs_c[d], rel=1e-6)
+
+
+@pytest.mark.cuda
+def test_new_entry_points_raise_without_cuda(monkeypatch):
+    """``DQNAgent``, ``RASKAgent(backend="slsqp")`` and ``compare_solvers``
+    default to the card and raise without it (no fall back to the CPU)."""
+    from repro_torch.core import RASKAgent, RaskConfig
+    from repro_torch.core.agents import DQNAgent
+    from repro_torch.env import EdgeEnvironment, paper_knowledge
+    from repro_torch.launch import compare_solvers
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    env = EdgeEnvironment(list(paper_profiles().values()), {"cores": 8.0})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DQNAgent(env.platform)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        RASKAgent(env.platform, paper_knowledge(),
+                  RaskConfig(backend="slsqp"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        compare_solvers.main(["--seconds", "10"])

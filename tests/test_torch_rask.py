@@ -151,16 +151,6 @@ def test_batch_fit_mode_solves_with_the_streaming_fit():
                                    atol=1e-3 * np.abs(want).max())
 
 
-@pytest.mark.parametrize("option", [dict(backend="slsqp"),
-                                    dict(fused=False),
-                                    dict(auto_degree=True)])
-def test_unported_options_raise_naming_the_roadmap(option):
-    env = EdgeEnvironment(list(paper_profiles().values()), {"cores": CAP})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RASKAgent(env.platform, paper_knowledge(), RaskConfig(**option),
-                  device="cpu")
-
-
 @pytest.mark.parametrize("option", [dict(rebalance_every=2),
                                     dict(rebalance_every=2,
                                          burn_weight_cap=2.0)])

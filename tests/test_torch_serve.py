@@ -205,8 +205,11 @@ def test_port_imports_neither_jax_nor_repro():
                          env={**os.environ, "PYTHONPATH": src})
     assert out.returncode == 0, out.stderr
     loaded = set(out.stdout.split())
-    assert len(loaded) >= 46                      # every module was imported
+    assert len(loaded) >= 53                      # every module was imported
     assert {"repro_torch.obs.slo_accounting", "repro_torch.serve.service",
             "repro_torch.serve.loop", "repro_torch.env.scenarios",
             "repro_torch.core.fleet", "repro_torch.launch.failover",
-            "repro_torch.core.forecast"} <= loaded
+            "repro_torch.core.forecast", "repro_torch.obs.registry",
+            "repro_torch.obs.prometheus", "repro_torch.core.agents.vpa",
+            "repro_torch.core.agents.dqn",
+            "repro_torch.launch.compare_solvers"} <= loaded
