@@ -326,6 +326,47 @@ one GET of ``MetricsServer`` on port 0 over loopback: the text carries
 ``repro_slo_budget_consumed``, ``repro_service_fulfillment`` and the
 solver internals (``repro_decide_*``), and the GET equals ``render``.
 
+The control plane's CLI over its three LM services and the MoE decoder
+(models/moe.py, launch/autoscale.py, launch/fleet_autoscale.py,
+launch/hetero_fleet.py) add, after the phases above have freed their
+models:
+
+Phase 1 also holds the attention kernels at qwen2-moe-a2.7b's shapes:
+decode at 4 rows of a 2048-slot cache, 16 query heads on 16 kv heads
+(G = 1), d_head 128 ("moe"), and flash at 16 on 16 heads, d_head 128, the
+128, 512 and 1024 buckets, no window ("moe_S*"), each against its plain
+version and SDPA, with its bound.
+
+Phase "moe_crosscheck" runs qwen2-moe-a2.7b at full width (d_model 2048,
+60 experts of d_ff 1408 top-4 and 4 shared, vocab 151936), cut to 2
+layers, in float32: a 300-token prompt right-padded to the 512 bucket
+(one routing group, capacity 42) and 4 decode steps on the card against
+the same weights on the CPU (logits within 1e-3, phase 2's bar). Every
+MoE call's expert choices and kept routes (``recording_routes``) must be
+the CPU's, bit for bit; the prefill must launch the float32 flash kernel
+once a layer, each decode step the decode kernel once a layer.
+
+Phase "moe_serve" is phase 3 on qwen2-moe-a2.7b at full width in bf16
+(24 layers, ~14.3 B parameters, 28.6 GB; weights from the card's seeded
+generator): the same engine, requests and launch checks, the memory
+resident before (the earlier models freed) and the phase's own peak, and
+the routes dropped at capacity in each bucket (the dense GShard dispatch
+routes pads with the real tokens: they take capacity at choices >= 1).
+Phase "moe_trace" is ``phase_trace`` on that engine, beside a decode
+step's byte bound: every layer's weights (all experts enter the dense
+dispatch), the head and the KV slots read, over 3.35 TB/s.
+
+Phase "autoscale_cli" runs ``launch.autoscale.main`` on the card and with
+``--device cpu``: the default (10 simulated minutes, diurnal), then
+``--hosts 3 --replicas 3 --rebalance-every 3 --slo-burn --dump-metrics``.
+It prints both runs' summary lines; the exploration plans must be the
+CPU's exactly, the dumps must hold the same metric families, every
+fulfilment lie in [0, 1], and the card's decides must have launched the
+RASK kernels (at least one forward and 32 backward a solved decide).
+Phase "fleet_launchers" runs ``launch.fleet_autoscale`` and
+``launch.hetero_fleet`` on the card: both end with every host inside its
+budget, a fulfilment line and RASK launches.
+
 Prints the card's name and power limit, one JSON line per phase, a
 ``{"kernels": [...]}`` line (one entry a kernel, the float32 flash kernel
 its own), and as the last line
@@ -452,20 +493,23 @@ def decode_cases(dev, dtype):
     heads on 1 kv head, d_head 256, a 2048-slot cache, per-row lengths of
     the phase-3 prompts, global rows (start 0) and local rows (512 window),
     plus edge rows (length 1, a full cache, an idle lane past the cache);
-    and e11's loop: a 64-slot cache of 4 rows and of 1 row."""
+    e11's loop: a 64-slot cache of 4 rows and of 1 row; and qwen2-moe's
+    decode ("moe"): 16 query heads on 16 kv heads (G = 1), d_head 128,
+    the same rows of a 2048-slot cache, no window."""
     H, KH, D, S = 4, 1, 256, 2048
     lengths = [108, 308, 708, 1008]
     cases = {
-        "global": (lengths, [0] * 4, S),
-        "local": (lengths, [max(0, n - 512) for n in lengths], S),
-        "edges": ([1, 2048, 2060, 513], [0, 1536, 1548, 1], S),
+        "global": (lengths, [0] * 4, S, H, KH, D),
+        "local": (lengths, [max(0, n - 512) for n in lengths], S, H, KH, D),
+        "edges": ([1, 2048, 2060, 513], [0, 1536, 1548, 1], S, H, KH, D),
         # e11's loop: a 64-slot cache, 4 rows (stacked engine) or 1 (dict)
-        "e11_stacked": ([20, 33, 47, 64], [0] * 4, 64),
-        "e11_dict": ([33], [0], 64),
+        "e11_stacked": ([20, 33, 47, 64], [0] * 4, 64, H, KH, D),
+        "e11_dict": ([33], [0], 64, H, KH, D),
+        "moe": (lengths, [0] * 4, S, 16, 16, 128),
     }
     g = torch.Generator(dev).manual_seed(11)
     out = []
-    for name, (lens, starts, S) in cases.items():
+    for name, (lens, starts, S, H, KH, D) in cases.items():
         B = len(lens)
         q = torch.randn((B, H, D), generator=g, device=dev).to(dtype)
         k = torch.randn((B, S, KH, D), generator=g, device=dev).to(dtype)
@@ -481,8 +525,10 @@ def flash_cases(dev, dtype):
     heads on 1 kv head, d_head 256, at the 128/512/1024 buckets, local
     (window 512) and global (no window); then two edges the bf16 kernel
     packs differently: 8 query heads on 1 kv head (8 heads of 8 positions
-    a CTA) and two rows of a 17-token prompt (S < 64); and e11's
-    prompts (13 and 32 tokens)."""
+    a CTA) and two rows of a 17-token prompt (S < 64); e11's
+    prompts (13 and 32 tokens); and qwen2-moe's buckets 128, 512 and 1024
+    ("moe_S*"): 16 query heads on 16 kv heads (G = 1), d_head 128, no
+    window."""
     g = torch.Generator(dev).manual_seed(12)
 
     def randn(*shape):
@@ -501,6 +547,9 @@ def flash_cases(dev, dtype):
     for S in (13, 32):
         out.append((f"e11_S{S}", randn(1, 4, S, 256), randn(1, 1, S, 256),
                     randn(1, 1, S, 256), 512))
+    for S in (128, 512, 1024):
+        out.append((f"moe_S{S}", randn(1, 16, S, 128), randn(1, 16, S, 128),
+                    randn(1, 16, S, 128), 0))
     return out
 
 
@@ -617,7 +666,7 @@ def phase_kernels(dev):
             row["plain_ms"], row["plain_call_ms"] = time_ms([
                 lambda: ref.flash_attention_reference(
                     q, k, v, causal=True, window=window)], 10)
-            kk, vv = k.expand(B, H, T, D), v.expand(B, H, T, D)   # KH = 1
+            kk, vv = k.expand(B, H, T, D), v.expand(B, H, T, D)  # KH 1 or H
             if window:
                 def sdpa():
                     return F.scaled_dot_product_attention(q, kk, vv,
@@ -722,7 +771,10 @@ class FiniteLogits:
         return self.model.supports_padded_prefill
 
 
-def phase_serve(dev):
+def phase_serve(dev, arch="gemma3-1b", name="serve", wrap=FiniteLogits):
+    """``arch`` at full width in bf16 behind the ServingEngine: the 8
+    requests, launch counts checked, prefill ms by bucket (phases "serve"
+    and "moe_serve")."""
     import numpy as np
 
     from repro_torch.configs import get
@@ -733,8 +785,8 @@ def phase_serve(dev):
     from repro_torch.serve.engine import (EngineConfig, Request,
                                           ServingEngine, bucket_length)
 
-    cfg = get("gemma3-1b")                     # full width, bf16
-    model = FiniteLogits(build(cfg))
+    cfg = get(arch)                            # full width, bf16
+    model = wrap(build(cfg))
     params = model.model.init(torch.Generator(dev).manual_seed(0))
     n_params = sum(p.numel() for p in _leaves(params))
     ecfg = EngineConfig(slots=4, max_seq=2048, context=1024, chips=16.0)
@@ -792,7 +844,7 @@ def phase_serve(dev):
             times.append(1e3 * (time.perf_counter() - t))
         prefill_ms[str(b)] = statistics.median(times[1:])
     tokens = sum(len(r.generated) for r in engine.completed)
-    res = {"phase": "serve", "model": cfg.name, "params": n_params,
+    res = {"phase": name, "model": cfg.name, "params": n_params,
            "dtype": cfg.dtype, "requests": len(reqs),
            "prompt_lengths": lengths, "new_tokens_each": 16,
            "engine_steps": engine.steps, "tokens_generated": tokens,
@@ -3591,6 +3643,280 @@ def phase_metrics(dev, env, agent):
     return res
 
 
+# -- qwen2-moe-a2.7b, the control plane's CLI and the fleet launchers -------------
+
+MOE_ARCH = "qwen2-moe-a2.7b"
+
+
+class RouteCounts(FiniteLogits):
+    """``FiniteLogits`` that also counts, for every prefill, the routes its
+    MoE layers dropped at capacity (``models/moe.py::recording_routes``):
+    those of real tokens (positions < length) by choice, and those of pads,
+    by bucket width, as device counters read once at the end."""
+
+    def __init__(self, model):
+        super().__init__(model)
+        self.drops = {}        # width -> [prompts, real tokens, real (k,), pad]
+
+    def prefill(self, params, batch, max_seq, length=None):
+        from repro_torch.models.moe import recording_routes
+        B, width = batch["tokens"].shape
+        check(B == 1, "route counts assume one prompt a prefill")
+        n = width if length is None else int(length)
+        with recording_routes() as routes:
+            out = super().prefill(params, batch, max_seq=max_seq,
+                                  length=length)
+        dropped = torch.stack([~keep for _, keep in routes])   # (L, T, k)
+        acc = self.drops.setdefault(width, [0, 0, 0, 0])
+        acc[0] += 1
+        acc[1] += n
+        acc[2] = acc[2] + dropped[:, :n].sum(dim=(0, 1))
+        acc[3] = acc[3] + dropped[:, n:].sum()
+        return out
+
+
+def phase_moe_serve(dev):
+    """qwen2-moe-a2.7b at full width in bf16 (24 layers, d_model 2048, 16
+    heads on 16 kv heads, d_head 128, 60 experts top-4 and 4 shared, vocab
+    151936), weights from the card's seeded generator, behind phase
+    "serve"'s engine and requests; the routes dropped at capacity by
+    bucket. Earlier phases' models are gone: the memory left resident is
+    reported, and the peak is this phase's own."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    res, engine = phase_serve(dev, MOE_ARCH, "moe_serve", RouteCounts)
+    cfg, k = engine.model.cfg, engine.model.cfg.top_k
+    drops = {}
+    for width, (prompts, tokens, real, pad) in sorted(
+            engine.model.drops.items()):
+        real = real.tolist()
+        drops[str(width)] = {
+            "prompts": prompts, "real_routes": tokens * k * cfg.n_layers,
+            "real_routes_dropped": sum(real), "real_dropped_by_choice": real,
+            "pad_routes_dropped": int(pad),
+            "real_dropped_share": sum(real) / (tokens * k * cfg.n_layers)}
+    res.update({"resident_gb_before": resident, "routes_dropped": drops})
+    log(json.dumps(res))
+    return res, engine
+
+
+def phase_moe_trace(engine):
+    """``phase_trace`` on the MoE engine, beside the byte bound of a decode
+    step: every layer's weights (all 60 experts, as the dense dispatch
+    multiplies them), the vocab head and the KV slots the 4 rows attend to
+    at the window's last step, over 3.35 TB/s."""
+    res = phase_trace(engine, name="moe_trace")
+    p, cfg = engine.params, engine.cfg
+    mcfg = engine.model.cfg
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in _leaves(tree))
+    layers = p["layers"]
+    parts = {"experts": sum(nbytes({k: lp["ffn"][k] for k in
+                                    ("up", "gate", "down")})
+                            for lp in layers),
+             "shared_expert": sum(nbytes(lp["ffn"]["shared"])
+                                  for lp in layers),
+             "router": sum(nbytes(lp["ffn"]["router"]) for lp in layers),
+             "attention": sum(nbytes(lp["attn"]) for lp in layers),
+             "norms": sum(nbytes([lp["ln1"], lp["ln2"]]) for lp in layers),
+             "head": nbytes(p.get("head", p["embed"]))}
+    live = torch.clamp(engine._cache["pos"], max=cfg.max_seq)
+    parts["kv_read"] = int(live.sum()) * mcfg.n_layers * 2 \
+        * mcfg.n_kv_heads * mcfg.d_head * 2
+    step_bytes = sum(parts.values())
+    busy = res["decode_step"]["device_busy_ms"]
+    res.update({"step_bytes": parts, "step_bytes_total": step_bytes,
+                "step_bound_ms": 1e3 * step_bytes / HBM_BYTES_PER_S,
+                "busy_over_bound": busy / (1e3 * step_bytes
+                                           / HBM_BYTES_PER_S)})
+    log(json.dumps(res))
+    return res
+
+
+def phase_moe_crosscheck(dev):
+    """qwen2-moe-a2.7b at full width cut to 2 layers, float32: a 300-token
+    prompt right-padded to the 512 bucket (one routing group, cap 42) and
+    4 decode steps on the card against the same weights on the CPU. The
+    routes each MoE call kept must be the CPU's, bit for bit."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import get
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     reset_launches)
+    from repro_torch.models import build
+    from repro_torch.models.moe import recording_routes
+
+    tol = 1e-3                      # phase "crosscheck"'s bar, same reason
+    cfg = dataclasses.replace(get(MOE_ARCH), n_layers=2, dtype="float32")
+    model = build(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(1))
+    cpu_params = _to_cpu(params)
+    n, width = 300, 512
+    toks = np.zeros((1, width), np.int64)
+    toks[0, :n] = np.random.default_rng(3).integers(0, cfg.vocab, n)
+    toks = torch.from_numpy(toks)
+
+    def routed(fn):
+        with recording_routes() as routes:
+            out = fn()
+        return out, [(i.cpu(), k.cpu()) for i, k in routes]
+    reset_launches()
+    decode_attention_cuda.launches = 0
+    (gl, gc_), g_routes = routed(lambda: model.prefill(
+        params, {"tokens": toks.to(dev)}, max_seq=1024, length=n))
+    flash = dict(flash_attention_cuda.variant_launches)
+    (cl, cc), c_routes = routed(lambda: model.prefill(
+        cpu_params, {"tokens": toks}, max_seq=1024, length=n))
+    errs = [(gl.cpu() - cl).abs().max().item()]
+    same = [int(gl.argmax()) == int(cl.argmax())]
+    for _ in range(4):
+        nxt = cl.argmax(-1)[:, None]
+        (gl, gc_), r = routed(lambda: model.decode(params, nxt.to(dev), gc_))
+        g_routes += r
+        (cl, cc), r = routed(lambda: model.decode(cpu_params, nxt, cc))
+        c_routes += r
+        errs.append((gl.cpu() - cl).abs().max().item())
+        same.append(int(gl.argmax()) == int(cl.argmax()))
+    decode_launches = decode_attention_cuda.launches
+    same_routes = len(g_routes) == len(c_routes) and all(
+        torch.equal(gi, ci) and torch.equal(gk, ck)
+        for (gi, gk), (ci, ck) in zip(g_routes, c_routes))
+    prefill_keep = torch.stack([k for _, k in c_routes[:cfg.n_layers]])
+    res = {"phase": "moe_crosscheck", "layers": cfg.n_layers, "prompt": n,
+           "bucket": width, "decode_steps": 4, "max_abs_err": max(errs),
+           "per_step_err": errs, "tolerance": tol, "argmax_agree": all(same),
+           "routes_identical": same_routes,
+           "prefill_real_routes_dropped": int((~prefill_keep[:, :n]).sum()),
+           "prefill_pad_routes_dropped": int((~prefill_keep[:, n:]).sum()),
+           "flash_launches": flash, "decode_launches": decode_launches}
+    log(json.dumps(res))
+    del params, cpu_params, gc_, cc
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(flash == {"wgmma": 0, "tf32x3": cfg.n_layers},
+          f"moe cross-check: float32 prefill flash launches {flash}")
+    check(decode_launches == 4 * cfg.n_layers,
+          f"moe cross-check: {decode_launches} decode launches")
+    check(same_routes, "moe cross-check: the card kept other routes")
+    check(max(errs) <= tol, f"moe cross-check: logits differ by {max(errs)}")
+    check(all(same), "moe cross-check: argmax tokens differ")
+    return res
+
+
+def _cli(main, argv):
+    """``main(argv)``'s return value, its standard output as lines, and its
+    wall seconds."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = main(argv)
+    return out, buf.getvalue().splitlines(), time.perf_counter() - t
+
+
+def _requested(rec):
+    return sorted((o.sid, o.param, o.requested) for o in rec.receipt.outcomes)
+
+
+def phase_autoscale_cli(dev):
+    """``launch/autoscale.py`` on the card and with ``--device cpu``: the
+    default (10 simulated minutes, diurnal, 3 LM services on 16 chips),
+    then 9 services on 3 hosts with the placement stage every 3 cycles,
+    the SLO accountant and a metrics dump. The exploration plans (the first
+    xi = 20 cycles, numpy draws projected on the host) must be the CPU's
+    exactly, the dumps must hold the same metric families, every
+    fulfilment must lie in [0, 1], and the card's decides must have gone
+    through the RASK kernels."""
+    import re
+    import tempfile
+
+    from repro_torch.launch import autoscale
+
+    res = {"phase": "autoscale_cli"}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, argv in (("default", []),
+                           ("fleet", ["--hosts", "3", "--replicas", "3",
+                                      "--rebalance-every", "3", "--slo-burn",
+                                      "--dump-metrics", f"{tmp}/{{}}.prom"])):
+            runs = {}
+            for side in ("cuda", "cpu"):
+                _zero_rask_counts()
+                hist, lines, wall = _cli(autoscale.main, [
+                    a.format(side) for a in argv] + ["--device", side])
+                runs[side] = hist
+                solved = sum(not h.explored for h in hist)
+                res[f"{name}_{side}"] = {
+                    "summary": lines, "wall_s": wall, "cycles": len(hist),
+                    "solved": solved,
+                    "post_fulfillment": statistics.mean(
+                        h.fulfillment for h in hist if not h.explored),
+                    "launches": _launch_counts()}
+                check(all(0.0 <= h.fulfillment <= 1.0 for h in hist),
+                      f"autoscale_cli {name} {side}: fulfilment out of "
+                      "[0, 1]")
+            card, cpu = runs["cuda"], runs["cpu"]
+            explored = [(h, c) for h, c in zip(card, cpu) if h.explored]
+            res[f"{name}_explore_identical"] = len(card) == len(cpu) and \
+                [h.explored for h in card] == [c.explored for c in cpu] and \
+                all(_requested(h) == _requested(c) for h, c in explored)
+            launches = res[f"{name}_cuda"]["launches"]
+            solved = res[f"{name}_cuda"]["solved"]
+            check(res[f"{name}_explore_identical"] and len(explored) == 20,
+                  f"autoscale_cli {name}: exploration plans differ")
+            check(launches["rask_objective"] >= solved and
+                  launches["rask_objective_grad"] >= 32 * solved > 0,
+                  f"autoscale_cli {name}: {launches} RASK launches for "
+                  f"{solved} solved decides")
+        fams = [sorted(re.findall(r"^# TYPE (\S+) ",
+                                  Path(f"{tmp}/{side}.prom").read_text(),
+                                  re.M)) for side in ("cuda", "cpu")]
+    res["metric_families"] = len(fams[0])
+    log(json.dumps(res))
+    check(fams[0] == fams[1] and "repro_slo_budget_consumed" in fams[0],
+          "autoscale_cli: the card's metric families differ")
+    return res
+
+
+def phase_fleet_launchers(dev):
+    """``launch/fleet_autoscale.py`` (9 services on 3 hosts of 8 cores, 600
+    s) and ``launch/hetero_fleet.py`` (camera/hub/gateway, 900 s, then a
+    rebalance) on the card: both end, every host inside its budget, their
+    decides through the RASK kernels."""
+    import re
+
+    from repro_torch.launch import fleet_autoscale, hetero_fleet
+
+    res = {"phase": "fleet_launchers"}
+    for name, main in (("fleet_autoscale", fleet_autoscale.main),
+                       ("hetero_fleet", hetero_fleet.main)):
+        _zero_rask_counts()
+        rc, lines, wall = _cli(main, ["--device", "cuda"])
+        launches = _launch_counts()
+        res[name] = {"output": lines, "wall_s": wall, "launches": launches}
+        check(rc == 0, f"{name}: exit {rc}")
+        check(launches["rask_objective"] > 0
+              and launches["rask_objective_grad"] > 0,
+              f"{name}: no RASK launch ({launches})")
+        for used, cap in re.findall(r": ([\d.]+)/([\d.]+) cores", "\n".join(
+                lines)):
+            check(float(used) <= float(cap) + 1e-6,
+                  f"{name}: {used} of {cap} cores")
+        fulfil = [float(x) for x in re.findall(
+            r"post-exploration mean fulfillment: ([\d.]+)", "\n".join(lines))]
+        check(len(fulfil) == 1 and 0.0 <= fulfil[0] <= 1.0,
+              f"{name}: no fulfilment line")
+    log(json.dumps(res))
+    return res
+
+
 # -- the summary ------------------------------------------------------------------
 
 def kernel_entry(rows, kernel, case, launches, source, replaces,
@@ -3735,6 +4061,18 @@ def main(argv=None):
     metrics = phase_metrics(dev, sota_env, sota_agent)
     print(json.dumps(metrics), flush=True)
     del sota_env, sota_agent
+
+    moe_cross = phase_moe_crosscheck(dev)
+    print(json.dumps(moe_cross), flush=True)
+    moe_serve, moe_engine = phase_moe_serve(dev)
+    print(json.dumps(moe_serve), flush=True)
+    moe_trace = phase_moe_trace(moe_engine)
+    print(json.dumps(moe_trace), flush=True)
+    del moe_engine
+    autoscale_cli = phase_autoscale_cli(dev)
+    print(json.dumps(autoscale_cli), flush=True)
+    fleet_launchers = phase_fleet_launchers(dev)
+    print(json.dumps(fleet_launchers), flush=True)
     option_launches = {
         "pipeline": {k: sum(pipeline[m]["launches"][k]
                             for m in ("sync", "pipelined"))
@@ -3745,7 +4083,11 @@ def main(argv=None):
                      for k in ("rask_objective", "rask_objective_grad")},
         "transfer": transfer["launches"], "burn_budget": burn["launches"],
         "backends": backends["launches"],
-        "auto_degree": auto_degree["launches"], "sota": sota["launches"]}
+        "auto_degree": auto_degree["launches"], "sota": sota["launches"],
+        **{f"autoscale_cli_{m}": autoscale_cli[f"{m}_cuda"]["launches"]
+           for m in ("default", "fleet")},
+        **{f"fleet_launchers_{m}": fleet_launchers[m]["launches"]
+           for m in ("fleet_autoscale", "hetero_fleet")}}
 
     kernels = {"kernels": [
         # local layers: 22 of 26
@@ -3778,11 +4120,19 @@ def main(argv=None):
                              "engine_compare": sum(
                                  c["decode_attention"] for c in compare),
                              "serving_loop":
-                                 loop_launches["decode_attention"]},
+                                 loop_launches["decode_attention"],
+                             "moe_serve":
+                                 moe_serve["launches"]["decode_attention"],
+                             "moe_crosscheck": moe_cross["decode_launches"]},
         "flash_attention": {"serve": serve["flash_variant_launches"]["wgmma"],
                             "engine_compare": sum(c["wgmma"]
                                                   for c in compare),
-                            "serving_loop": loop_launches["flash_wgmma"]},
+                            "serving_loop": loop_launches["flash_wgmma"],
+                            "moe_serve":
+                                moe_serve["flash_variant_launches"]["wgmma"]},
+        "flash_attention_fp32": {
+            "crosscheck": cross["flash_launches"]["tf32x3"],
+            "moe_crosscheck": moe_cross["flash_launches"]["tf32x3"]},
         "rask_objective": {"autoscale": auto["launches"]["rask_objective"],
                            "serving_loop": loop_launches["rask_objective"],
                            "fleet_solve": fleet_launches["rask_objective"],
@@ -3797,10 +4147,12 @@ def main(argv=None):
             "failover": failover["launches"]["rask_objective_grad"],
             **{p: v["rask_objective_grad"]
                for p, v in option_launches.items()}}}
-    # and their times at e11's shapes (attention in bf16; the RASK kernels
-    # on the loop's own agent, whose errors count in the entry's worst)
-    e11_cases = {"decode_attention": ("e11_stacked", "e11_dict"),
-                 "flash_attention": ("e11_S13", "e11_S32")}
+    # and their times at e11's shapes and qwen2-moe's (attention in bf16;
+    # the RASK kernels on the loop's own agent, whose errors count in the
+    # entry's worst)
+    e11_cases = {"decode_attention": ("e11_stacked", "e11_dict", "moe"),
+                 "flash_attention": ("e11_S13", "e11_S32", "moe_S128",
+                                     "moe_S512", "moe_S1024")}
     e11_rows = [r for r in rows if r["dtype"] == "bfloat16"] \
         + loop["rask_kernels"]
     for r in loop["rask_kernels"]:
@@ -3820,46 +4172,46 @@ def main(argv=None):
     # the batched cases (one launch a layout bucket): their times beside
     # the per-row loop, and their errors in the entry's worst
     for entry in kernels["kernels"]:
-        rows = [r for r in fleet_kernels["cases"]
-                if r["kernel"] == entry["name"]]
-        if not rows:
+        extra = [r for r in fleet_kernels["cases"]
+                 if r["kernel"] == entry["name"]]
+        if not extra:
             continue
         entry["batched"] = {
             r["case"]: {k: r[k] for k in (
                 "rows", "K", "ctas", "ms", "call_ms", "plain_ms",
                 "per_row_loop_ms", "library_ms", "max_abs_err")}
             | {"bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
-            for r in rows}
+            for r in extra}
         entry["max_abs_err"] = max([entry["max_abs_err"]]
-                                   + [r["max_abs_err"] for r in rows])
+                                   + [r["max_abs_err"] for r in extra])
     # the adaptive budget's shapes (K = 2 and 3; batches at K = 2) on the
     # burn_budget agent's tables: times beside, errors in the worst
     for entry in kernels["kernels"]:
-        rows = [r for r in burn["kernel_cases"]
-                if r["kernel"] == entry["name"]]
-        if not rows:
+        extra = [r for r in burn["kernel_cases"]
+                 if r["kernel"] == entry["name"]]
+        if not extra:
             continue
         entry["adapt_budget"] = {
             r["case"]: {k: r[k] for k in ("K", "ms", "call_ms", "plain_ms",
                                           "library_ms", "max_abs_err")}
             | {"bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
-            for r in rows}
+            for r in extra}
         entry["max_abs_err"] = max([entry["max_abs_err"]]
-                                   + [r["max_abs_err"] for r in rows])
+                                   + [r["max_abs_err"] for r in extra])
     # one candidate (K = 1: an SLSQP evaluation) and the auto-degree tables
     # (T = 84, mixed degrees): times beside, errors in the worst
     for entry in kernels["kernels"]:
-        rows = [r for r in k1["cases"] if r["kernel"] == entry["name"]]
-        if not rows:
+        extra = [r for r in k1["cases"] if r["kernel"] == entry["name"]]
+        if not extra:
             continue
         entry["k1_and_auto_degree"] = {
             r["case"]: {k: r[k] for k in ("K", "terms", "ms", "call_ms",
                                           "plain_ms", "library_ms",
                                           "max_abs_err")}
             | {"bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
-            for r in rows}
+            for r in extra}
         entry["max_abs_err"] = max([entry["max_abs_err"]]
-                                   + [r["max_abs_err"] for r in rows])
+                                   + [r["max_abs_err"] for r in extra])
     print(json.dumps(kernels), flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -3879,6 +4231,9 @@ def main(argv=None):
              "transfer": transfer, "burn_budget": burn,
              "backends": backends, "auto_degree": auto_degree,
              "rask_kernels_k1": k1, "sota": sota, "metrics": metrics,
+             "moe_crosscheck": moe_cross, "moe_serve": moe_serve,
+             "moe_trace": moe_trace, "autoscale_cli": autoscale_cli,
+             "fleet_launchers": fleet_launchers,
              "wall_s": time.perf_counter() - t_start, **kernels},
             indent=1))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")

@@ -4,12 +4,18 @@ seeded synthetic requests (the counterpart of ``repro/launch/serve.py``).
     PYTHONPATH=src python -m repro_torch.launch.serve --full          # card
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu    # plain
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m --full
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --full
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --engine dict
 
 Without ``--full`` the registry config is cut to its ``.smoke()`` size in
 float32, as in the JAX driver; ``--full`` runs it as registered (gemma3-1b:
 26 layers, d_model 1152, vocab 262144, bf16; mamba2-370m: 48 layers,
-d_model 1024, vocab 50280, bf16). Weights are random, drawn
+d_model 1024, vocab 50280, bf16; qwen2-moe-a2.7b: 24 layers, d_model 2048,
+60 experts top-4 and 4 shared, vocab 151936, bf16, 28.6 GB of weights).
+The MoE model's prompts are padded to buckets, as the dense decoder's
+are; a prompt is routed in groups of 512 tokens, so a padded width above
+512 must be a multiple of 512 (a power-of-two bucket is, one clamped to
+an odd ``max_seq`` may not be). Weights are random, drawn
 from a seeded ``torch.Generator`` on the device. The device defaults to
 ``cuda``, and a missing card is an error. ``--engine dict`` selects the
 seed-era per-slot-cache baseline (one batch-1 decode per active slot); the

@@ -10,8 +10,11 @@ Layout differences handled here:
     (vocab, d_model), like the tied embedding.
 
 Every leaf takes ``cfg.dtype`` except the Mamba-2 ``A_log`` and
-``dt_bias``, which stay float32 as ``repro/models/ssm.py`` keeps them. Only
-``"w"`` leaves are transposed (the Mamba-2 ``conv_w`` is (K, C) in both).
+``dt_bias`` and the MoE ``router``, which stay float32 as ``repro`` keeps
+them. Only ``"w"`` leaves are transposed: the Mamba-2 ``conv_w`` is (K, C)
+in both, and an MoE FFN's ``router`` (d, E), ``up``/``gate`` (E, d, f)
+and ``down`` (E, f, d) keep ``repro``'s layout (its ``shared`` expert is
+an MLP of ``"w"`` leaves, transposed like any other).
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ import torch
 from .config import ModelConfig
 from .transformer import Params
 
-FLOAT32_LEAVES = ("A_log", "dt_bias")
+FLOAT32_LEAVES = ("A_log", "dt_bias", "router")
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:

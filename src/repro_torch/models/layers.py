@@ -76,12 +76,13 @@ def activation(x, kind: str):
     return F.silu(x) if kind == "silu" else F.gelu(x, approximate="tanh")
 
 
-def init_mlp(gen: torch.Generator, cfg: ModelConfig,
-             dtype: torch.dtype) -> Params:
-    p = {"up": init_linear(gen, cfg.d_model, cfg.d_ff, dtype),
-         "down": init_linear(gen, cfg.d_ff, cfg.d_model, dtype)}
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
+             d_ff: Optional[int] = None) -> Params:
+    f = d_ff or cfg.d_ff
+    p = {"up": init_linear(gen, cfg.d_model, f, dtype),
+         "down": init_linear(gen, f, cfg.d_model, dtype)}
     if cfg.gated_mlp:
-        p["gate"] = init_linear(gen, cfg.d_model, cfg.d_ff, dtype)
+        p["gate"] = init_linear(gen, cfg.d_model, f, dtype)
     return p
 
 

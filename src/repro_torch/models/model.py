@@ -6,9 +6,9 @@
   decode(params, tokens, cache) -> (logits, cache)
   init_cache(batch, max_seq, device) -> zeroed cache
 
-The port runs the dense decoder program and the ssm program (Mamba-2).
-Every other family raises ``NotImplementedError`` naming the ROADMAP item
-that ports it.
+The port runs the decoder program (dense and MoE) and the ssm program
+(Mamba-2). The hybrid and encoder-decoder families raise
+``NotImplementedError`` naming the ROADMAP item that ports each.
 """
 from __future__ import annotations
 
@@ -23,10 +23,10 @@ from .config import ModelConfig
 Params = Dict[str, Any]
 
 _NOT_PORTED = {
-    "moe": "ROADMAP Queue 1, slice D (MoE: qwen2-moe, dbrx)",
-    "hybrid": "ROADMAP Queue 1, item 13b (hybrid: jamba, after "
-              "models/moe.py)",
-    "encdec": "ROADMAP Queue 1, slice D (encoder-decoder: whisper)",
+    "hybrid": "ROADMAP Queue 1, item 13b (hybrid: jamba, Mamba-2 and "
+              "attention with the MoE FFN)",
+    "encdec": "ROADMAP Queue 1, item 13a (encoder-decoder: whisper, "
+              "cross-attention and mixed_cache)",
 }
 
 
@@ -39,7 +39,7 @@ class Model:
             raise NotImplementedError(
                 f"family {self.cfg.family!r} is not ported yet: "
                 f"{_NOT_PORTED[self.cfg.family]}")
-        if self.cfg.family not in ("dense", "ssm"):
+        if self.cfg.family not in ("dense", "moe", "ssm"):
             raise ValueError(self.cfg.family)
         if self.cfg.mixed_cache or self.cfg.logit_cap:
             raise NotImplementedError(
@@ -53,9 +53,10 @@ class Model:
 
     def prefill(self, params: Params, batch, max_seq: int, length=None):
         """``batch = {"tokens": (B,S)}``; ``length`` supports right-padded
-        prompts on the decoder (it is causal, so padding changes nothing).
-        The ssm program is recurrent and would fold pad tokens into its
-        state, so it rejects ``length``."""
+        prompts on the decoder (attention is causal; an MoE FFN routes the
+        pads with the real tokens, as ``repro``'s does). The ssm program is
+        recurrent and would fold pad tokens into its state, so it rejects
+        ``length``."""
         cfg = self.cfg
         if length is not None and not self.supports_padded_prefill:
             raise ValueError(
@@ -68,7 +69,7 @@ class Model:
 
     @property
     def supports_padded_prefill(self) -> bool:
-        return self.cfg.family == "dense"
+        return self.cfg.family in ("dense", "moe")
 
     def decode(self, params: Params, tokens, cache):
         if self.cfg.family == "ssm":

@@ -1,6 +1,6 @@
-"""The decoder program (dense LMs, including gemma3's local:global
-interleave) and the ssm program (Mamba-2 stacks): the counterparts of
-those programs in ``repro/models/transformer.py``.
+"""The decoder program (dense and MoE LMs, including gemma3's
+local:global interleave) and the ssm program (Mamba-2 stacks): the
+counterparts of those programs in ``repro/models/transformer.py``.
 
 JAX scans one homogeneous layer body over stacked parameters and carries
 each layer's window as a traced scalar. PyTorch runs eagerly, so the port
@@ -12,6 +12,12 @@ The decoder's cache is ``{"k", "v": (L, B, S_max, KH, D), "pos": (B,)
 int64}``: one write cursor per row (JAX keeps a scalar and vmaps rows in
 the engine). The ssm program's cache is ``{"conv": (L, B, K-1, C), "ssm":
 (L, B, h, p, n), "pos": (B,) int64}`` in the model dtype, as in ``repro``.
+
+An MoE decoder's FFN is ``moe.py``'s GShard dispatch; the blocks return
+its load-balancing loss, which forward, prefill and decode sum over the
+layers as ``repro`` does (serving discards it). A prompt is routed in
+groups of 512 tokens; a decode step routes each row as its own group,
+as ``repro``'s engine does by vmapping a batch-1 decode over the slots.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import torch
 from .config import ModelConfig
 from .layers import (attention, init_attention, init_mlp, init_norm, mlp,
                      norm, rope_angles)
+from .moe import init_moe, moe
 from .ssm import init_mamba, mamba_decode, mamba_prefill, mamba_state_shapes
 
 Params = Dict[str, Any]
@@ -43,10 +50,11 @@ def init_decoder(gen: torch.Generator, cfg: ModelConfig) -> Params:
     """Random weights with the JAX package's scales, drawn from ``gen`` on
     ``gen.device`` (the numbers differ from ``jax.random``'s)."""
     dtype, dev = _dtype(cfg), gen.device
+    ffn = init_moe if cfg.family == "moe" else init_mlp
     layers = [{"ln1": init_norm(cfg.d_model, dtype, dev),
                "attn": init_attention(gen, cfg, dtype),
                "ln2": init_norm(cfg.d_model, dtype, dev),
-               "ffn": init_mlp(gen, cfg, dtype)}
+               "ffn": ffn(gen, cfg, dtype)}
               for _ in range(cfg.n_layers)]
     params = {
         "embed": (torch.randn((cfg.vocab, cfg.d_model), generator=gen,
@@ -63,11 +71,19 @@ def init_decoder(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 def _decoder_block(cfg: ModelConfig, lp: Params, x, rot,
                    window: Optional[int], cache_kv=None, cache_pos=None):
-    """One pre-norm block. Returns (x, kv)."""
+    """One pre-norm block. Returns (x, aux, kv); aux is the MoE
+    load-balancing loss (0.0 for a dense FFN)."""
     h, kv = attention(lp["attn"], norm(lp["ln1"], x), cfg, rot=rot,
                       window=window, cache=cache_kv, cache_pos=cache_pos)
     x = x + h
-    return x + mlp(lp["ffn"], norm(lp["ln2"], x), cfg), kv
+    hn = norm(lp["ln2"], x)
+    if cfg.family == "moe":
+        # a decode step (cache given) routes each row as its own group
+        f, aux = moe(lp["ffn"], hn, cfg,
+                     group_size=512 if cache_kv is None else 1)
+    else:
+        f, aux = mlp(lp["ffn"], hn, cfg), 0.0
+    return x + f, aux, kv
 
 
 def _logits(params: Params, x):
@@ -79,23 +95,26 @@ def _logits(params: Params, x):
 def _hidden(params: Params, cfg: ModelConfig, tokens):
     """Embed + every block + final norm over a whole prompt.
 
-    Returns (hidden (B,S,d_model), [(k, v) per layer, each (B,S,KH,D)])."""
+    Returns (hidden (B,S,d_model), aux summed over the layers, [(k, v) per
+    layer, each (B,S,KH,D)])."""
     B, S = tokens.shape
     x = params["embed"][tokens].to(_dtype(cfg))       # no sqrt(d) scaling
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     rot = rope_angles(positions, cfg.d_head, cfg.rope_theta)
-    kvs = []
+    kvs, aux = [], 0.0
     for lp, window in zip(params["layers"], _layer_windows(cfg)):
-        x, kv = _decoder_block(cfg, lp, x, rot, window)
+        x, a, kv = _decoder_block(cfg, lp, x, rot, window)
         kvs.append(kv)
-    return norm(params["final_norm"], x), kvs
+        aux = aux + a
+    return norm(params["final_norm"], x), aux, kvs
 
 
 def decoder_forward(params: Params, cfg: ModelConfig, tokens,
                     want_cache: bool = False):
-    """Teacher-forced forward. tokens: (B,S) -> (logits (B,S,V), kvs)."""
-    x, kvs = _hidden(params, cfg, tokens)
-    return _logits(params, x), (kvs if want_cache else None)
+    """Teacher-forced forward. tokens: (B,S) -> (logits (B,S,V), aux,
+    kvs), as ``repro``'s."""
+    x, aux, kvs = _hidden(params, cfg, tokens)
+    return _logits(params, x), aux, (kvs if want_cache else None)
 
 
 def decoder_init_cache(cfg: ModelConfig, batch: int, max_seq: int,
@@ -113,12 +132,15 @@ def decoder_prefill(params: Params, cfg: ModelConfig, tokens, max_seq: int,
     ``length`` (int or (B,) tensor) marks the true prompt length when
     ``tokens`` is right-padded to a bucket: logits are taken at
     ``length - 1`` and the write cursor starts at ``length``. Causality
-    makes this exact. Only the gathered position goes through the vocab
+    makes this exact for attention. An MoE FFN is not causal: pad tokens
+    route with the real ones and take expert capacity at choices >= 1, so
+    they can push a real token's route out, as in ``repro``, which this
+    reproduces. Only the gathered position goes through the vocab
     projection, which gives the same numbers as projecting every position
     and gathering, without a (S x vocab) logits tensor.
     """
     B, S = tokens.shape
-    x, kvs = _hidden(params, cfg, tokens)
+    x, _, kvs = _hidden(params, cfg, tokens)
     pos = torch.full((B,), S, dtype=torch.long, device=tokens.device) \
         if length is None else \
         torch.as_tensor(length, device=tokens.device).long().expand(B)
@@ -138,11 +160,13 @@ def decoder_decode(params: Params, cfg: ModelConfig, tokens, cache):
     x = params["embed"][tokens].to(_dtype(cfg))
     pos = cache["pos"]
     rot = rope_angles(pos[:, None], cfg.d_head, cfg.rope_theta)
+    aux = 0.0
     for i, (lp, window) in enumerate(zip(params["layers"],
                                          _layer_windows(cfg))):
-        x, _ = _decoder_block(cfg, lp, x, rot, window,
-                              cache_kv=(cache["k"][i], cache["v"][i]),
-                              cache_pos=pos)
+        x, a, _ = _decoder_block(cfg, lp, x, rot, window,
+                                 cache_kv=(cache["k"][i], cache["v"][i]),
+                                 cache_pos=pos)
+        aux = aux + a                              # discarded, as in repro
     x = norm(params["final_norm"], x)
     new_cache = {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
     return _logits(params, x[:, -1]), new_cache

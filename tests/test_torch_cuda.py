@@ -56,6 +56,11 @@ def _tol(dtype):
     (1, 8, 1, 200, 200, 64, True, 0),      # G = 8: 8 heads a CTA
     (2, 2, 1, 17, 17, 64, True, 8),        # S < 64, two batch rows
     (1, 2, 1, 700, 900, 64, False, 0),     # kv range split 3 ways, ragged
+    # qwen2-moe-a2.7b's prefill: 16 heads on 16 kv heads (G = 1), d_head
+    # 128, its 128/512/1024 buckets
+    (1, 16, 16, 128, 128, 128, True, 0),
+    (1, 16, 16, 512, 512, 128, True, 0),
+    (1, 16, 16, 1024, 1024, 128, True, 0),
 ])
 def test_flash_kernel_matches_plain(cuda_device, dtype, B, H, KH, S, T, D,
                                     causal, window):
@@ -99,6 +104,7 @@ def _kernels_a_call(fn, calls=3):
     (1, 8, 1, 200, 200, 64, 0, True, False),      # G = 8
     (2, 2, 1, 17, 17, 64, 8, True, False),        # ragged S = 17
     (1, 2, 1, 700, 900, 64, 0, False, True),      # kv range split 4 ways
+    (1, 16, 16, 512, 512, 128, 0, True, False),   # qwen2-moe: G = 1
 ])
 def test_flash_fp32_kernel_matches_plain(cuda_device, B, H, KH, S, T, D,
                                          window, causal, must_split):
@@ -161,7 +167,9 @@ def test_flash_bf16_refuses_rows_tma_cannot_load(cuda_device):
                                       # D % 16 != 0: bf16 on the CUDA
                                       # cores; 37: rows copied by plain
                                       # loads (not 16-byte multiples)
-                                      (4, 1, 300, 40), (12, 2, 130, 37)])
+                                      (4, 1, 300, 40), (12, 2, 130, 37),
+                                      # qwen2-moe-a2.7b: G = 1, D = 128
+                                      (16, 16, 2048, 128)])
 def test_decode_kernel_matches_plain(cuda_device, dtype, H, KH, S, D):
     B = 4
     g = torch.Generator(cuda_device).manual_seed(S + D)
@@ -187,6 +195,12 @@ def test_decode_kernel_matches_plain(cuda_device, dtype, H, KH, S, D):
     # cluster get none) starting mid-cache, two kv heads of 4 query heads
     (torch.float32, 3, 8, 2, 1100, 128, [300, 1029, 517], [0, 1024, 500]),
     (torch.bfloat16, 3, 8, 2, 1100, 128, [300, 1029, 517], [0, 1024, 500]),
+    # qwen2-moe-a2.7b's decode: 16 heads on 16 kv heads, the serving
+    # phase's 4 rows of a 2048-slot cache
+    (torch.bfloat16, 4, 16, 16, 2048, 128, [108, 308, 708, 1008],
+     [0, 0, 0, 0]),
+    (torch.float32, 4, 16, 16, 2048, 128, [108, 308, 708, 1008],
+     [0, 0, 0, 0]),
 ])
 def test_decode_kernel_ranges(cuda_device, dtype, B, H, KH, S, D, lengths,
                               starts):
@@ -1212,3 +1226,64 @@ def test_new_entry_points_raise_without_cuda(monkeypatch):
                   RaskConfig(backend="slsqp"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         compare_solvers.main(["--seconds", "10"])
+
+
+@pytest.mark.cuda
+def test_moe_decoder_on_the_card_matches_the_cpu(cuda_device):
+    """qwen2-moe-a2.7b's smoke cut in float32, one set of weights: a
+    right-padded prefill (64 tokens, one group, routes dropped at cap 40)
+    and 4 decode steps, logits within 1e-4 (the bar of
+    ``tests/test_torch_model.py``) and the same kept routes, bit for bit."""
+    from repro_torch.configs import get
+    from repro_torch.models import build
+    from repro_torch.models.moe import recording_routes
+    cfg = get("qwen2-moe-a2.7b").smoke()
+    model = build(cfg)
+    params = model.init(torch.Generator("cpu").manual_seed(3))
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, dev) for v in tree]
+        return tree.to(dev)
+    toks = torch.from_numpy(
+        np.random.default_rng(1).integers(0, cfg.vocab, (2, 64)))
+    toks[:, 45:] = 0
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        p = to(params, dev)
+        with recording_routes() as routes:
+            logits, cache = model.prefill(p, {"tokens": toks.to(dev)},
+                                          max_seq=96, length=45)
+            steps = [logits]
+            for _ in range(4):
+                nxt = torch.argmax(steps[-1], -1)[:, None]
+                logits, cache = model.decode(p, nxt, cache)
+                steps.append(logits)
+        out.append(([s.cpu() for s in steps],
+                    [(i.cpu(), k.cpu()) for i, k in routes]))
+    (card, card_routes), (cpu, cpu_routes) = out
+    for a, b in zip(card, cpu):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    assert len(card_routes) == len(cpu_routes) == 5 * cfg.n_layers
+    for (i, k), (ci, ck) in zip(card_routes, cpu_routes):
+        assert torch.equal(i, ci) and torch.equal(k, ck)
+    assert sum(int((~k).sum()) for _, k in cpu_routes) > 0
+
+
+@pytest.mark.cuda
+def test_autoscale_cli_on_the_card_explores_as_the_cpu(cuda_device):
+    """The control plane's CLI deciding on the card: its exploration plans
+    (numpy draws) are the CPU run's, and every fulfilment lies in [0, 1]."""
+    from repro_torch.launch import autoscale
+    runs = [autoscale.main(["--minutes", "4", "--device", dev])
+            for dev in ("cuda", "cpu")]
+    for h, c in zip(*runs):
+        assert h.explored == c.explored
+        if h.explored:
+            assert sorted((o.sid, o.param, o.requested)
+                          for o in h.receipt.outcomes) == \
+                sorted((o.sid, o.param, o.requested)
+                       for o in c.receipt.outcomes)
+        assert 0.0 <= h.fulfillment <= 1.0

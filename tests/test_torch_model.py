@@ -137,7 +137,9 @@ def test_forward_logits_match_reference(pair):
     toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, 24))
     want, _, _ = jax_transformer.decoder_forward(jparams, jmodel.cfg,
                                                  jnp.asarray(toks, jnp.int32))
-    got, _ = transformer.decoder_forward(params, cfg, torch.from_numpy(toks))
+    got, aux, _ = transformer.decoder_forward(params, cfg,
+                                              torch.from_numpy(toks))
+    assert aux == 0.0                        # a dense FFN has no aux loss
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
@@ -173,13 +175,18 @@ def test_prefill_and_decode_match_reference(pair, S, pad_to):
 
 
 def test_other_families_name_their_roadmap_item():
+    """MoE builds (and takes padded prompts, as in ``repro``); the
+    encoder-decoder (whisper) names its ROADMAP item; an unknown arch
+    names the known ones."""
     cfg = ModelConfig(name="tiny-moe", family="moe", n_layers=2, d_model=8,
                       n_heads=2, n_kv_heads=1, d_head=4, d_ff=8, vocab=16,
                       n_experts=2, top_k=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(cfg)
+    assert build(cfg).supports_padded_prefill
+    assert build(get("qwen3-32b")).cfg.family == "dense"
+    with pytest.raises(NotImplementedError, match="ROADMAP.*13a.*whisper"):
+        build(get("whisper-large-v3"))
     with pytest.raises(KeyError, match="gemma3-1b"):
-        get("qwen3-32b")
+        get("gemma4-1b")
 
 
 def test_init_is_seeded_and_on_the_generator_device():
@@ -193,10 +200,13 @@ def test_init_is_seeded_and_on_the_generator_device():
 
 
 def test_ssm_family_builds_and_hybrid_names_its_roadmap_item():
-    """The port runs the dense and ssm programs; the hybrid (jamba) waits
-    for the MoE FFN and names its ROADMAP item."""
+    """The port runs the dense, MoE and ssm programs; the hybrid (jamba)
+    names its ROADMAP item. The registry holds ``repro``'s ten configs."""
+    from repro.configs import ARCHS as JAX_ARCHS
     from repro_torch.configs import ARCHS
-    assert sorted(ARCHS) == ["gemma3-1b", "mamba2-370m"]
+    assert list(ARCHS) == list(JAX_ARCHS) and len(ARCHS) == 10
+    with pytest.raises(NotImplementedError, match="ROADMAP.*13b.*jamba"):
+        build(get("jamba-1.5-large-398b"))
     assert build(get("mamba2-370m")).cfg.family == "ssm"
     assert build(get("gemma3-1b")).supports_padded_prefill
     assert not build(get("mamba2-370m")).supports_padded_prefill
@@ -204,5 +214,5 @@ def test_ssm_family_builds_and_hybrid_names_its_roadmap_item():
                       d_model=8, n_heads=2, n_kv_heads=1, d_head=4, d_ff=8,
                       vocab=16, ssm_state=4, attn_period=2, n_experts=2,
                       top_k=1, moe_every=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*hybrid"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*13b.*hybrid"):
         build(cfg)
