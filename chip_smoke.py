@@ -367,6 +367,54 @@ Phase "fleet_launchers" runs ``launch.fleet_autoscale`` and
 ``launch.hetero_fleet`` on the card: both end with every host inside its
 budget, a fulfilment line and RASK launches.
 
+The last two model families (models/transformer.py's encoder-decoder,
+mixed cache and hybrid programs) add, after the phases above have freed
+their models:
+
+Phase 1 also holds the kernels at the new shapes: decode for whisper's
+decoder (20 heads on 20 kv heads, d_head 64: self-attention at 68 of 448
+slots, cross-attention over 1,500 frames), gemma3-1b's full 512-slot
+ring and jamba's attention (64 heads on 8 kv heads, d_head 128); flash
+for whisper's encoder (1,500 frames, not causal), the prompt's
+cross-attention (4 queries over 1,500 frames, not causal) and its causal
+4-token self-attention, and jamba's 300- and 1000-token prompts; phase
+"ssd_kernels" the scan at jamba's 256 heads of 64 (l = 384, 1024).
+
+Phase "encdec_crosscheck" runs whisper-large-v3 at full width cut to 2
+encoder and 2 decoder layers, float32: one clip of 1,500 frames, a
+4-token prompt and 4 decode steps on the card against the CPU (logits
+and cross K/V within 1e-3, argmax equal), with the float32 flash and
+decode launches a layer. Phase "encdec_serve" is whisper-large-v3 at
+full width in bf16 (1.54 B parameters) through ``Model.prefill`` and
+``Model.decode`` (the engine takes no frames): 4 clips of 1,500 seeded
+frames, a 4-token prompt, 64 greedy decode steps; launch counts checked
+(flash once an encoder layer and twice a decoder layer, decode twice a
+decoder layer a step), no plain version on the card; encode ms, prefill
+ms, decode-step ms, decode tokens/s and peak memory. Phase
+"encdec_trace" profiles 3 decode steps and one prefill beside a step's
+byte bound.
+
+Phase "mixed_cache" runs gemma3-1b at full width in float32 with
+``mixed_cache=True``: 2 rows decode 528 steps (the 512-slot rings wrap)
+from token 0, in lockstep with the full-cache decode fed the same seeded
+tokens; the largest logit gap (bar 1e-3), both paths' step ms, the two
+caches' bytes and the decode launches (one a layer a step on each path).
+
+Phase "hybrid_crosscheck" runs jamba's one period at a narrower width
+that keeps its attention and SSD shapes (d_model 1024, 64 heads on 8 kv
+heads, d_head 128, SSD state 128, heads of 64, chunk 128, 4 experts),
+float32: a 300-token prompt and 4 decode steps on the card against the
+CPU (logits within 1e-3, the kept routes bit for bit). Phase
+"hybrid_serve" serves jamba-1.5-large-398b at full width in bf16, cut to
+one period (8 sublayers) and 8 of its 16 experts (25.8 B parameters,
+51.6 GB), behind phase "serve"'s engine and requests at their exact
+lengths: launch counts (decode once an attention sublayer a step, flash
+once a prompt, the SSD scan once a Mamba-2 sublayer a prompt), no plain
+version on the card, prefill ms by length, the routes dropped at
+capacity, peak memory. Phase "hybrid_trace" is ``phase_trace`` on that
+engine beside a decode step's byte bound (every weight but the
+embedding table, the K/V read, the Mamba-2 states read and written).
+
 Prints the card's name and power limit, one JSON line per phase, a
 ``{"kernels": [...]}`` line (one entry a kernel, the float32 flash kernel
 its own), and as the last line
@@ -493,9 +541,14 @@ def decode_cases(dev, dtype):
     heads on 1 kv head, d_head 256, a 2048-slot cache, per-row lengths of
     the phase-3 prompts, global rows (start 0) and local rows (512 window),
     plus edge rows (length 1, a full cache, an idle lane past the cache);
-    e11's loop: a 64-slot cache of 4 rows and of 1 row; and qwen2-moe's
+    e11's loop: a 64-slot cache of 4 rows and of 1 row; qwen2-moe's
     decode ("moe"): 16 query heads on 16 kv heads (G = 1), d_head 128,
-    the same rows of a 2048-slot cache, no window."""
+    the same rows of a 2048-slot cache, no window; whisper-large-v3's
+    decoder, 20 heads on 20 kv heads, d_head 64, 4 clips: self-attention
+    at its last step (68 of 448 slots) and cross-attention over all 1,500
+    encoder frames; gemma3-1b's mixed cache, 2 rows of a full 512-slot
+    local ring; and jamba's attention layer, 64 heads on 8 kv heads
+    (G = 8), d_head 128, the serving rows of a 2048-slot cache."""
     H, KH, D, S = 4, 1, 256, 2048
     lengths = [108, 308, 708, 1008]
     cases = {
@@ -506,6 +559,10 @@ def decode_cases(dev, dtype):
         "e11_stacked": ([20, 33, 47, 64], [0] * 4, 64, H, KH, D),
         "e11_dict": ([33], [0], 64, H, KH, D),
         "moe": (lengths, [0] * 4, S, 16, 16, 128),
+        "whisper_self": ([68] * 4, [0] * 4, 448, 20, 20, 64),
+        "whisper_cross": ([1500] * 4, [0] * 4, 1500, 20, 20, 64),
+        "mixed_ring": ([512] * 2, [0] * 2, 512, H, KH, D),
+        "jamba": (lengths, [0] * 4, S, 64, 8, 128),
     }
     g = torch.Generator(dev).manual_seed(11)
     out = []
@@ -526,9 +583,14 @@ def flash_cases(dev, dtype):
     (window 512) and global (no window); then two edges the bf16 kernel
     packs differently: 8 query heads on 1 kv head (8 heads of 8 positions
     a CTA) and two rows of a 17-token prompt (S < 64); e11's
-    prompts (13 and 32 tokens); and qwen2-moe's buckets 128, 512 and 1024
+    prompts (13 and 32 tokens); qwen2-moe's buckets 128, 512 and 1024
     ("moe_S*"): 16 query heads on 16 kv heads (G = 1), d_head 128, no
-    window."""
+    window; whisper-large-v3's 4 clips, 20 heads on 20 kv heads, d_head
+    64: the encoder (1,500 frames, not causal), the prompt's
+    cross-attention (4 queries over 1,500 frames, not causal) and its
+    self-attention (4 tokens, causal); and jamba's exact-length prompts of
+    300 and 1000 tokens, 64 heads on 8 kv heads (G = 8), d_head 128. Each
+    case is (name, q, k, v, window, causal)."""
     g = torch.Generator(dev).manual_seed(12)
 
     def randn(*shape):
@@ -537,19 +599,28 @@ def flash_cases(dev, dtype):
     for S in (128, 512, 1024):
         for window in (512, 0):
             out.append((f"S{S}_w{window}", randn(1, 4, S, 256),
-                        randn(1, 1, S, 256), randn(1, 1, S, 256), window))
+                        randn(1, 1, S, 256), randn(1, 1, S, 256), window,
+                        True))
     out.append(("G8_S200_w0", randn(1, 8, 200, 64), randn(1, 1, 200, 64),
-                randn(1, 1, 200, 64), 0))
+                randn(1, 1, 200, 64), 0, True))
     out.append(("B2_S17_w8", randn(2, 2, 17, 64), randn(2, 1, 17, 64),
-                randn(2, 1, 17, 64), 8))
+                randn(2, 1, 17, 64), 8, True))
     # e11's loop: a 13-token prompt at its exact length (dict engine) and
     # the 32-token bucket (stacked engine); window 512 exceeds max_seq 64
     for S in (13, 32):
         out.append((f"e11_S{S}", randn(1, 4, S, 256), randn(1, 1, S, 256),
-                    randn(1, 1, S, 256), 512))
+                    randn(1, 1, S, 256), 512, True))
     for S in (128, 512, 1024):
         out.append((f"moe_S{S}", randn(1, 16, S, 128), randn(1, 16, S, 128),
-                    randn(1, 16, S, 128), 0))
+                    randn(1, 16, S, 128), 0, True))
+    for name, S, T, causal in (("whisper_enc", 1500, 1500, False),
+                               ("whisper_xattn", 4, 1500, False),
+                               ("whisper_prompt", 4, 4, True)):
+        out.append((name, randn(4, 20, S, 64), randn(4, 20, T, 64),
+                    randn(4, 20, T, 64), 0, causal))
+    for S in (300, 1000):
+        out.append((f"jamba_S{S}", randn(1, 64, S, 128), randn(1, 8, S, 128),
+                    randn(1, 8, S, 128), 0, True))
     return out
 
 
@@ -606,23 +677,29 @@ def phase_kernels(dev):
                 (lambda c=c: ref.decode_attention_reference(
                     c[0], c[1], c[2], length, start)) for c in copies], 20)
 
+            # SDPA's inputs: kv heads repeated to the query heads (G = H/KH),
+            # made before the clock starts
+            lib_in = [(c[0][:, :, None],
+                       c[1].transpose(1, 2).repeat_interleave(H // KH, 1),
+                       c[2].transpose(1, 2).repeat_interleave(H // KH, 1))
+                      for c in copies]
+
             def sdpa(c):
-                kk = c[1].transpose(1, 2).expand(B, H, S, D)
-                vv = c[2].transpose(1, 2).expand(B, H, S, D)
                 return F.scaled_dot_product_attention(
-                    c[0][:, :, None], kk, vv, attn_mask=mask)[:, :, 0]
-            lib = sdpa(copies[0])
+                    *c, attn_mask=mask)[:, :, 0]
+            lib = sdpa(lib_in[0])
             torch.cuda.synchronize()
             row["library_err"] = (lib.float() - want.float())[live].abs() \
                 .max().item()
             row["library_ms"], row["library_call_ms"] = time_ms(
-                [(lambda c=c: sdpa(c)) for c in copies], 20)
+                [(lambda c=c: sdpa(c)) for c in lib_in], 20)
+            del copies, lib_in
             rows.append(row)
             log(f"decode {name} {dname}: {row}")
 
-        for name, q, k, v, window in flash_cases(dev, dtype):
-            got = flash_attention_cuda(q, k, v, causal=True, window=window)
-            want = ref.flash_attention_reference(q, k, v, causal=True,
+        for name, q, k, v, window, causal in flash_cases(dev, dtype):
+            got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+            want = ref.flash_attention_reference(q, k, v, causal=causal,
                                                  window=window)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
@@ -631,7 +708,8 @@ def phase_kernels(dev):
             T = k.shape[2]
             qpos = torch.arange(S, device=dev)[:, None] + (T - S)
             kpos = torch.arange(T, device=dev)[None, :]
-            open_ = qpos >= kpos
+            open_ = qpos >= kpos if causal else \
+                torch.ones((S, T), dtype=torch.bool, device=dev)
             if window:
                 open_ &= qpos - kpos < window
             pairs = int(open_.sum())
@@ -640,11 +718,11 @@ def phase_kernels(dev):
             flops = 4 * B * H * D * pairs
             row = {"kernel": "flash_attention", "case": name, "dtype": dname,
                    "variant": "wgmma" if dtype == torch.bfloat16
-                   else "tf32x3", "max_abs_err": err,
+                   else "tf32x3", "causal": causal, "max_abs_err": err,
                    "bound": bound_ms(nbytes, flops, dname)}
 
             def call():
-                return flash_attention_cuda(q, k, v, causal=True,
+                return flash_attention_cuda(q, k, v, causal=causal,
                                             window=window)
             row["ms"], row["call_ms"] = time_ms([call], 20)
             if dtype == torch.float32:
@@ -654,7 +732,7 @@ def phase_kernels(dev):
                 row["bound_tf32x3"] = [1e3 * max(t_bytes, t_ops),
                                        "bytes" if t_bytes >= t_ops
                                        else "operations"]
-                row["kv_splits"] = kv_splits(q, k, causal=True,
+                row["kv_splits"] = kv_splits(q, k, causal=causal,
                                              window=window)
                 row["kernels_per_call"], row["kernel_names"] = \
                     kernels_per_call(call)
@@ -665,16 +743,21 @@ def phase_kernels(dev):
                       f"{want_kernels}")
             row["plain_ms"], row["plain_call_ms"] = time_ms([
                 lambda: ref.flash_attention_reference(
-                    q, k, v, causal=True, window=window)], 10)
-            kk, vv = k.expand(B, H, T, D), v.expand(B, H, T, D)  # KH 1 or H
-            if window:
+                    q, k, v, causal=causal, window=window)], 10)
+            KH = k.shape[1]
+            if KH in (1, H):
+                kk, vv = k.expand(B, H, T, D), v.expand(B, H, T, D)
+            else:                 # G = H/KH heads a kv head, repeated
+                kk = k.repeat_interleave(H // KH, 1)
+                vv = v.repeat_interleave(H // KH, 1)
+            if window or (causal and S != T):
                 def sdpa():
                     return F.scaled_dot_product_attention(q, kk, vv,
                                                           attn_mask=open_)
             else:
                 def sdpa():
                     return F.scaled_dot_product_attention(q, kk, vv,
-                                                          is_causal=True)
+                                                          is_causal=causal)
             lib = sdpa()
             torch.cuda.synchronize()
             row["library_err"] = (lib.float() - want.float()).abs().max() \
@@ -1358,22 +1441,26 @@ def ssd_cases(dev, dtype):
     """The scan's inputs at the slice's shapes (32 heads of 64, state 128,
     chunk 128), with test_ssd_sweep's distributions: the prompt lengths of
     phase "ssm_serve" rounded up to the chunk, and b = 2 with a non-zero
-    initial state (two and six chunks)."""
+    initial state (two and six chunks); then jamba's Mamba-2 sublayers,
+    256 heads of 64 ("h256"), at its 300- and 1000-token prompts (l = 384
+    and 1024)."""
     g = torch.Generator(dev).manual_seed(13)
 
     def randn(*shape):
         return torch.randn(shape, generator=g, device=dev)
     out = []
-    for b, l, with_state in ((1, 128, False), (1, 384, False),
-                             (1, 1024, False), (2, 256, True),
-                             (2, 768, True)):
-        h, p, n = 32, 64, 128
+    for b, l, with_state, h in ((1, 128, False, 32), (1, 384, False, 32),
+                                (1, 1024, False, 32), (2, 256, True, 32),
+                                (2, 768, True, 32), (1, 384, False, 256),
+                                (1, 1024, False, 256)):
+        p, n = 64, 128
         args = [randn(b, l, h, p) * 0.5,
                 torch.nn.functional.softplus(randn(b, l, h)),
                 -torch.exp(randn(h) * 0.3),
                 randn(b, l, n) * 0.5, randn(b, l, n) * 0.5]
         init = randn(b, h, p, n) * 0.5 if with_state else None
-        name = f"b{b}_l{l}" + ("_init" if with_state else "")
+        name = ("h256_" if h == 256 else "") + f"b{b}_l{l}" \
+            + ("_init" if with_state else "")
         out.append((name, [t.to(dtype) for t in args],
                     None if init is None else init.to(dtype)))
     return out
@@ -3682,25 +3769,39 @@ def phase_moe_serve(dev):
     "serve"'s engine and requests; the routes dropped at capacity by
     bucket. Earlier phases' models are gone: the memory left resident is
     reported, and the peak is this phase's own."""
+    resident = _free_card()
+    res, engine = phase_serve(dev, MOE_ARCH, "moe_serve", RouteCounts)
+    res.update({"resident_gb_before": resident,
+                "routes_dropped": _route_drops(engine.model,
+                                               engine.model.cfg.n_layers)})
+    log(json.dumps(res))
+    return res, engine
+
+
+def _free_card():
+    """Collect the earlier phases' tensors and start this phase's peak;
+    returns the GB still allocated."""
     import gc
     gc.collect()
     torch.cuda.empty_cache()
     resident = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
-    res, engine = phase_serve(dev, MOE_ARCH, "moe_serve", RouteCounts)
-    cfg, k = engine.model.cfg, engine.model.cfg.top_k
-    drops = {}
-    for width, (prompts, tokens, real, pad) in sorted(
-            engine.model.drops.items()):
+    return resident
+
+
+def _route_drops(model, moe_layers):
+    """A ``RouteCounts`` model's drops by prompt width, over its
+    ``moe_layers`` MoE layers."""
+    k, drops = model.cfg.top_k, {}
+    for width, (prompts, tokens, real, pad) in sorted(model.drops.items()):
         real = real.tolist()
+        routes = tokens * k * moe_layers
         drops[str(width)] = {
-            "prompts": prompts, "real_routes": tokens * k * cfg.n_layers,
+            "prompts": prompts, "real_routes": routes,
             "real_routes_dropped": sum(real), "real_dropped_by_choice": real,
             "pad_routes_dropped": int(pad),
-            "real_dropped_share": sum(real) / (tokens * k * cfg.n_layers)}
-    res.update({"resident_gb_before": resident, "routes_dropped": drops})
-    log(json.dumps(res))
-    return res, engine
+            "real_dropped_share": sum(real) / routes}
+    return drops
 
 
 def phase_moe_trace(engine):
@@ -3917,6 +4018,517 @@ def phase_fleet_launchers(dev):
     return res
 
 
+# -- whisper-large-v3, gemma3-1b's mixed cache and jamba ----------------------
+
+WHISPER_ARCH = "whisper-large-v3"
+WHISPER_CLIPS, WHISPER_FRAMES, WHISPER_PROMPT = 4, 1500, 4
+WHISPER_STEPS = 64               # decode steps after the prompt
+JAMBA_ARCH = "jamba-1.5-large-398b"
+
+
+def _attention_launches():
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    return {"decode_attention": decode_attention_cuda.launches,
+            **{f"flash_{v}": n for v, n in
+               flash_attention_cuda.variant_launches.items()}}
+
+
+def _zero_attention_launches():
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import reset_launches
+    decode_attention_cuda.launches = 0
+    reset_launches()
+
+
+def _nbytes(tree):
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def _whisper_inputs(cfg, dev, clips, seed):
+    """``clips`` clips of 1,500 seeded frame embeddings (30 s of audio after
+    the stub frontend) and a seeded prompt of 4 tokens, on ``dev``."""
+    g = torch.Generator(dev).manual_seed(seed)
+    frames = torch.randn((clips, WHISPER_FRAMES, cfg.d_model), generator=g,
+                         device=dev).to(getattr(torch, cfg.dtype))
+    tokens = torch.randint(0, cfg.vocab, (clips, WHISPER_PROMPT),
+                           generator=g, device=dev)
+    return {"frames": frames, "tokens": tokens}
+
+
+def phase_encdec_crosscheck(dev):
+    """whisper-large-v3 at full width (d_model 1280, 20 heads on 20 kv
+    heads, d_head 64, vocab 51866) cut to 2 encoder and 2 decoder layers,
+    float32: one clip of 1,500 frames, a 4-token prompt and 4 decode steps
+    on the card against the same weights on the CPU. The prefill must
+    launch the float32 flash kernel once an encoder layer (not causal) and
+    twice a decoder layer (the causal prompt and its cross-attention), a
+    decode step the decode kernel twice a decoder layer (self and cross)."""
+    from repro_torch.configs import get
+    from repro_torch.models import build
+
+    tol = 1e-3                      # phase "crosscheck"'s bar, same reason
+    cfg = dataclasses.replace(get(WHISPER_ARCH), n_layers=2,
+                              encoder_layers=2, dtype="float32")
+    model = build(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(2))
+    cpu_params = _to_cpu(params)
+    batch = _whisper_inputs(cfg, dev, 1, seed=5)
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    _zero_attention_launches()
+    gl, gc_ = model.prefill(params, batch, max_seq=WHISPER_FRAMES)
+    prefill_launches = _attention_launches()
+    cl, cc = model.prefill(cpu_params, cpu_batch, max_seq=WHISPER_FRAMES)
+    errs = [(gl.cpu() - cl).abs().max().item()]
+    cross_err = max((gc_[k].cpu() - cc[k]).abs().max().item()
+                    for k in ("cross_k", "cross_v"))
+    same = [int(gl.argmax()) == int(cl.argmax())]
+    for _ in range(4):
+        nxt = cl.argmax(-1)[:, None]
+        gl, gc_ = model.decode(params, nxt.to(dev), gc_)
+        cl, cc = model.decode(cpu_params, nxt, cc)
+        errs.append((gl.cpu() - cl).abs().max().item())
+        same.append(int(gl.argmax()) == int(cl.argmax()))
+    launches = _attention_launches()
+    res = {"phase": "encdec_crosscheck", "encoder_layers": 2,
+           "decoder_layers": 2, "frames": WHISPER_FRAMES,
+           "prompt": WHISPER_PROMPT, "decode_steps": 4,
+           "max_abs_err": max(errs), "per_step_err": errs,
+           "cross_kv_err": cross_err, "tolerance": tol,
+           "argmax_agree": all(same), "prefill_launches": prefill_launches,
+           "flash_launches": {"wgmma": launches["flash_wgmma"],
+                              "tf32x3": launches["flash_tf32x3"]},
+           "decode_launches": launches["decode_attention"]}
+    log(json.dumps(res))
+    check(prefill_launches == {"decode_attention": 0, "flash_wgmma": 0,
+                               "flash_tf32x3": cfg.encoder_layers
+                               + 2 * cfg.n_layers},
+          f"encdec cross-check: prefill launches {prefill_launches}")
+    check(launches["decode_attention"] == 4 * 2 * cfg.n_layers,
+          f"encdec cross-check: {launches['decode_attention']} decode "
+          "launches")
+    check(max(errs + [cross_err]) <= tol,
+          f"encdec cross-check: logits differ by {max(errs)}, cross K/V by "
+          f"{cross_err}")
+    check(all(same), "encdec cross-check: argmax tokens differ")
+    return res
+
+
+def phase_encdec_serve(dev):
+    """whisper-large-v3 at full width in bf16 (32 encoder and 32 decoder
+    layers, 1.54 B parameters), weights from the card's seeded generator:
+    ``Model.prefill`` of 4 clips of 1,500 seeded frames and a 4-token
+    prompt, then 64 greedy decode steps through ``Model.decode`` (the
+    serving engine takes no frames), each ending in its tokens' copy to
+    the host. Launch counters are zeroed just before and read just after:
+    flash once an encoder layer and twice a decoder layer (all wgmma), the
+    decode kernel twice a decoder layer a step, no plain version on the
+    card. Then encode ms and prefill ms (medians of 3) apart."""
+    from repro_torch.configs import get
+    from repro_torch.models import build
+    from repro_torch.models import transformer as T
+
+    resident = _free_card()
+    cfg = get(WHISPER_ARCH)                 # full width, bf16
+    model = FiniteLogits(build(cfg))
+    params = model.model.init(torch.Generator(dev).manual_seed(0))
+    n_params = sum(p.numel() for p in _leaves(params))
+    batch = _whisper_inputs(cfg, dev, WHISPER_CLIPS, seed=1)
+    torch.cuda.synchronize()
+
+    with PlainOnCard() as plain:
+        _zero_attention_launches()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, batch, max_seq=WHISPER_FRAMES)
+        nxt = logits.argmax(-1)
+        tokens = [nxt.cpu()]
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        step_ms = []
+        for _ in range(WHISPER_STEPS):
+            t = time.perf_counter()
+            logits, cache = model.decode(params, nxt[:, None], cache)
+            nxt = logits.argmax(-1)
+            tokens.append(nxt.cpu())         # the step's one host sync
+            step_ms.append(1e3 * (time.perf_counter() - t))
+        launches = _attention_launches()
+    generated = torch.stack(tokens, dim=1)
+    check(generated.shape == (WHISPER_CLIPS, WHISPER_STEPS + 1),
+          f"whisper: tokens {tuple(generated.shape)}")
+    check(bool(((generated >= 0) & (generated < cfg.vocab)).all()),
+          "whisper: token out of vocab")
+    check(bool(model.flag), "whisper: non-finite logits")
+    want = {"decode_attention": 2 * cfg.n_layers * WHISPER_STEPS,
+            "flash_wgmma": cfg.encoder_layers + 2 * cfg.n_layers,
+            "flash_tf32x3": 0}
+    check(launches == want, f"whisper launches {launches}, want {want}")
+    check(not any(plain.calls.values()),
+          f"plain versions ran on the card: {plain.calls}")
+    check(cache["cross_k"].shape[2] == WHISPER_FRAMES
+          and int(cache["pos"][0]) == WHISPER_PROMPT + WHISPER_STEPS,
+          "whisper: cache sizes")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    def median_ms(fn, n=3):
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t))
+        return statistics.median(times)
+    encode_ms = median_ms(lambda: T.encdec_encode(params, cfg,
+                                                  batch["frames"]))
+    prefill_ms = median_ms(lambda: model.model.prefill(
+        params, batch, max_seq=WHISPER_FRAMES))
+    res = {"phase": "encdec_serve", "model": cfg.name, "params": n_params,
+           "dtype": cfg.dtype, "clips": WHISPER_CLIPS,
+           "frames": WHISPER_FRAMES, "prompt": WHISPER_PROMPT,
+           "decode_steps": WHISPER_STEPS,
+           "first_token_ms": first_ms, "encode_ms": encode_ms,
+           "prefill_ms": prefill_ms,
+           "decode_step_ms_median": statistics.median(step_ms),
+           "decode_step_ms_min": min(step_ms),
+           "decode_tokens_per_s": WHISPER_CLIPS * WHISPER_STEPS
+           / (1e-3 * sum(step_ms)),
+           "cross_kv_gb": _nbytes([cache["cross_k"], cache["cross_v"]]) / 1e9,
+           "launches": launches, "plain_calls_on_card": plain.calls,
+           "resident_gb_before": resident, "peak_mem_gb": peak,
+           "tokens_row0": generated[0].tolist()}
+    log(json.dumps(res))
+    return res, (model.model, params, batch, cache)
+
+
+def phase_encdec_trace(model, params, batch, cache):
+    """``profile_window`` over 3 decode steps of phase "encdec_serve"'s
+    clips and over one prefill (4 clips: encode and prompt), beside the
+    byte bound of a decode step: every decoder layer's weights, the tied
+    embedding (the vocab projection), both cross caches and the self K/V
+    slots read, over 3.35 TB/s."""
+    cfg = model.cfg
+    state = {"cache": cache}
+    tok = batch["tokens"][:, :1]
+
+    def step():
+        logits, state["cache"] = model.decode(params, tok, state["cache"])
+        return logits.argmax(-1).cpu()
+    res = {"phase": "encdec_trace",
+           "decode_step": profile_window("decode_step", step, 3),
+           "prefill": profile_window("prefill", lambda: model.prefill(
+               params, batch, max_seq=WHISPER_FRAMES), 1)}
+    c = state["cache"]
+    live = int(c["pos"].sum())
+    parts = {"decoder_layers": _nbytes(params["dec_layers"]),
+             "embed_as_head": _nbytes(params["embed"]),
+             "cross_kv": _nbytes([c["cross_k"], c["cross_v"]]),
+             "self_kv_read": live * cfg.n_layers * 2 * cfg.n_kv_heads
+             * cfg.d_head * c["k"].element_size()}
+    step_bytes = sum(parts.values())
+    busy = res["decode_step"]["device_busy_ms"]
+    res.update({"step_bytes": parts, "step_bytes_total": step_bytes,
+                "step_bound_ms": 1e3 * step_bytes / HBM_BYTES_PER_S,
+                "busy_over_bound": busy / (1e3 * step_bytes
+                                           / HBM_BYTES_PER_S)})
+    log(json.dumps(res))
+    return res
+
+
+MIXED_ROWS, MIXED_MAX_SEQ = 2, 2048
+
+
+def phase_mixed_cache(dev):
+    """gemma3-1b at full width with ``mixed_cache=True``, float32: 2 rows
+    decode W + 16 = 528 steps from token 0 (as in ``repro``, a mixed cache
+    has no prefill), so each local layer's 512-slot ring wraps; in
+    lockstep, the full-cache decode fed the same seeded tokens. Launch
+    counters are zeroed just before and read just after: the decode kernel
+    once a layer a step on each path. Reports the largest logit gap (bar
+    1e-3: float32 on both paths; the ring hands the kernel the window's
+    slots in another order, which moves only the summation order), step
+    ms on each path, and the cache bytes of each at max_seq 2048."""
+    import numpy as np
+
+    from repro_torch.configs import get
+    from repro_torch.models import build
+
+    tol = 1e-3
+    resident = _free_card()
+    cfg = dataclasses.replace(get("gemma3-1b"), mixed_cache=True,
+                              dtype="float32")
+    mixed, full = build(cfg), build(dataclasses.replace(cfg,
+                                                        mixed_cache=False))
+    params = mixed.init(torch.Generator(dev).manual_seed(0))
+    steps = cfg.window + 16
+    toks = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab, (steps, MIXED_ROWS, 1))).to(dev)
+    mc = mixed.init_cache(MIXED_ROWS, MIXED_MAX_SEQ, dev)
+    fc = full.init_cache(MIXED_ROWS, MIXED_MAX_SEQ, dev)
+    cache_bytes = {"mixed": _nbytes(mc), "full": _nbytes(fc)}
+    torch.cuda.synchronize()
+    gaps, ms = [], {"mixed": [], "full": []}
+    with PlainOnCard() as plain:
+        _zero_attention_launches()
+        for i in range(steps):
+            t = time.perf_counter()
+            lm, mc = mixed.decode(params, toks[i], mc)
+            torch.cuda.synchronize()
+            ms["mixed"].append(1e3 * (time.perf_counter() - t))
+            t = time.perf_counter()
+            lf, fc = full.decode(params, toks[i], fc)
+            torch.cuda.synchronize()
+            ms["full"].append(1e3 * (time.perf_counter() - t))
+            gaps.append((lm - lf).abs().max())
+        launches = _attention_launches()
+    gaps = torch.stack(gaps).cpu()
+    res = {"phase": "mixed_cache", "model": cfg.name, "dtype": cfg.dtype,
+           "rows": MIXED_ROWS, "window": cfg.window, "steps": steps,
+           "max_seq": MIXED_MAX_SEQ, "max_logit_gap": gaps.max().item(),
+           "max_logit_gap_after_wrap": gaps[cfg.window:].max().item(),
+           "tolerance": tol,
+           "step_ms_median": {k: statistics.median(v) for k, v in ms.items()},
+           "cache_bytes": cache_bytes,
+           "cache_ratio": cache_bytes["mixed"] / cache_bytes["full"],
+           "launches": launches, "plain_calls_on_card": plain.calls,
+           "resident_gb_before": resident,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(json.dumps(res))
+    check(launches == {"decode_attention": 2 * cfg.n_layers * steps,
+                       "flash_wgmma": 0, "flash_tf32x3": 0},
+          f"mixed cache: launches {launches}")
+    check(not any(plain.calls.values()),
+          f"plain versions ran on the card: {plain.calls}")
+    check(int(mc["pos"][0]) == steps and mc["k_local"].shape[2] == cfg.window,
+          "mixed cache: ring size or cursor")
+    check(res["max_logit_gap"] <= tol,
+          f"mixed cache: logits part from the full cache by "
+          f"{res['max_logit_gap']}")
+    return res
+
+
+def _jamba_cut():
+    """jamba-1.5-large-398b at full width cut to one period (8 sublayers:
+    attention and 7 Mamba-2; n_layers % attn_period must be 0) and 8 of
+    its 16 experts: 25.8 B parameters, 51.6 GB in bf16 (one period with
+    16 experts would be ~90 GB, past the card's 80)."""
+    from repro_torch.configs import get
+    return dataclasses.replace(get(JAMBA_ARCH), n_layers=8, n_experts=8)
+
+
+def _hybrid_counts(cfg):
+    """(attention sublayers, Mamba-2 sublayers, MoE sublayers) of a hybrid
+    config."""
+    from repro_torch.models.transformer import _hybrid_layout
+    n_periods, P, moe_slots, _ = _hybrid_layout(cfg)
+    return n_periods, n_periods * (P - 1), n_periods * len(moe_slots)
+
+
+def phase_hybrid_crosscheck(dev):
+    """jamba's one period at a narrower width that keeps its attention and
+    SSD shapes (d_model 1024, 64 heads on 8 kv heads (G = 8), d_head 128;
+    Mamba-2 32 heads of 64, state 128, chunk 128; 4 experts top-2, vocab
+    65536), float32: a 300-token prompt (one routing group; each scan
+    padded to 384) and 4 decode steps on the card against the same weights
+    on the CPU. Logits within 1e-3, the routes kept bit for bit; the
+    prefill launches flash once, the SSD scan 7 times; a decode step the
+    decode kernel once."""
+    import numpy as np
+
+    from repro_torch.kernels.ssd_scan import ssd_cuda
+    from repro_torch.models import build
+    from repro_torch.models.moe import recording_routes
+
+    tol = 1e-3
+    cfg = dataclasses.replace(_jamba_cut(), d_model=1024, d_ff=2048,
+                              n_experts=4, dtype="float32")
+    n_attn, n_mamba, _ = _hybrid_counts(cfg)
+    model = build(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(4))
+    cpu_params = _to_cpu(params)
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab, (1, 300)))
+
+    def routed(fn):
+        with recording_routes() as routes:
+            out = fn()
+        return out, [(i.cpu(), k.cpu()) for i, k in routes]
+    _zero_attention_launches()
+    ssd_cuda.launches = 0
+    (gl, gc_), g_routes = routed(lambda: model.prefill(
+        params, {"tokens": toks.to(dev)}, max_seq=512))
+    prefill = dict(_attention_launches(), ssd_scan=ssd_cuda.launches)
+    (cl, cc), c_routes = routed(lambda: model.prefill(
+        cpu_params, {"tokens": toks}, max_seq=512))
+    errs = [(gl.cpu() - cl).abs().max().item()]
+    state_err = (gc_["ssm"].cpu() - cc["ssm"]).abs().max().item()
+    same = [int(gl.argmax()) == int(cl.argmax())]
+    for _ in range(4):
+        nxt = cl.argmax(-1)[:, None]
+        (gl, gc_), r = routed(lambda: model.decode(params, nxt.to(dev), gc_))
+        g_routes += r
+        (cl, cc), r = routed(lambda: model.decode(cpu_params, nxt, cc))
+        c_routes += r
+        errs.append((gl.cpu() - cl).abs().max().item())
+        same.append(int(gl.argmax()) == int(cl.argmax()))
+    launches = dict(_attention_launches(), ssd_scan=ssd_cuda.launches)
+    same_routes = len(g_routes) == len(c_routes) and all(
+        torch.equal(gi, ci) and torch.equal(gk, ck)
+        for (gi, gk), (ci, ck) in zip(g_routes, c_routes))
+    res = {"phase": "hybrid_crosscheck", "d_model": cfg.d_model,
+           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.d_head],
+           "ssm_heads": cfg.ssm_heads, "experts": cfg.n_experts,
+           "prompt": 300, "decode_steps": 4, "max_abs_err": max(errs),
+           "per_step_err": errs, "prefill_state_err": state_err,
+           "tolerance": tol, "argmax_agree": all(same),
+           "routes_identical": same_routes, "prefill_launches": prefill,
+           "flash_launches": {"wgmma": launches["flash_wgmma"],
+                              "tf32x3": launches["flash_tf32x3"]},
+           "decode_launches": launches["decode_attention"],
+           "ssd_launches": launches["ssd_scan"]}
+    log(json.dumps(res))
+    del params, cpu_params, gc_, cc
+    check(prefill == {"decode_attention": 0, "flash_wgmma": 0,
+                      "flash_tf32x3": n_attn, "ssd_scan": n_mamba},
+          f"hybrid cross-check: prefill launches {prefill}")
+    check(launches["decode_attention"] == 4 * n_attn
+          and launches["ssd_scan"] == n_mamba,
+          f"hybrid cross-check: launches {launches}")
+    check(same_routes, "hybrid cross-check: the card kept other routes")
+    check(max(errs) <= tol,
+          f"hybrid cross-check: logits differ by {max(errs)}")
+    check(all(same), "hybrid cross-check: argmax tokens differ")
+    return res
+
+
+def phase_hybrid_serve(dev):
+    """jamba at full width in bf16, cut to one period and 8 experts
+    (``_jamba_cut``), weights from the card's seeded generator, behind
+    phase "serve"'s engine (4 slots, max_seq 2048, context 1024) with its
+    requests (prompts {100, 300, 700, 1000} x 2, 16 new tokens each) at
+    their exact lengths. Launch counters are zeroed just before and read
+    just after: the decode kernel once an attention sublayer a step, flash
+    (wgmma) once a prompt, the SSD scan once a Mamba-2 sublayer a prompt,
+    no plain version on the card. Prefill ms by length, the real routes
+    dropped at capacity by prompt length, the memory left by earlier
+    phases and this phase's peak."""
+    import numpy as np
+
+    from repro_torch.kernels.ssd_scan import ssd_cuda
+    from repro_torch.models import build
+    from repro_torch.serve.engine import (EngineConfig, Request,
+                                          ServingEngine)
+
+    resident = _free_card()
+    cfg = _jamba_cut()
+    n_attn, n_mamba, n_moe = _hybrid_counts(cfg)
+    model = RouteCounts(build(cfg))
+    params = model.model.init(torch.Generator(dev).manual_seed(0))
+    n_params = sum(p.numel() for p in _leaves(params))
+    ecfg = EngineConfig(slots=4, max_seq=2048, context=1024, chips=16.0)
+    engine = ServingEngine(model, params, ecfg, device=dev)
+    rng = np.random.default_rng(0)
+    lengths = [100, 300, 700, 1000] * 2
+    reqs = [Request(i, rng.integers(0, cfg.vocab, n).astype(np.int32),
+                    max_new_tokens=16) for i, n in enumerate(lengths)]
+    for r in reqs:
+        engine.submit(r)
+    torch.cuda.synchronize()
+
+    step_ms = []
+    with PlainOnCard() as plain:
+        _zero_attention_launches()
+        ssd_cuda.launches = 0
+        t0 = time.perf_counter()
+        while len(engine.completed) < len(reqs) and engine.steps < 500:
+            engine.step()
+            step_ms.append(1e3 * engine.last_step_s)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_attention_launches(), ssd_scan=ssd_cuda.launches)
+    admitted = engine.admissions
+
+    check(len(engine.completed) == len(reqs), "not every request completed")
+    for r in engine.completed:
+        check(len(r.generated) == 16, f"request {r.rid}: "
+              f"{len(r.generated)} tokens")
+        check(all(0 <= t < cfg.vocab for t in r.generated),
+              f"request {r.rid}: token out of vocab")
+    check(bool(model.flag), "non-finite logits")
+    want = {"decode_attention": n_attn * engine.steps,
+            "flash_wgmma": n_attn * admitted, "flash_tf32x3": 0,
+            "ssd_scan": n_mamba * admitted}
+    check(launches == want, f"hybrid launches {launches}, want {want}")
+    check(not any(plain.calls.values()),
+          f"plain versions ran on the card: {plain.calls}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    prefill_ms = {}
+    for n in (100, 300, 700, 1000):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, n))).to(dev)
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            model.model.prefill(params, {"tokens": toks},
+                                max_seq=ecfg.max_seq)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t))
+        prefill_ms[str(n)] = statistics.median(times[1:])
+    tokens = sum(len(r.generated) for r in engine.completed)
+    res = {"phase": "hybrid_serve", "model": cfg.name,
+           "cut": {"n_layers": cfg.n_layers, "n_experts": cfg.n_experts},
+           "params": n_params, "weights_gb": _nbytes(params) / 1e9,
+           "dtype": cfg.dtype, "requests": len(reqs),
+           "prompt_lengths": lengths, "new_tokens_each": 16,
+           "prompts_admitted": admitted, "engine_steps": engine.steps,
+           "tokens_generated": tokens, "wall_s": wall,
+           "tokens_per_s": tokens / wall,
+           "decode_tokens_per_s": engine.tokens_out / wall,
+           "decode_step_ms_median": statistics.median(step_ms),
+           "decode_step_ms_min": min(step_ms),
+           "prefill_ms_by_length": prefill_ms, "launches": launches,
+           "plain_calls_on_card": plain.calls,
+           "routes_dropped": _route_drops(model, n_moe),
+           "resident_gb_before": resident, "peak_mem_gb": peak}
+    log(json.dumps(res))
+    return res, engine
+
+
+def phase_hybrid_trace(engine):
+    """``phase_trace`` on the hybrid engine (3 decode steps, one 1000-token
+    prefill), beside the byte bound of a decode step: every weight but the
+    embedding table (all experts enter the dense dispatch), the head, the
+    K/V slots the rows attend to and the Mamba-2 states read and written,
+    over 3.35 TB/s."""
+    res = phase_trace(engine, name="hybrid_trace")
+    p, c = engine.params, engine._cache
+    periods = p["periods"]
+    parts = {"experts": sum(_nbytes([{k: f[k] for k in ("up", "gate",
+                                                        "down")}
+                                     for f in pp["ffn_moe"]])
+                            for pp in periods),
+             "router": sum(_nbytes([f["router"] for f in pp["ffn_moe"]])
+                           for pp in periods),
+             "dense_ffn": sum(_nbytes(pp["ffn_dense"]) for pp in periods),
+             "mamba": sum(_nbytes(pp["mamba"]) for pp in periods),
+             "attention": sum(_nbytes(pp["attn"]) for pp in periods),
+             "norms": sum(_nbytes([pp[k] for k in pp if k.endswith("ln")])
+                          for pp in periods),
+             "head": _nbytes(p["head"]),
+             "states": 2 * _nbytes([c["conv"], c["ssm"]])}
+    live = torch.clamp(c["pos"], max=engine.cfg.max_seq)
+    mcfg = engine.model.cfg
+    parts["kv_read"] = int(live.sum()) * len(periods) * 2 \
+        * mcfg.n_kv_heads * mcfg.d_head * c["kv_k"].element_size()
+    step_bytes = sum(parts.values())
+    busy = res["decode_step"]["device_busy_ms"]
+    res.update({"step_bytes": parts, "step_bytes_total": step_bytes,
+                "step_bound_ms": 1e3 * step_bytes / HBM_BYTES_PER_S,
+                "busy_over_bound": busy / (1e3 * step_bytes
+                                           / HBM_BYTES_PER_S)})
+    log(json.dumps(res))
+    return res
+
+
 # -- the summary ------------------------------------------------------------------
 
 def kernel_entry(rows, kernel, case, launches, source, replaces,
@@ -4073,6 +4685,23 @@ def main(argv=None):
     print(json.dumps(autoscale_cli), flush=True)
     fleet_launchers = phase_fleet_launchers(dev)
     print(json.dumps(fleet_launchers), flush=True)
+
+    encdec_cross = phase_encdec_crosscheck(dev)
+    print(json.dumps(encdec_cross), flush=True)
+    encdec_serve, whisper = phase_encdec_serve(dev)
+    print(json.dumps(encdec_serve), flush=True)
+    encdec_trace = phase_encdec_trace(*whisper)
+    print(json.dumps(encdec_trace), flush=True)
+    del whisper
+    mixed = phase_mixed_cache(dev)
+    print(json.dumps(mixed), flush=True)
+    hybrid_cross = phase_hybrid_crosscheck(dev)
+    print(json.dumps(hybrid_cross), flush=True)
+    hybrid_serve, hybrid_engine = phase_hybrid_serve(dev)
+    print(json.dumps(hybrid_serve), flush=True)
+    hybrid_trace = phase_hybrid_trace(hybrid_engine)
+    print(json.dumps(hybrid_trace), flush=True)
+    del hybrid_engine
     option_launches = {
         "pipeline": {k: sum(pipeline[m]["launches"][k]
                             for m in ("sync", "pipelined"))
@@ -4123,16 +4752,35 @@ def main(argv=None):
                                  loop_launches["decode_attention"],
                              "moe_serve":
                                  moe_serve["launches"]["decode_attention"],
-                             "moe_crosscheck": moe_cross["decode_launches"]},
+                             "moe_crosscheck": moe_cross["decode_launches"],
+                             "encdec_serve":
+                                 encdec_serve["launches"]["decode_attention"],
+                             "encdec_crosscheck":
+                                 encdec_cross["decode_launches"],
+                             "mixed_cache":
+                                 mixed["launches"]["decode_attention"],
+                             "hybrid_serve":
+                                 hybrid_serve["launches"]["decode_attention"],
+                             "hybrid_crosscheck":
+                                 hybrid_cross["decode_launches"]},
         "flash_attention": {"serve": serve["flash_variant_launches"]["wgmma"],
                             "engine_compare": sum(c["wgmma"]
                                                   for c in compare),
                             "serving_loop": loop_launches["flash_wgmma"],
                             "moe_serve":
-                                moe_serve["flash_variant_launches"]["wgmma"]},
+                                moe_serve["flash_variant_launches"]["wgmma"],
+                            "encdec_serve":
+                                encdec_serve["launches"]["flash_wgmma"],
+                            "hybrid_serve":
+                                hybrid_serve["launches"]["flash_wgmma"]},
         "flash_attention_fp32": {
             "crosscheck": cross["flash_launches"]["tf32x3"],
-            "moe_crosscheck": moe_cross["flash_launches"]["tf32x3"]},
+            "moe_crosscheck": moe_cross["flash_launches"]["tf32x3"],
+            "encdec_crosscheck": encdec_cross["flash_launches"]["tf32x3"],
+            "hybrid_crosscheck": hybrid_cross["flash_launches"]["tf32x3"]},
+        "ssd_scan": {"ssm_serve": ssm_serve["launches"]["ssd_scan"],
+                     "hybrid_serve": hybrid_serve["launches"]["ssd_scan"],
+                     "hybrid_crosscheck": hybrid_cross["ssd_launches"]},
         "rask_objective": {"autoscale": auto["launches"]["rask_objective"],
                            "serving_loop": loop_launches["rask_objective"],
                            "fleet_solve": fleet_launches["rask_objective"],
@@ -4147,14 +4795,24 @@ def main(argv=None):
             "failover": failover["launches"]["rask_objective_grad"],
             **{p: v["rask_objective_grad"]
                for p, v in option_launches.items()}}}
-    # and their times at e11's shapes and qwen2-moe's (attention in bf16;
-    # the RASK kernels on the loop's own agent, whose errors count in the
-    # entry's worst)
-    e11_cases = {"decode_attention": ("e11_stacked", "e11_dict", "moe"),
+    # and their times at e11's shapes, qwen2-moe's, whisper's, the mixed
+    # ring's and jamba's (attention and the SSD scan in bf16, the float32
+    # flash kernel at the cross-checks' shapes; the RASK kernels on the
+    # loop's own agent, whose errors count in the entry's worst)
+    e11_cases = {"decode_attention": ("e11_stacked", "e11_dict", "moe",
+                                      "whisper_self", "whisper_cross",
+                                      "mixed_ring", "jamba"),
                  "flash_attention": ("e11_S13", "e11_S32", "moe_S128",
-                                     "moe_S512", "moe_S1024")}
-    e11_rows = [r for r in rows if r["dtype"] == "bfloat16"] \
-        + loop["rask_kernels"]
+                                     "moe_S512", "moe_S1024", "whisper_enc",
+                                     "whisper_xattn", "whisper_prompt",
+                                     "jamba_S300", "jamba_S1000"),
+                 "flash_attention_fp32": ("whisper_enc", "whisper_xattn",
+                                          "jamba_S300"),
+                 "ssd_scan": ("h256_b1_l384", "h256_b1_l1024")}
+    e11_rows = [r for r in rows + ssd_kernels["cases"]
+                if r["dtype"] == "bfloat16"] + loop["rask_kernels"] + [
+        dict(r, kernel="flash_attention_fp32") for r in rows
+        if r["kernel"] == "flash_attention" and r["dtype"] == "float32"]
     for r in loop["rask_kernels"]:
         e11_cases.setdefault(r["kernel"], (r["case"],))
     for entry in kernels["kernels"]:
@@ -4234,6 +4892,10 @@ def main(argv=None):
              "moe_crosscheck": moe_cross, "moe_serve": moe_serve,
              "moe_trace": moe_trace, "autoscale_cli": autoscale_cli,
              "fleet_launchers": fleet_launchers,
+             "encdec_crosscheck": encdec_cross, "encdec_serve": encdec_serve,
+             "encdec_trace": encdec_trace, "mixed_cache": mixed,
+             "hybrid_crosscheck": hybrid_cross, "hybrid_serve": hybrid_serve,
+             "hybrid_trace": hybrid_trace,
              "wall_s": time.perf_counter() - t_start, **kernels},
             indent=1))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")

@@ -11,10 +11,8 @@ documented skips (DESIGN.md §4):
   * decode shapes lower ``serve_step`` (one token against a seq-long KV
     cache); whisper's decode cross-attends a seq-long encoder cache.
 
-All ten configs are registered, as data. The port builds the dense, MoE
-and ssm families; building jamba (hybrid) or whisper (encdec) raises
-through ``models/model.py::_NOT_PORTED``, which names the ROADMAP item
-that ports each.
+All ten configs are registered, and the port builds every one of their
+families: dense, MoE, ssm, hybrid (jamba) and encoder-decoder (whisper).
 """
 from __future__ import annotations
 

@@ -6,6 +6,7 @@ seeded synthetic requests (the counterpart of ``repro/launch/serve.py``).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m --full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --full
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --engine dict
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-1.5-large-398b --device cpu
 
 Without ``--full`` the registry config is cut to its ``.smoke()`` size in
 float32, as in the JAX driver; ``--full`` runs it as registered (gemma3-1b:
@@ -20,6 +21,12 @@ from a seeded ``torch.Generator`` on the device. The device defaults to
 ``cuda``, and a missing card is an error. ``--engine dict`` selects the
 seed-era per-slot-cache baseline (one batch-1 decode per active slot); the
 default stacked engine decodes every slot in one batched step.
+
+jamba-1.5-large-398b (hybrid) serves its smoke cut (8 layers: one period,
+4 experts) with exact-length prompts; at full depth its 398 B parameters
+fit no single card (``chip_smoke.py`` serves a one-period, 8-expert cut
+at full width). whisper-large-v3 raises a ``ValueError``: the engine
+prefills token prompts and takes no audio frames.
 """
 from __future__ import annotations
 

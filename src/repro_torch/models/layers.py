@@ -5,9 +5,14 @@ Conventions, as in the JAX package:
   * activations keep ``cfg.dtype``; norms and softmax compute in float32;
   * attention is grouped-query: H query heads share KH kv heads (G = H/KH);
   * a linear weight is stored (out, in) as PyTorch's ``F.linear`` wants it
-    (the JAX package stores (in, out); ``convert.py`` transposes).
+    (the JAX package stores (in, out); ``convert.py`` transposes); a biased
+    linear (whisper's) adds a 1-D ``"b"``.
 
-Self-attention only; cross-attention waits for the encoder-decoder slice.
+Attention is self-attention (causal or not, with or without rope, against
+a KV cache or a ring of one) and cross-attention over an encoder's K/V
+(``cross_kv``, ``cross_attention``). Every product of queries and keys
+runs in ``kernels/ops.py``: the flash kernel over a prompt, the decode
+kernel for one new token a row.
 """
 from __future__ import annotations
 
@@ -24,22 +29,33 @@ Params = Dict[str, torch.Tensor]
 
 
 def init_linear(gen: torch.Generator, d_in: int, d_out: int,
-                dtype: torch.dtype) -> Params:
+                dtype: torch.dtype, bias: bool = False) -> Params:
     w = torch.randn((d_out, d_in), generator=gen, device=gen.device,
                     dtype=torch.float32) * d_in ** -0.5
-    return {"w": w.to(dtype)}
+    p = {"w": w.to(dtype)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=gen.device)
+    return p
 
 
 def linear(p: Params, x):
     return F.linear(x, p["w"], p.get("b"))
 
 
-def init_norm(d: int, dtype: torch.dtype, device) -> Params:
-    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+def init_norm(d: int, dtype: torch.dtype, device,
+              kind: str = "rmsnorm") -> Params:
+    p = {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=dtype, device=device)
+    return p
 
 
-def norm(p: Params, x, eps: float = 1e-6):
-    """RMSNorm in float32, times ``scale`` (not 1 + scale), cast back."""
+def norm(p: Params, x, kind: str = "rmsnorm", eps: float = 1e-6):
+    """RMSNorm, or LayerNorm (population variance) plus ``bias``, in
+    float32, times ``scale`` (not 1 + scale), cast back."""
+    if kind == "layernorm":
+        y = F.layer_norm(x.float(), (x.shape[-1],), eps=eps)
+        return (y * p["scale"] + p["bias"]).to(x.dtype)
     y = F.rms_norm(x.float(), (x.shape[-1],), eps=eps)
     return (y * p["scale"]).to(x.dtype)          # bf16 scale promotes to f32
 
@@ -77,12 +93,12 @@ def activation(x, kind: str):
 
 
 def init_mlp(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
-             d_ff: Optional[int] = None) -> Params:
+             d_ff: Optional[int] = None, bias: bool = False) -> Params:
     f = d_ff or cfg.d_ff
-    p = {"up": init_linear(gen, cfg.d_model, f, dtype),
-         "down": init_linear(gen, f, cfg.d_model, dtype)}
+    p = {"up": init_linear(gen, cfg.d_model, f, dtype, bias),
+         "down": init_linear(gen, f, cfg.d_model, dtype, bias)}
     if cfg.gated_mlp:
-        p["gate"] = init_linear(gen, cfg.d_model, f, dtype)
+        p["gate"] = init_linear(gen, cfg.d_model, f, dtype, bias)
     return p
 
 
@@ -96,27 +112,61 @@ def mlp(p: Params, x, cfg: ModelConfig):
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig,
-                   dtype: torch.dtype) -> Params:
+                   dtype: torch.dtype, bias: bool = False) -> Params:
     d, h, kh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    p = {"wq": init_linear(gen, d, h * dh, dtype),
-         "wk": init_linear(gen, d, kh * dh, dtype),
-         "wv": init_linear(gen, d, kh * dh, dtype),
-         "wo": init_linear(gen, h * dh, d, dtype)}
+    p = {"wq": init_linear(gen, d, h * dh, dtype, bias),
+         "wk": init_linear(gen, d, kh * dh, dtype, bias),
+         "wv": init_linear(gen, d, kh * dh, dtype, bias),
+         "wo": init_linear(gen, h * dh, d, dtype, bias)}
     if cfg.qk_norm:
         p["q_norm"] = init_norm(dh, dtype, gen.device)
         p["k_norm"] = init_norm(dh, dtype, gen.device)
     return p
 
 
-def attention(p: Params, x, cfg: ModelConfig, *, rot,
-              window: Optional[int] = None,
-              cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-              cache_pos: Optional[torch.Tensor] = None):
-    """Causal self-attention, optionally against a KV cache.
+def cross_kv(p: Params, cfg: ModelConfig, enc_out):
+    """Cross-attention K/V from encoder states: (B,T,KH,D) each, the decode
+    kernel's cache layout."""
+    B, T, _ = enc_out.shape
+    k = linear(p["wk"], enc_out).reshape(B, T, cfg.n_kv_heads, cfg.d_head)
+    v = linear(p["wv"], enc_out).reshape(B, T, cfg.n_kv_heads, cfg.d_head)
+    return k, v
 
-    x: (B,S,d_model); ``rot``: ``rope_angles`` of the (B,S) positions.
-    ``window`` is a plain int (None = unbounded), so prefill always takes
-    the flash kernel.
+
+def cross_attention(p: Params, x, cfg: ModelConfig, kv):
+    """Decoder cross-attention over precomputed encoder K/V, no mask.
+
+    x: (B,S,d_model); kv: (k, v), each (B,T,KH,D). One query a row (a
+    decode step) runs the decode kernel over all T slots; a prompt runs the
+    flash kernel, not causal (it needs T >= S)."""
+    B, S, _ = x.shape
+    h, dh = cfg.n_heads, cfg.d_head
+    q = linear(p["wq"], x).reshape(B, S, h, dh)
+    k, v = kv
+    if S == 1:
+        T = k.shape[1]
+        length = torch.full((B,), T, dtype=torch.int32, device=x.device)
+        out = kops.decode_attention(q[:, 0].contiguous(), k, v, length,
+                                    torch.zeros_like(length))[:, None]
+    else:
+        out = kops.flash_attention(
+            q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+            v.transpose(1, 2).contiguous(), causal=False).transpose(1, 2)
+    out = out.reshape(B, S, h * dh).to(x.dtype)
+    return linear(p["wo"], out)
+
+
+def attention(p: Params, x, cfg: ModelConfig, *, rot,
+              window: Optional[int] = None, causal: bool = True,
+              cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              cache_pos: Optional[torch.Tensor] = None,
+              cache_length: Optional[torch.Tensor] = None):
+    """Self-attention, optionally against a KV cache.
+
+    x: (B,S,d_model); ``rot``: ``rope_angles`` of the (B,S) positions, or
+    None for no rope (whisper). ``window`` is a plain int (None =
+    unbounded), so prefill always takes the flash kernel; ``causal=False``
+    (whisper's encoder) attends to the whole prompt.
 
     Prefill (``cache`` None): attends within x; returns (out, (k, v)) with
     k, v of shape (B,S,KH,D) for the caller's cache.
@@ -126,7 +176,10 @@ def attention(p: Params, x, cfg: ModelConfig, *, rot,
     step); the write index clamps to S_max - 1 as JAX's
     ``dynamic_update_slice`` does, so a free-running idle lane past S_max
     never indexes out of bounds. Row b then attends to
-    [max(0, length - window), length) with length = cache_pos + 1.
+    [max(0, length - window), length) with length = cache_pos + 1, or
+    ``cache_length`` (B,) where given: a ring of W slots written at
+    pos % W holds min(pos + 1, W) valid slots (rope was applied at write
+    time, so their order does not matter).
     """
     B, S, _ = x.shape
     h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -136,14 +189,15 @@ def attention(p: Params, x, cfg: ModelConfig, *, rot,
     if cfg.qk_norm:
         q = norm(p["q_norm"], q)
         k = norm(p["k_norm"], k)
-    rot = (rot[0][:, None], rot[1][:, None])             # over heads
-    q = apply_rope(q.transpose(1, 2), rot)               # (B, H, S, D)
-    k = apply_rope(k.transpose(1, 2), rot)               # (B, KH, S, D)
+    q, k = q.transpose(1, 2), k.transpose(1, 2)          # (B, H|KH, S, D)
+    if rot is not None:
+        rot = (rot[0][:, None], rot[1][:, None])         # over heads
+        q, k = apply_rope(q, rot), apply_rope(k, rot)
 
     if cache is None:
         vt = v.transpose(1, 2).contiguous()
         out = kops.flash_attention(q.contiguous(), k.contiguous(), vt,
-                                   causal=True, window=window or 0)
+                                   causal=causal, window=window or 0)
         out = out.transpose(1, 2)                           # (B,S,H,D)
         new_kv = (k.transpose(1, 2), v)
     else:
@@ -154,7 +208,7 @@ def attention(p: Params, x, cfg: ModelConfig, *, rot,
         idx = cache_pos.clamp(max=ck.shape[1] - 1)
         ck[rows, idx] = k[:, :, 0].to(ck.dtype)
         cv[rows, idx] = v[:, 0].to(cv.dtype)
-        length = cache_pos + 1
+        length = cache_pos + 1 if cache_length is None else cache_length
         start = torch.zeros_like(length) if window is None \
             else (length - window).clamp(min=0)
         out = kops.decode_attention(

@@ -6,9 +6,12 @@
   decode(params, tokens, cache) -> (logits, cache)
   init_cache(batch, max_seq, device) -> zeroed cache
 
-The port runs the decoder program (dense and MoE) and the ssm program
-(Mamba-2). The hybrid and encoder-decoder families raise
-``NotImplementedError`` naming the ROADMAP item that ports each.
+The port runs every family of ``repro``: the decoder (dense and MoE, with
+gemma3's mixed ring cache under ``mixed_cache``), the ssm program
+(Mamba-2), the hybrid (jamba) and the encoder-decoder (whisper, whose
+``prefill`` takes ``{"frames", "tokens"}``). ``logit_cap`` is not ported
+(no config sets it). The teacher-forced ``loss`` waits for the training
+slice.
 """
 from __future__ import annotations
 
@@ -22,12 +25,7 @@ from .config import ModelConfig
 
 Params = Dict[str, Any]
 
-_NOT_PORTED = {
-    "hybrid": "ROADMAP Queue 1, item 13b (hybrid: jamba, Mamba-2 and "
-              "attention with the MoE FFN)",
-    "encdec": "ROADMAP Queue 1, item 13a (encoder-decoder: whisper, "
-              "cross-attention and mixed_cache)",
-}
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,35 +33,51 @@ class Model:
     cfg: ModelConfig
 
     def __post_init__(self):
-        if self.cfg.family in _NOT_PORTED:
-            raise NotImplementedError(
-                f"family {self.cfg.family!r} is not ported yet: "
-                f"{_NOT_PORTED[self.cfg.family]}")
-        if self.cfg.family not in ("dense", "moe", "ssm"):
+        if self.cfg.family not in FAMILIES:
             raise ValueError(self.cfg.family)
-        if self.cfg.mixed_cache or self.cfg.logit_cap:
+        if self.cfg.logit_cap:
             raise NotImplementedError(
-                "mixed_cache and logit_cap are not ported (no config the "
-                "port runs sets them)")
+                "logit_cap is not ported (no config the port runs sets it)")
+
+    @property
+    def _mixed(self) -> bool:
+        return bool(self.cfg.mixed_cache and self.cfg.local_global_period)
 
     def init(self, gen: torch.Generator) -> Params:
-        if self.cfg.family == "ssm":
+        f = self.cfg.family
+        if f == "ssm":
             return T.init_ssm(gen, self.cfg)
+        if f == "hybrid":
+            return T.init_hybrid(gen, self.cfg)
+        if f == "encdec":
+            return T.init_encdec(gen, self.cfg)
         return T.init_decoder(gen, self.cfg)
 
     def prefill(self, params: Params, batch, max_seq: int, length=None):
-        """``batch = {"tokens": (B,S)}``; ``length`` supports right-padded
-        prompts on the decoder (attention is causal; an MoE FFN routes the
-        pads with the real tokens, as ``repro``'s does). The ssm program is
-        recurrent and would fold pad tokens into its state, so it rejects
-        ``length``."""
+        """``batch = {"tokens": (B,S)}`` (and ``"frames": (B,T,d_model)``
+        for the encoder-decoder, whose self cache holds 448 positions and
+        whose cross cache the T frames, whatever ``max_seq``). ``length``
+        supports right-padded prompts on the decoder (attention is causal;
+        an MoE FFN routes the pads with the real tokens, as ``repro``'s
+        does); the recurrent families would fold pad tokens into their
+        state, so they reject it. A mixed cache has no prefill, as in
+        ``repro``: it starts from ``init_cache``."""
         cfg = self.cfg
         if length is not None and not self.supports_padded_prefill:
             raise ValueError(
                 f"family {cfg.family!r} runs a recurrent prefill; padded "
                 "prompts would corrupt its state (no `length` support)")
+        if self._mixed:
+            raise ValueError(
+                "mixed_cache has no prefill (nor has repro's): start from "
+                "init_cache and decode from token 0")
+        if cfg.family == "encdec":
+            return T.encdec_prefill(params, cfg, batch["frames"],
+                                    batch["tokens"])
         if cfg.family == "ssm":
             return T.ssm_prefill(params, cfg, batch["tokens"], max_seq)
+        if cfg.family == "hybrid":
+            return T.hybrid_prefill(params, cfg, batch["tokens"], max_seq)
         return T.decoder_prefill(params, cfg, batch["tokens"], max_seq,
                                  length=length)
 
@@ -72,13 +86,30 @@ class Model:
         return self.cfg.family in ("dense", "moe")
 
     def decode(self, params: Params, tokens, cache):
-        if self.cfg.family == "ssm":
+        f = self.cfg.family
+        if f == "encdec":
+            return T.encdec_decode(params, self.cfg, tokens, cache)
+        if f == "ssm":
             return T.ssm_decode(params, self.cfg, tokens, cache)
+        if f == "hybrid":
+            return T.hybrid_decode(params, self.cfg, tokens, cache)
+        if self._mixed:
+            return T.decoder_decode_mixed(params, self.cfg, tokens, cache)
         return T.decoder_decode(params, self.cfg, tokens, cache)
 
     def init_cache(self, batch: int, max_seq: int, device):
-        if self.cfg.family == "ssm":
+        """A zeroed cache; for the encoder-decoder ``max_seq`` is the
+        encoder's frame count (its cross cache), as in ``repro``."""
+        f = self.cfg.family
+        if f == "encdec":
+            return T.encdec_init_cache(self.cfg, batch, max_seq, device)
+        if f == "ssm":
             return T.ssm_init_cache(self.cfg, batch, max_seq, device)
+        if f == "hybrid":
+            return T.hybrid_init_cache(self.cfg, batch, max_seq, device)
+        if self._mixed:
+            return T.decoder_init_cache_mixed(self.cfg, batch, max_seq,
+                                              device)
         return T.decoder_init_cache(self.cfg, batch, max_seq, device)
 
 

@@ -13,7 +13,8 @@ the batch routes to it. That is ``repro``'s program, kept exactly here
 read far fewer bytes; ROADMAP lists it as performance work).
 
 Supports DBRX (16e top-4), Qwen2-MoE (60e top-4 + 4 shared experts fused
-into one wide always-on expert) and, later, Jamba's FFN (16e top-2).
+into one wide always-on expert) and Jamba's FFN (16e top-2, every other
+sublayer; its prompts route with ``ragged=True``, see ``moe``).
 
 ``recording_routes()`` is the instrumentation hook: inside it, every
 ``moe`` call appends its (T, k) expert choices and kept-route mask, so a
@@ -77,19 +78,56 @@ def capacity(tg: int, cfg: ModelConfig,
 
 
 def moe(p: Params, x, cfg: ModelConfig, capacity_factor: float = 1.25,
-        group_size: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
+        group_size: int = 512, ragged: bool = False
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (y, aux_loss). Group-wise GShard dispatch; the
     router runs in float32, the dispatch in ``x.dtype``, the combine
-    weights in float32, cast to ``x.dtype`` for the last product."""
+    weights in float32, cast to ``x.dtype`` for the last product.
+
+    Tokens that do not split into groups of ``group_size`` raise, as in
+    ``repro``, unless ``ragged``: then the last group holds the remainder
+    and takes its own (smaller) capacity. The aux loss is over all
+    tokens either way."""
     B, S, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     T = B * S
     tg = min(group_size, T)
-    if T % tg:
+    if T % tg and not ragged:
         raise ValueError(f"{T} tokens do not split into groups of {tg}")
-    G = T // tg
-    xg = x.reshape(G, tg, d)
+    xt = x.reshape(T, d)
+    full = T - T % tg
+    parts = [_dispatch(p, xt[:full].reshape(full // tg, tg, d), cfg,
+                       capacity_factor)]
+    if full < T:
+        parts.append(_dispatch(p, xt[full:][None], cfg, capacity_factor))
+    ys, idx, prs, kept = zip(*parts)
+    y = _rows(ys, d).reshape(B, S, d)
+    gate_idx, probs = _rows(idx, k), _rows(prs, e)
+    if _ROUTES is not None:
+        _ROUTES.append((gate_idx, _rows(kept, k)))
 
+    if "shared" in p:
+        y = y + mlp(p["shared"], x, cfg)
+
+    # load-balancing aux loss (Switch): E * sum_e f_e * P_e
+    frac = F.one_hot(gate_idx[:, 0], e).float().mean(dim=0)
+    aux = e * torch.sum(frac * probs.mean(dim=0))
+    return y, aux
+
+
+def _rows(parts, width: int):
+    """The groups' (..., width) tensors as one (T, width) (a view where
+    there is one group size)."""
+    if len(parts) == 1:
+        return parts[0].reshape(-1, width)
+    return torch.cat([t.reshape(-1, width) for t in parts])
+
+
+def _dispatch(p: Params, xg, cfg: ModelConfig, capacity_factor: float):
+    """The routed experts over groups xg (G, Tg, d): (y (G, Tg, d),
+    gate_idx (G, Tg, k), router probs (G, Tg, E), kept routes (G*Tg, k))."""
+    G, tg, d = xg.shape
+    e, k = cfg.n_experts, cfg.top_k
     logits = torch.einsum("gtd,de->gte", xg.float(), p["router"])
     probs = torch.softmax(logits, dim=-1)
     gate_w, gate_idx = torch.topk(probs, k, dim=-1)          # (G, Tg, k)
@@ -98,38 +136,28 @@ def moe(p: Params, x, cfg: ModelConfig, capacity_factor: float = 1.25,
     cap = capacity(tg, cfg, capacity_factor)
 
     # sequential-choice capacity assignment (GShard): earlier choices first
-    dispatch = torch.zeros((G, tg, e, cap), dtype=x.dtype, device=x.device)
+    dispatch = torch.zeros((G, tg, e, cap), dtype=xg.dtype, device=xg.device)
     combine = torch.zeros((G, tg, e, cap), dtype=torch.float32,
-                          device=x.device)
-    counts = torch.zeros((G, e), dtype=torch.long, device=x.device)
+                          device=xg.device)
+    counts = torch.zeros((G, e), dtype=torch.long, device=xg.device)
     keeps = []
     for choice in range(k):
         onehot = F.one_hot(gate_idx[..., choice], e)          # (G, Tg, E)
         pos = counts[:, None, :] + torch.cumsum(onehot, dim=1) - onehot
         keep = (pos < cap) & (onehot > 0)
-        pos_oh = F.one_hot(torch.where(keep, pos, 0), cap).to(x.dtype) \
-            * keep[..., None].to(x.dtype)
+        pos_oh = F.one_hot(torch.where(keep, pos, 0), cap).to(xg.dtype) \
+            * keep[..., None].to(xg.dtype)
         dispatch = dispatch + pos_oh
         combine = combine + pos_oh.float() * gate_w[..., choice, None, None]
         counts = counts + (onehot * keep).sum(dim=1)
         if _ROUTES is not None:
             keeps.append(keep.any(dim=-1))                   # (G, Tg)
-    if _ROUTES is not None:
-        _ROUTES.append((gate_idx.reshape(T, k),
-                        torch.stack(keeps, dim=-1).reshape(T, k)))
+    kept = torch.stack(keeps, dim=-1).reshape(G * tg, k) if keeps else None
 
     expert_in = torch.einsum("gtec,gtd->gecd", dispatch, xg)  # (G, E, C, d)
     h = torch.einsum("gecd,edf->gecf", expert_in, p["up"])
     g = torch.einsum("gecd,edf->gecf", expert_in, p["gate"])
     h = h * activation(g, cfg.act)
     expert_out = torch.einsum("gecf,efd->gecd", h, p["down"])
-    y = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), expert_out)
-    y = y.reshape(B, S, d)
-
-    if "shared" in p:
-        y = y + mlp(p["shared"], x, cfg)
-
-    # load-balancing aux loss (Switch): E * sum_e f_e * P_e
-    frac = F.one_hot(gate_idx[..., 0], e).float().mean(dim=(0, 1))
-    aux = e * torch.sum(frac * probs.mean(dim=(0, 1)))
-    return y, aux
+    y = torch.einsum("gtec,gecd->gtd", combine.to(xg.dtype), expert_out)
+    return y, gate_idx, probs, kept

@@ -1,6 +1,9 @@
-"""The decoder program (dense and MoE LMs, including gemma3's
-local:global interleave) and the ssm program (Mamba-2 stacks): the
-counterparts of those programs in ``repro/models/transformer.py``.
+"""The block programs of ``repro/models/transformer.py``: the decoder
+(dense and MoE LMs, including gemma3's local:global interleave and its
+mixed ring cache), the ssm program (Mamba-2 stacks), the hybrid (jamba:
+periods of attention and Mamba-2 sublayers, an MoE FFN on every other one)
+and the encoder-decoder (whisper: a bidirectional encoder, a causal
+decoder with cross-attention).
 
 JAX scans one homogeneous layer body over stacked parameters and carries
 each layer's window as a traced scalar. PyTorch runs eagerly, so the port
@@ -18,16 +21,38 @@ its load-balancing loss, which forward, prefill and decode sum over the
 layers as ``repro`` does (serving discards it). A prompt is routed in
 groups of 512 tokens; a decode step routes each row as its own group,
 as ``repro``'s engine does by vmapping a batch-1 decode over the slots.
+
+The mixed cache (``decoder_init_cache_mixed``): global layers keep
+``{"k_global", "v_global": (n_global, B, S_max, KH, D)}``, local layers a
+ring of W = ``cfg.window`` slots ``{"k_local", "v_local": (n_local, B, W,
+KH, D)}`` written at pos % W. As in ``repro`` there is no mixed prefill:
+a mixed cache starts empty and decodes from token 0.
+
+The hybrid's cache is ``{"kv_k", "kv_v": (n_periods, B, kv_len, KH, D),
+"conv": (n_periods * (P-1), B, K-1, C), "ssm": (n_periods * (P-1), B, h,
+p, n), "pos": (B,)}``: ``repro`` stacks the Mamba-2 states
+(n_periods, P-1, B, ...); the port folds the two leading axes into one so
+that the batch is axis 1 of every leaf, which is what the serving engine's
+slot copy assumes. Its prompts route in groups of 512 with a smaller last
+group (``moe(ragged=True)``): ``repro`` refuses a prompt longer than 512
+tokens that 512 does not divide.
+
+The encoder-decoder's cache is ``{"k", "v": (L, B, 448, KH, D),
+"cross_k", "cross_v": (L, B, T_enc, KH, D), "pos": (B,)}``: the cross
+K/V, sized by the encoder's output, in the decode kernel's layout.
+Whisper takes no rope: positions are sinusoids added to the inputs.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from .config import ModelConfig
-from .layers import (attention, init_attention, init_mlp, init_norm, mlp,
-                     norm, rope_angles)
+from .layers import (attention, cross_attention, cross_kv, init_attention,
+                     init_mlp, init_norm, mlp, norm, rope_angles)
 from .moe import init_moe, moe
 from .ssm import init_mamba, mamba_decode, mamba_prefill, mamba_state_shapes
 
@@ -251,3 +276,382 @@ def ssm_decode(params: Params, cfg: ModelConfig, tokens, cache):
     new_cache = {"conv": cache["conv"], "ssm": cache["ssm"],
                  "pos": cache["pos"] + 1}
     return _logits(params, x[:, -1]), new_cache
+
+
+# ===========================================================================
+# mixed-cache decode (gemma3 local:global: ring caches for local layers)
+# ===========================================================================
+
+def _lg_layout(cfg: ModelConfig) -> List[bool]:
+    """Per layer: True where the layer is global."""
+    return [(i + 1) % cfg.local_global_period == 0
+            for i in range(cfg.n_layers)]
+
+
+def decoder_init_cache_mixed(cfg: ModelConfig, batch: int, max_seq: int,
+                             device) -> Dict[str, torch.Tensor]:
+    if not (cfg.local_global_period and cfg.window):
+        raise ValueError("a mixed cache needs local_global_period and window")
+    n_glob = sum(_lg_layout(cfg))
+    n_loc = cfg.n_layers - n_glob
+
+    def zeros(n, slots):
+        return torch.zeros((n, batch, slots, cfg.n_kv_heads, cfg.d_head),
+                           dtype=_dtype(cfg), device=device)
+    return {"k_global": zeros(n_glob, max_seq),
+            "v_global": zeros(n_glob, max_seq),
+            "k_local": zeros(n_loc, cfg.window),
+            "v_local": zeros(n_loc, cfg.window),
+            "pos": torch.zeros((batch,), dtype=torch.long, device=device)}
+
+
+def decoder_decode_mixed(params: Params, cfg: ModelConfig, tokens, cache):
+    """One decode step on the mixed cache. Local layers write their ring at
+    pos % W and attend to its min(pos + 1, W) valid slots (start 0);
+    global layers attend to [0, pos + 1). Tensors are updated in place."""
+    x = params["embed"][tokens].to(_dtype(cfg))
+    pos = cache["pos"]
+    W = cfg.window
+    rot = rope_angles(pos[:, None], cfg.d_head, cfg.rope_theta)
+    ring_pos, ring_len = pos % W, (pos + 1).clamp(max=W)
+    gi = li = 0
+    for lp, is_global in zip(params["layers"], _lg_layout(cfg)):
+        xn = norm(lp["ln1"], x)
+        if is_global:
+            h, _ = attention(lp["attn"], xn, cfg, rot=rot,
+                             cache=(cache["k_global"][gi],
+                                    cache["v_global"][gi]), cache_pos=pos)
+            gi += 1
+        else:
+            h, _ = attention(lp["attn"], xn, cfg, rot=rot,
+                             cache=(cache["k_local"][li],
+                                    cache["v_local"][li]),
+                             cache_pos=ring_pos, cache_length=ring_len)
+            li += 1
+        x = x + h
+        x = x + mlp(lp["ffn"], norm(lp["ln2"], x), cfg)
+    x = norm(params["final_norm"], x)
+    return _logits(params, x[:, -1]), dict(cache, pos=pos + 1)
+
+
+# ===========================================================================
+# hybrid program (jamba: periods of [attn, mamba x (P-1)], MoE every other)
+# ===========================================================================
+
+def _hybrid_layout(cfg: ModelConfig):
+    """(n_periods, P, MoE sublayers, dense-FFN sublayers) of a period."""
+    P = cfg.attn_period
+    if not P or cfg.n_layers % P:
+        raise ValueError(f"hybrid n_layers {cfg.n_layers} must be a "
+                         f"multiple of attn_period {P}")
+    moe_slots = [j for j in range(P) if j % cfg.moe_every == cfg.moe_every - 1]
+    dense_slots = [j for j in range(P) if j not in moe_slots]
+    return cfg.n_layers // P, P, moe_slots, dense_slots
+
+
+def init_hybrid(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """Random weights with ``repro``'s scales, drawn from ``gen``. A period
+    keeps its sublayers' parameters in lists: ``mamba``/``mamba_ln`` (P-1),
+    ``ffn_dense``/``ffn_dense_ln`` and ``ffn_moe``/``ffn_moe_ln``. The
+    vocab head is separate, as in ``repro``."""
+    dtype, dev = _dtype(cfg), gen.device
+    n_periods, P, moe_slots, dense_slots = _hybrid_layout(cfg)
+
+    def lns(n):
+        return [init_norm(cfg.d_model, dtype, dev) for _ in range(n)]
+
+    def period():
+        return {"attn_ln": init_norm(cfg.d_model, dtype, dev),
+                "attn": init_attention(gen, cfg, dtype),
+                "mamba_ln": lns(P - 1),
+                "mamba": [init_mamba(gen, cfg, dtype) for _ in range(P - 1)],
+                "ffn_dense_ln": lns(len(dense_slots)),
+                "ffn_dense": [init_mlp(gen, cfg, dtype) for _ in dense_slots],
+                "ffn_moe_ln": lns(len(moe_slots)),
+                "ffn_moe": [init_moe(gen, cfg, dtype) for _ in moe_slots]}
+    return {
+        "embed": (torch.randn((cfg.vocab, cfg.d_model), generator=gen,
+                              device=dev) * 0.02).to(dtype),
+        "periods": [period() for _ in range(n_periods)],
+        "final_norm": init_norm(cfg.d_model, dtype, dev),
+        "head": (torch.randn((cfg.vocab, cfg.d_model), generator=gen,
+                             device=dev) * cfg.d_model ** -0.5).to(dtype),
+    }
+
+
+def _hybrid_period(cfg: ModelConfig, pp: Params, x, rot, *, caches=None,
+                   cache_pos=None):
+    """One period: sublayer 0 attention, 1..P-1 Mamba-2; an FFN after each
+    mixer (MoE on ``moe_slots``).
+
+    ``caches`` (decode): {"kv": (k, v) each (B, kv_len, KH, D), "conv",
+    "ssm": the period's P-1 states, each (B, ...)}. Returns (x, aux, new):
+    new = {"kv": (k, v), "conv": [P-1], "ssm": [P-1]} (at prefill the
+    prompt's K/V (B,S,KH,D) and final states). A prompt routes in groups
+    of 512 (the last one smaller); a decode step routes each row alone."""
+    _, P, moe_slots, _ = _hybrid_layout(cfg)
+    aux = 0.0
+    new = {"conv": [], "ssm": []}
+    d_i = m_i = 0
+    for j in range(P):
+        if j == 0:
+            xn = norm(pp["attn_ln"], x)
+            h, new["kv"] = attention(
+                pp["attn"], xn, cfg, rot=rot, window=cfg.window or None,
+                cache=None if caches is None else caches["kv"],
+                cache_pos=cache_pos)
+        else:
+            xn = norm(pp["mamba_ln"][j - 1], x)
+            if caches is None:
+                h, (conv, state) = mamba_prefill(pp["mamba"][j - 1], xn, cfg)
+            else:
+                h, (conv, state) = mamba_decode(
+                    pp["mamba"][j - 1], xn, cfg,
+                    (caches["conv"][j - 1], caches["ssm"][j - 1]))
+            new["conv"].append(conv)
+            new["ssm"].append(state)
+        x = x + h
+        if j in moe_slots:
+            f, a = moe(pp["ffn_moe"][m_i], norm(pp["ffn_moe_ln"][m_i], x),
+                       cfg, group_size=512 if caches is None else 1,
+                       ragged=True)
+            aux = aux + a
+            m_i += 1
+        else:
+            f = mlp(pp["ffn_dense"][d_i], norm(pp["ffn_dense_ln"][d_i], x),
+                    cfg)
+            d_i += 1
+        x = x + f
+    return x, aux, new
+
+
+def _hybrid_hidden(params: Params, cfg: ModelConfig, tokens):
+    B, S = tokens.shape
+    x = params["embed"][tokens].to(_dtype(cfg))
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    rot = rope_angles(positions, cfg.d_head, cfg.rope_theta)
+    aux, caches = 0.0, []
+    for pp in params["periods"]:
+        x, a, new = _hybrid_period(cfg, pp, x, rot)
+        aux = aux + a
+        caches.append(new)
+    return norm(params["final_norm"], x), aux, caches
+
+
+def hybrid_forward(params: Params, cfg: ModelConfig, tokens,
+                   want_cache: bool = False):
+    """Teacher-forced forward. tokens: (B,S) -> (logits (B,S,V), aux summed
+    over the MoE sublayers, per-period caches or None)."""
+    x, aux, caches = _hybrid_hidden(params, cfg, tokens)
+    return _logits(params, x), aux, (caches if want_cache else None)
+
+
+def hybrid_init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                      device) -> Dict[str, torch.Tensor]:
+    n_periods, P, _, _ = _hybrid_layout(cfg)
+    conv_s, ssm_s = mamba_state_shapes(cfg, batch)
+    kv_len = min(max_seq, cfg.window) if cfg.window else max_seq
+    kv = (n_periods, batch, kv_len, cfg.n_kv_heads, cfg.d_head)
+    n_mamba = n_periods * (P - 1)
+
+    def zeros(shape):
+        return torch.zeros(shape, dtype=_dtype(cfg), device=device)
+    return {"kv_k": zeros(kv), "kv_v": zeros(kv),
+            "conv": zeros((n_mamba,) + conv_s),
+            "ssm": zeros((n_mamba,) + ssm_s),
+            "pos": torch.zeros((batch,), dtype=torch.long, device=device)}
+
+
+def hybrid_prefill(params: Params, cfg: ModelConfig, tokens, max_seq: int):
+    """Run the exact-length prompt, return (last-position logits (B,V),
+    cache). The attention cache keeps the prompt's last kv_len keys, as in
+    ``repro``."""
+    B, S = tokens.shape
+    x, _, caches = _hybrid_hidden(params, cfg, tokens)
+    cache = hybrid_init_cache(cfg, B, max_seq, tokens.device)
+    kv_len = cache["kv_k"].shape[2]
+    n = min(S, kv_len)
+    P1 = cfg.attn_period - 1
+    for i, new in enumerate(caches):
+        k, v = new["kv"]
+        cache["kv_k"][i, :, :n] = k[:, S - n:]
+        cache["kv_v"][i, :, :n] = v[:, S - n:]
+        cache["conv"][i * P1:(i + 1) * P1] = torch.stack(new["conv"])
+        cache["ssm"][i * P1:(i + 1) * P1] = torch.stack(new["ssm"])
+    cache["pos"].fill_(S)
+    return _logits(params, x[:, -1]), cache
+
+
+def hybrid_decode(params: Params, cfg: ModelConfig, tokens, cache):
+    """One decode step for every row. tokens: (B,1); returns (logits (B,V),
+    cache), its tensors updated in place. The attention write clamps to
+    kv_len - 1, as ``repro``'s does."""
+    x = params["embed"][tokens].to(_dtype(cfg))
+    pos = cache["pos"]
+    write_pos = pos.clamp(max=cache["kv_k"].shape[2] - 1)
+    rot = rope_angles(pos[:, None], cfg.d_head, cfg.rope_theta)
+    P1 = cfg.attn_period - 1
+    for i, pp in enumerate(params["periods"]):
+        sl = slice(i * P1, (i + 1) * P1)
+        caches = {"kv": (cache["kv_k"][i], cache["kv_v"][i]),
+                  "conv": cache["conv"][sl], "ssm": cache["ssm"][sl]}
+        x, _, new = _hybrid_period(cfg, pp, x, rot, caches=caches,
+                                   cache_pos=write_pos)
+        cache["conv"][sl] = torch.stack(new["conv"])
+        cache["ssm"][sl] = torch.stack(new["ssm"])
+    x = norm(params["final_norm"], x)
+    return _logits(params, x[:, -1]), dict(cache, pos=pos + 1)
+
+
+# ===========================================================================
+# encdec program (whisper: encoder + causal decoder with cross-attention)
+# ===========================================================================
+
+DEC_LEN = 448            # whisper's decoder positions (its self cache)
+
+
+@functools.lru_cache(maxsize=16)
+def sinusoid_positions(S: int, d: int, dtype, device="cpu"):
+    """(S, d) sinusoids [sin | cos], computed in float64 as ``repro``'s and
+    cast to ``dtype`` on ``device``. Kept per arguments: a decode step
+    gathers its rows from the table without copying it to the card again
+    (callers must not write into it)."""
+    pos = np.arange(S)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10_000.0, 2 * dim / d)
+    emb = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(emb).to(device=device, dtype=dtype)
+
+
+def init_encdec(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """Random weights with ``repro``'s scales, drawn from ``gen``: biased
+    projections, LayerNorms, tied embeddings."""
+    dtype, dev, kind = _dtype(cfg), gen.device, cfg.norm
+
+    def ln():
+        return init_norm(cfg.d_model, dtype, dev, kind)
+
+    def enc_layer():
+        return {"ln1": ln(), "attn": init_attention(gen, cfg, dtype, True),
+                "ln2": ln(), "ffn": init_mlp(gen, cfg, dtype, bias=True)}
+
+    def dec_layer():
+        return {"ln1": ln(), "attn": init_attention(gen, cfg, dtype, True),
+                "ln_x": ln(), "cross": init_attention(gen, cfg, dtype, True),
+                "ln2": ln(), "ffn": init_mlp(gen, cfg, dtype, bias=True)}
+    return {
+        "embed": (torch.randn((cfg.vocab, cfg.d_model), generator=gen,
+                              device=dev) * 0.02).to(dtype),
+        "enc_layers": [enc_layer() for _ in range(cfg.encoder_layers)],
+        "enc_norm": ln(),
+        "dec_layers": [dec_layer() for _ in range(cfg.n_layers)],
+        "final_norm": ln(),
+    }
+
+
+def encdec_encode(params: Params, cfg: ModelConfig, frames):
+    """frames: (B, T, d_model) precomputed frame embeddings (the frontend
+    is a stub, as in ``repro``) -> encoder states (B, T, d_model). Every
+    layer attends over all T frames (flash, not causal)."""
+    B, T, _ = frames.shape
+    dtype, kind = _dtype(cfg), cfg.norm
+    x = frames.to(dtype) + sinusoid_positions(T, cfg.d_model, dtype,
+                                              frames.device)[None]
+    for lp in params["enc_layers"]:
+        h, _ = attention(lp["attn"], norm(lp["ln1"], x, kind), cfg, rot=None,
+                         causal=False)
+        x = x + h
+        x = x + mlp(lp["ffn"], norm(lp["ln2"], x, kind), cfg)
+    return norm(params["enc_norm"], x, kind)
+
+
+def _encdec_cross_kvs(params: Params, cfg: ModelConfig, enc_out):
+    """Every decoder layer's cross K/V, (k, v) each (B, T, KH, D), one
+    layer at a time (a generator: a caller that stores them holds one
+    layer's extra copy at most)."""
+    return (cross_kv(lp["cross"], cfg, enc_out) for lp in params["dec_layers"])
+
+
+def _encdec_decoder(params: Params, cfg: ModelConfig, tokens, cross_kvs,
+                    cache=None):
+    """The decoder over a prompt: causal self-attention, cross-attention to
+    ``cross_kvs`` (one (k, v) a layer). With ``cache``, each layer's self
+    K/V goes into it. Returns hidden states (B, S, d_model)."""
+    B, S = tokens.shape
+    dtype, kind = _dtype(cfg), cfg.norm
+    x = params["embed"][tokens].to(dtype) \
+        + sinusoid_positions(S, cfg.d_model, dtype, tokens.device)[None]
+    for i, (lp, ckv) in enumerate(zip(params["dec_layers"], cross_kvs)):
+        h, (k, v) = attention(lp["attn"], norm(lp["ln1"], x, kind), cfg,
+                              rot=None)
+        x = x + h
+        x = x + cross_attention(lp["cross"], norm(lp["ln_x"], x, kind), cfg,
+                                ckv)
+        x = x + mlp(lp["ffn"], norm(lp["ln2"], x, kind), cfg)
+        if cache is not None:
+            cache["k"][i, :, :S] = k
+            cache["v"][i, :, :S] = v
+    return norm(params["final_norm"], x, kind)
+
+
+def encdec_forward(params: Params, cfg: ModelConfig, frames, tokens):
+    """Teacher-forced: encode frames, decode tokens. Returns (logits
+    (B,S,V), aux 0.0, None), as ``repro``'s (without its cache)."""
+    enc_out = encdec_encode(params, cfg, frames)
+    x = _encdec_decoder(params, cfg, tokens,
+                        _encdec_cross_kvs(params, cfg, enc_out))
+    return _logits(params, x), 0.0, None
+
+
+def encdec_init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                      device) -> Dict[str, torch.Tensor]:
+    """Zeroed cache: the self K/V at ``DEC_LEN`` positions, the cross K/V
+    at ``max_seq`` encoder frames (``repro``'s sizes)."""
+    kv = (cfg.n_layers, batch, DEC_LEN, cfg.n_kv_heads, cfg.d_head)
+    cross = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.d_head)
+
+    def zeros(shape):
+        return torch.zeros(shape, dtype=_dtype(cfg), device=device)
+    return {"k": zeros(kv), "v": zeros(kv), "cross_k": zeros(cross),
+            "cross_v": zeros(cross),
+            "pos": torch.zeros((batch,), dtype=torch.long, device=device)}
+
+
+def encdec_prefill(params: Params, cfg: ModelConfig, frames, tokens):
+    """Encode the frames and run the decoder prompt; cache the self K/V
+    (``DEC_LEN`` slots) and the cross K/V (the encoder's T frames).
+    Returns (last-position logits (B,V), cache)."""
+    B, S = tokens.shape
+    if S > DEC_LEN:
+        raise ValueError(f"a {S}-token prompt exceeds {DEC_LEN} positions")
+    enc_out = encdec_encode(params, cfg, frames)
+    cache = encdec_init_cache(cfg, B, enc_out.shape[1], tokens.device)
+    for i, (k, v) in enumerate(_encdec_cross_kvs(params, cfg, enc_out)):
+        cache["cross_k"][i] = k
+        cache["cross_v"][i] = v
+    x = _encdec_decoder(params, cfg, tokens,
+                        zip(cache["cross_k"], cache["cross_v"]), cache)
+    cache["pos"].fill_(S)
+    return _logits(params, x[:, -1]), cache
+
+
+def encdec_decode(params: Params, cfg: ModelConfig, tokens, cache):
+    """One decode step for every row at its own ``pos`` (B,): sinusoid
+    position pos (clamped to the table, as a gather in ``repro`` clamps),
+    self-attention against the ``DEC_LEN`` cache, cross-attention over
+    every encoder frame (the decode kernel, start 0, length T). Returns
+    (logits (B,V), cache), its tensors updated in place."""
+    dtype, kind = _dtype(cfg), cfg.norm
+    pos = cache["pos"]
+    table = sinusoid_positions(DEC_LEN, cfg.d_model, dtype, tokens.device)
+    x = params["embed"][tokens].to(dtype) \
+        + table[pos.clamp(max=DEC_LEN - 1)][:, None]
+    for i, lp in enumerate(params["dec_layers"]):
+        h, _ = attention(lp["attn"], norm(lp["ln1"], x, kind), cfg, rot=None,
+                         cache=(cache["k"][i], cache["v"][i]), cache_pos=pos)
+        x = x + h
+        x = x + cross_attention(lp["cross"], norm(lp["ln_x"], x, kind), cfg,
+                                (cache["cross_k"][i], cache["cross_v"][i]))
+        x = x + mlp(lp["ffn"], norm(lp["ln2"], x, kind), cfg)
+    x = norm(params["final_norm"], x, kind)
+    return _logits(params, x[:, -1]), dict(cache, pos=pos + 1)

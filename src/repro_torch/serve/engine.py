@@ -10,7 +10,12 @@ JAX engines.
 axis after the layer axis and a ``(slots,)`` write cursor, updated in
 place: ``(L, slots, max_seq, KH, D)`` keys and values for the decoder,
 ``(L, slots, K-1, C)`` conv and ``(L, slots, h, p, n)`` SSM states for a
-Mamba-2 stack. JAX vmaps a batch-1 decode over the slot axis; the port
+Mamba-2 stack, and for the hybrid (jamba) ``(n_periods, slots, max_seq,
+KH, D)`` keys and values beside ``(n_periods * (P-1), slots, ...)`` conv
+and SSM states. An admitted prompt's batch-1 cache is copied into its
+slot along axis 1 of every leaf: the port's hybrid cache folds
+``repro``'s (n_periods, P-1) state axes into one so that the batch is
+axis 1 there too (``models/transformer.py``). JAX vmaps a batch-1 decode over the slot axis; the port
 decodes all slots as ONE batch whose rows each carry their own position
 and length (rope, cache write and the decode kernel are all per row). Finished slots free-run:
 their lane keeps decoding, the host stops reading it, and a KV write
@@ -18,6 +23,10 @@ clamps to ``max_seq - 1`` so it never touches another lane. Where the
 model takes padded prompts (``supports_padded_prefill``: the decoder)
 they are right-padded to power-of-two buckets and prefilled with their
 true length; a recurrent model prefills the exact length, as in JAX.
+The engines serve token prompts only: an encoder-decoder (whisper), whose
+prefill needs audio frames, is refused (``repro``'s engine would fail on
+the missing frames), and so, at its first prompt, is a mixed cache, which
+has no prefill.
 
 ``DictCacheEngine`` is ``repro``'s seed-era baseline: a batch-1 cache per
 slot in a dict, a prefill at the prompt's exact length, and one batch-1
@@ -79,6 +88,11 @@ class _EngineBase:
     """Shared host-side bookkeeping: queue, elasticity API, counters."""
 
     def __init__(self, model: Model, params, cfg: EngineConfig):
+        if model.cfg.family == "encdec":
+            raise ValueError(
+                f"{model.cfg.name}: the serving engine takes no audio frames "
+                "(it prefills token prompts only); drive an encoder-decoder "
+                "through Model.prefill({'frames', 'tokens'}) and decode")
         self.model = model
         self.params = params
         self.cfg = cfg

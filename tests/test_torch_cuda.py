@@ -61,6 +61,15 @@ def _tol(dtype):
     (1, 16, 16, 128, 128, 128, True, 0),
     (1, 16, 16, 512, 512, 128, True, 0),
     (1, 16, 16, 1024, 1024, 128, True, 0),
+    # whisper-large-v3: 20 heads on 20 kv heads, d_head 64: the encoder
+    # (1,500 frames, not causal), the prompt's cross-attention (4 queries
+    # over 1,500 frames) and its causal self-attention
+    (1, 20, 20, 1500, 1500, 64, False, 0),
+    (4, 20, 20, 4, 1500, 64, False, 0),
+    (4, 20, 20, 4, 4, 64, True, 0),
+    # jamba: 64 heads on 8 kv heads (G = 8), d_head 128, exact lengths
+    (1, 64, 8, 300, 300, 128, True, 0),
+    (1, 64, 8, 1000, 1000, 128, True, 0),
 ])
 def test_flash_kernel_matches_plain(cuda_device, dtype, B, H, KH, S, T, D,
                                     causal, window):
@@ -105,6 +114,9 @@ def _kernels_a_call(fn, calls=3):
     (2, 2, 1, 17, 17, 64, 8, True, False),        # ragged S = 17
     (1, 2, 1, 700, 900, 64, 0, False, True),      # kv range split 4 ways
     (1, 16, 16, 512, 512, 128, 0, True, False),   # qwen2-moe: G = 1
+    (1, 20, 20, 1500, 1500, 64, 0, False, False),  # whisper's encoder
+    (1, 20, 20, 4, 1500, 64, 0, False, False),    # its cross-attention
+    (1, 64, 8, 300, 300, 128, 0, True, False),    # jamba: G = 8
 ])
 def test_flash_fp32_kernel_matches_plain(cuda_device, B, H, KH, S, T, D,
                                          window, causal, must_split):
@@ -169,7 +181,12 @@ def test_flash_bf16_refuses_rows_tma_cannot_load(cuda_device):
                                       # loads (not 16-byte multiples)
                                       (4, 1, 300, 40), (12, 2, 130, 37),
                                       # qwen2-moe-a2.7b: G = 1, D = 128
-                                      (16, 16, 2048, 128)])
+                                      (16, 16, 2048, 128),
+                                      # whisper: self (448) and cross
+                                      # (1,500 frames), G = 1, D = 64
+                                      (20, 20, 448, 64), (20, 20, 1500, 64),
+                                      # jamba: G = 8, D = 128
+                                      (64, 8, 2048, 128)])
 def test_decode_kernel_matches_plain(cuda_device, dtype, H, KH, S, D):
     B = 4
     g = torch.Generator(cuda_device).manual_seed(S + D)
@@ -200,6 +217,13 @@ def test_decode_kernel_matches_plain(cuda_device, dtype, H, KH, S, D):
     (torch.bfloat16, 4, 16, 16, 2048, 128, [108, 308, 708, 1008],
      [0, 0, 0, 0]),
     (torch.float32, 4, 16, 16, 2048, 128, [108, 308, 708, 1008],
+     [0, 0, 0, 0]),
+    # whisper's cross-attention: every row over all 1,500 frames
+    (torch.bfloat16, 4, 20, 20, 1500, 64, [1500] * 4, [0] * 4),
+    # gemma3-1b's mixed cache: a full 512-slot ring, start 0
+    (torch.bfloat16, 2, 4, 1, 512, 256, [512, 512], [0, 0]),
+    # jamba's attention layer: the serving rows, G = 8
+    (torch.bfloat16, 4, 64, 8, 2048, 128, [108, 308, 708, 1008],
      [0, 0, 0, 0]),
 ])
 def test_decode_kernel_ranges(cuda_device, dtype, B, H, KH, S, D, lengths,
@@ -719,6 +743,8 @@ def _ssd_tol(dtype):
     (1, 20, 2, 24, 16, 128, True),        # ck = l = 20: ragged chunk and P
     (1, 1024, 32, 64, 128, 128, False),   # mamba2-370m: the longest prompt
     (2, 768, 32, 64, 128, 128, True),     # six chunks, two rows, a state
+    (1, 384, 256, 64, 128, 128, False),   # jamba: 256 heads of 64
+    (1, 1024, 256, 64, 128, 128, False),
 ])
 def test_ssd_kernel_matches_plain(cuda_device, dtype, b, l, h, p, n, chunk,
                                   with_state):
@@ -1287,3 +1313,81 @@ def test_autoscale_cli_on_the_card_explores_as_the_cpu(cuda_device):
                 sorted((o.sid, o.param, o.requested)
                        for o in c.receipt.outcomes)
         assert 0.0 <= h.fulfillment <= 1.0
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-large-v3",
+                                  "jamba-1.5-large-398b"])
+def test_new_families_on_the_card_match_the_cpu(cuda_device, arch):
+    """whisper's and jamba's smoke cuts in float32, one set of weights: a
+    prefill (whisper: 2 clips of 40 frames and 5 tokens; jamba: 37
+    tokens) and 4 decode steps, logits within 1e-4 (the bar of
+    ``tests/test_torch_model.py``), and each attention and SSD call on
+    the kernels."""
+    from repro_torch.configs import get
+    from repro_torch.kernels.flash_attention import reset_launches
+    from repro_torch.models import build
+    cfg = get(arch).smoke()
+    model = build(cfg)
+    params = model.init(torch.Generator("cpu").manual_seed(4))
+    rng = np.random.default_rng(4)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 37)))}
+    if cfg.family == "encdec":
+        batch = {"tokens": batch["tokens"][:, :5], "frames": torch.from_numpy(
+            rng.normal(size=(2, 40, cfg.d_model)).astype(np.float32))}
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        reset_launches()
+        decode_attention_cuda.launches = ssd_cuda.launches = 0
+        logits, cache = model.prefill(_to(params, dev), _to(batch, dev),
+                                      max_seq=64)
+        steps = [logits]
+        for _ in range(4):
+            nxt = torch.argmax(steps[-1], -1)[:, None]
+            logits, cache = model.decode(_to(params, dev), nxt, cache)
+            steps.append(logits)
+        out.append([s.cpu() for s in steps])
+        if dev.type == "cuda":
+            launches = (flash_attention_cuda.launches,
+                        decode_attention_cuda.launches, ssd_cuda.launches)
+    for a, b in zip(*out):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    if cfg.family == "encdec":       # encoder, prompt and cross; self + cross
+        assert launches == (cfg.encoder_layers + 2 * cfg.n_layers,
+                            4 * 2 * cfg.n_layers, 0)
+    else:                            # one period: attention, 7 Mamba-2
+        assert launches == (1, 4, 7)
+
+
+@pytest.mark.cuda
+def test_mixed_cache_on_the_card_matches_the_full_cache(cuda_device):
+    """gemma3-1b's smoke cut (window 16) in float32 with the mixed cache:
+    40 steps from token 0 (the ring wraps twice) give the full-cache
+    decode's logits within 1e-4, one decode launch a layer a step."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.models import build
+    cfg = dataclasses.replace(get("gemma3-1b").smoke(), mixed_cache=True)
+    mixed = build(cfg)
+    full = build(dataclasses.replace(cfg, mixed_cache=False))
+    params = _to(mixed.init(torch.Generator("cpu").manual_seed(5)),
+                 cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (40, 2, 1))).to(cuda_device)
+    mc = mixed.init_cache(2, 64, cuda_device)
+    fc = full.init_cache(2, 64, cuda_device)
+    decode_attention_cuda.launches = 0
+    for t in range(40):
+        lm, mc = mixed.decode(params, toks[t], mc)
+        lf, fc = full.decode(params, toks[t], fc)
+        torch.testing.assert_close(lm, lf, rtol=1e-4, atol=1e-4)
+    assert decode_attention_cuda.launches == 2 * 40 * cfg.n_layers

@@ -176,15 +176,27 @@ def test_prefill_and_decode_match_reference(pair, S, pad_to):
 
 def test_other_families_name_their_roadmap_item():
     """MoE builds (and takes padded prompts, as in ``repro``); the
-    encoder-decoder (whisper) names its ROADMAP item; an unknown arch
-    names the known ones."""
+    encoder-decoder (whisper, ROADMAP item 13a) builds at full width and
+    its smoke cut's prefill gives ``repro``'s logits; an unknown arch names
+    the known ones."""
     cfg = ModelConfig(name="tiny-moe", family="moe", n_layers=2, d_model=8,
                       n_heads=2, n_kv_heads=1, d_head=4, d_ff=8, vocab=16,
                       n_experts=2, top_k=1)
     assert build(cfg).supports_padded_prefill
     assert build(get("qwen3-32b")).cfg.family == "dense"
-    with pytest.raises(NotImplementedError, match="ROADMAP.*13a.*whisper"):
-        build(get("whisper-large-v3"))
+    assert build(get("whisper-large-v3")).cfg.family == "encdec"
+    jmodel = jax_build(jax_get("whisper-large-v3").smoke())
+    jparams = jax.jit(jmodel.init)(jax.random.PRNGKey(2))
+    wcfg = get("whisper-large-v3").smoke()
+    params = params_from_numpy(wcfg, jax.tree.map(np.asarray, jparams))
+    rng = np.random.default_rng(2)
+    batch = {"frames": rng.normal(size=(1, 16, wcfg.d_model)).astype(
+        np.float32), "tokens": rng.integers(0, wcfg.vocab, (1, 3))}
+    jl, _ = jmodel.prefill(jparams, jax.tree.map(jnp.asarray, batch),
+                           max_seq=16)
+    tl, _ = build(wcfg).prefill(params, jax.tree.map(torch.from_numpy,
+                                                     batch), max_seq=16)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     with pytest.raises(KeyError, match="gemma3-1b"):
         get("gemma4-1b")
 
@@ -200,19 +212,30 @@ def test_init_is_seeded_and_on_the_generator_device():
 
 
 def test_ssm_family_builds_and_hybrid_names_its_roadmap_item():
-    """The port runs the dense, MoE and ssm programs; the hybrid (jamba)
-    names its ROADMAP item. The registry holds ``repro``'s ten configs."""
+    """The port runs every family: ssm, and the hybrid (jamba, ROADMAP
+    item 13b) at full width and as a tiny two-sublayer period whose
+    forward gives ``repro``'s logits and aux loss. The registry holds
+    ``repro``'s ten configs."""
     from repro.configs import ARCHS as JAX_ARCHS
+    from repro.models import ModelConfig as JaxModelConfig
     from repro_torch.configs import ARCHS
     assert list(ARCHS) == list(JAX_ARCHS) and len(ARCHS) == 10
-    with pytest.raises(NotImplementedError, match="ROADMAP.*13b.*jamba"):
-        build(get("jamba-1.5-large-398b"))
+    assert build(get("jamba-1.5-large-398b")).cfg.family == "hybrid"
     assert build(get("mamba2-370m")).cfg.family == "ssm"
     assert build(get("gemma3-1b")).supports_padded_prefill
     assert not build(get("mamba2-370m")).supports_padded_prefill
-    cfg = ModelConfig(name="tiny-hybrid", family="hybrid", n_layers=2,
-                      d_model=8, n_heads=2, n_kv_heads=1, d_head=4, d_ff=8,
-                      vocab=16, ssm_state=4, attn_period=2, n_experts=2,
-                      top_k=1, moe_every=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*13b.*hybrid"):
-        build(cfg)
+    fields = dict(name="tiny-hybrid", family="hybrid", n_layers=2,
+                  d_model=8, n_heads=2, n_kv_heads=1, d_head=4, d_ff=8,
+                  vocab=16, ssm_state=4, ssm_head_dim=4, ssm_chunk=4,
+                  attn_period=2, n_experts=2, top_k=1, moe_every=2,
+                  dtype="float32")
+    cfg, jcfg = ModelConfig(**fields), JaxModelConfig(**fields)
+    jparams = jax.jit(jax_build(jcfg).init)(jax.random.PRNGKey(3))
+    params = params_from_numpy(cfg, jax.tree.map(np.asarray, jparams))
+    toks = np.random.default_rng(3).integers(0, 16, (2, 6))
+    jl, jaux, _ = jax_transformer.hybrid_forward(jparams, jcfg,
+                                                 jnp.asarray(toks))
+    tl, aux, _ = transformer.hybrid_forward(params, cfg,
+                                            torch.from_numpy(toks))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)

@@ -11,8 +11,9 @@ MoE configs it builds, on the CPU.
    shared expert) give ``repro``'s logits from ``repro``'s weights, after
    a prefill and over 3 decode steps (1e-4, the bar of
    ``tests/test_torch_model.py``);
- * jamba (hybrid) and whisper (encdec) are registered as data, and
-   building either names its ROADMAP item;
+ * jamba (hybrid) and whisper (encdec) build at full width, and their
+   smoke cuts give ``repro``'s logits after a prefill and over 3 decode
+   steps;
  * the new modules (the configs, ``models/moe.py``, the three launchers)
    load neither ``jax`` nor ``repro``.
 """
@@ -79,8 +80,33 @@ def test_shapes_and_cells_match_repro():
 @pytest.mark.parametrize("name,item", [("jamba-1.5-large-398b", "13b"),
                                        ("whisper-large-v3", "13a")])
 def test_unported_families_name_their_item(name, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        build(configs.get(name))
+    """The two families ROADMAP items 13a and 13b ported build at full
+    width, and their smoke cuts give ``repro``'s logits after a prefill
+    and over 3 decode steps (1e-4)."""
+    assert build(configs.get(name)).cfg.family == \
+        jax_configs.get(name).family, f"ROADMAP item {item}"
+    jcfg, cfg = jax_configs.get(name).smoke(), configs.get(name).smoke()
+    jmodel = jax_build(jcfg)
+    jparams = jax.jit(jmodel.init)(jax.random.PRNGKey(1))
+    params = params_from_numpy(cfg, jax.tree.map(np.asarray, jparams))
+    model = build(cfg)
+    rng = np.random.default_rng(2)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, 12))}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.normal(size=(2, 24, cfg.d_model)).astype(
+            np.float32)
+    jl, jc = jmodel.prefill(jparams, jax.tree.map(jnp.asarray, batch),
+                            max_seq=32)
+    tl, tc = model.prefill(params, jax.tree.map(torch.from_numpy, batch),
+                           max_seq=32)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    jdecode = jax.jit(jmodel.decode)
+    for _ in range(3):
+        nxt = np.asarray(jnp.argmax(jl, -1))
+        jl, jc = jdecode(jparams, jnp.asarray(nxt[:, None], jnp.int32), jc)
+        tl, tc = model.decode(params, torch.from_numpy(nxt[:, None].copy()),
+                              tc)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
 
 
 @pytest.mark.parametrize("name", ["qwen3-32b", "chameleon-34b",
