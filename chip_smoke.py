@@ -415,6 +415,39 @@ capacity, peak memory. Phase "hybrid_trace" is ``phase_trace`` on that
 engine beside a decode step's byte bound (every weight but the
 embedding table, the K/V read, the Mamba-2 states read and written).
 
+Training. Phase "train_kernels" holds attention's backward kernel
+(``csrc/flash_attention_backward.cu``: three CUDA kernels a call, checked
+with the profiler) and the forward kernels' ``lse`` against their plain
+versions, in float32 (1e-4 of each gradient's largest entry; lse within
+1e-4) and bf16 (5e-2; lse 1e-3), at gemma3-1b's training shape (4 x 1,024
+tokens, 4 query heads on 1 kv head, d_head 256, causal, window 512 and
+none), a ragged 600-token row and whisper's decoder over its frames (187
+tokens against 1,500, G = 1, d_head 64, not causal). It times the backward
+(device and call ms), its plain version and, as the library yardstick,
+SDPA's backward alone on a retained graph (which the port never calls),
+beside its bound: bytes over 3.35 TB/s against five products' flops over
+67 or 989 TFLOP/s; and the forward with and without ``lse``. Phase
+"train_crosscheck" runs gemma3-1b at full width cut to 2 layers (one
+local, one global), float32, on one 600-token row: the loss and every
+gradient leaf on the card against the CPU (1e-4; 1e-3 of each leaf's
+largest entry), the flash forward and backward kernels once a layer, then
+one AdamW update on each side from the same gradients (1e-6). Phase
+"train" trains gemma3-1b, all 26 layers at full width, float32 (1.0 B
+parameters), through ``make_train_step`` and the ``Trainer`` on
+``TokenPipeline(vocab=262144, batch=4, seq=1024)`` for 12 steps, the
+checkpoint in a temporary directory: losses and grad norms finite, the
+loss falling, the forward and backward kernels 26 times a step, peak
+memory under 80 GB; the final checkpoint restored by a resumed
+``Trainer`` bitwise equal at the saved step. It reports step ms, tokens/s
+against the step's bound (6 N tokens over 67 TFLOP/s), peak memory, the
+checkpoint's save and restore seconds and bytes, and a ``profile_window``
+over 2 steps with the backward kernel's share of device time, and the
+final weights' loss on the first and last batches it trained on. Its
+optimizer is ``launch/train.py``'s at ``--lr 1e-3``: at the launcher's
+default 3e-3, set for the smoke cut, the full width's loss rose.
+
+Every phase line carries its wall ``seconds``.
+
 Prints the card's name and power limit, one JSON line per phase, a
 ``{"kernels": [...]}`` line (one entry a kernel, the float32 flash kernel
 its own), and as the last line
@@ -427,6 +460,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -943,14 +977,15 @@ def phase_serve(dev, arch="gemma3-1b", name="serve", wrap=FiniteLogits):
 
 
 
-def profile_window(label, fn, n):
+def profile_window(label, fn, n, share_of=()):
     """``torch.profiler`` over ``n`` calls of ``fn`` (after one warm call).
 
     Device busy time is the summed duration of the device's own events
     (kernels, copies, memsets). A CPU op's device time repeats the kernels
     it launched, so CPU ops are left out of that sum; the rest of the wall
     clock the device idles. Also counts the kernel launch calls a call and
-    the device-to-host copies the device ran a call."""
+    the device-to-host copies the device ran a call, and, for each name in
+    ``share_of``, the device ms a call of the kernels whose names hold it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -974,6 +1009,9 @@ def profile_window(label, fn, n):
     top_dev = sorted(dev, key=dev_us, reverse=True)[:8]
     top_cpu = sorted(host, key=lambda e: e.self_cpu_time_total,
                      reverse=True)[:8]
+    extra = {"device_ms_of": {name: sum(dev_us(e) for e in dev
+                                        if name in e.key) / n / 1e3
+                              for name in share_of}} if share_of else {}
     return {"window": label, "wall_ms": wall_us / 1e3,
             "device_busy_ms": busy / 1e3,
             "device_idle_share": max(0.0, 1.0 - busy / wall_us),
@@ -984,7 +1022,7 @@ def profile_window(label, fn, n):
             "top_device_ms": [[e.key, dev_us(e) / n / 1e3, e.count / n]
                               for e in top_dev],
             "top_host_self_ms": [[e.key, e.self_cpu_time_total / n / 1e3,
-                                  e.count / n] for e in top_cpu]}
+                                  e.count / n] for e in top_cpu], **extra}
 
 
 def phase_trace(engine, name="trace", steps=3):
@@ -4529,7 +4567,360 @@ def phase_hybrid_trace(engine):
     return res
 
 
+# -- training: attention's backward kernel, gemma3-1b trained ------------------
+
+TRAIN_ARCH = "gemma3-1b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 12
+# launch/train.py's 3e-3 (its default, for the smoke cut) made the full
+# width's loss rise after step 10 on the H100 (12.718 -> 12.811 in 12
+# steps); 1e-3 falls (12.718 -> 12.646)
+TRAIN_LR = 1e-3
+BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_backward.cu"
+# the backward against its plain version: 1e-4 of each gradient's largest
+# entry in float32 (the same sums in another order), 5e-2 in bf16 (inputs,
+# P and dS rounded to bf16); the forward's lse within 1e-4 in float32 and
+# 1e-3 in bf16 (float32 scores on both sides)
+BWD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+LSE_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
+
+
+def train_cases(dev, dtype):
+    """The backward kernel's inputs: gemma3-1b's training shape (4 rows of
+    1,024 tokens, 4 query heads on 1 kv head, d_head 256, causal) on a
+    local layer (window 512) and a global one; the cross-check's ragged
+    600-token row; and whisper's decoder over its frames (G = 1, d_head 64,
+    not causal, S = 1,500 // 8 = 187 tokens against T = 1,500 frames, 4
+    clips). Each case is (name, q, k, v, do, window, causal)."""
+    g = torch.Generator(dev).manual_seed(23)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+    out = []
+    for window in (512, 0):
+        out.append((f"gemma_w{window}", randn(4, 4, 1024, 256),
+                    randn(4, 1, 1024, 256), randn(4, 1, 1024, 256),
+                    randn(4, 4, 1024, 256), window, True))
+    out.append(("ragged_S600", randn(1, 4, 600, 256), randn(1, 1, 600, 256),
+                randn(1, 1, 600, 256), randn(1, 4, 600, 256), 512, True))
+    out.append(("whisper_S187_T1500", randn(4, 20, 187, 64),
+                randn(4, 20, 1500, 64), randn(4, 20, 1500, 64),
+                randn(4, 20, 187, 64), 0, False))
+    return out
+
+
+def phase_train_kernels(dev):
+    """The backward kernel and the forward's ``lse`` against their plain
+    versions on the card, float32 and bf16, on ``train_cases``; times of the
+    backward (device and call ms, its plain version, and SDPA's backward
+    alone on a retained graph, which the port never calls), the forward
+    with and without ``lse``, the bound, and the CUDA kernels a backward
+    call launches (3)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_cuda, flash_attention_cuda)
+
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for name, q, k, v, do, window, causal in train_cases(dev, dtype):
+            out, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                            window=window, return_lse=True)
+            want_lse = ref.flash_attention_lse_reference(
+                q, k, causal=causal, window=window)
+            got = flash_attention_backward_cuda(q, k, v, out, lse, do,
+                                                causal=causal, window=window)
+            want = ref.flash_attention_backward_reference(
+                q, k, v, out, lse, do, causal=causal, window=window)
+            torch.cuda.synchronize()
+            lse_err = (lse - want_lse).abs().max().item()
+            errs = [(a.float() - b.float()).abs().max().item()
+                    for a, b in zip(got, want)]
+            rel = [e / b.float().abs().max().item()
+                   for e, b in zip(errs, want)]
+            check(lse_err <= LSE_TOL[dname],
+                  f"lse {name} {dname}: error {lse_err}")
+            check(max(rel) <= BWD_TOL[dname],
+                  f"backward {name} {dname}: errors over the largest entry "
+                  f"{rel}")
+            B, H, S, D = q.shape
+            KH, T = k.shape[1], k.shape[2]
+            pairs = int(ref.attention_mask(S, T, causal, window, dev).sum())
+            es = q.element_size()
+            nbytes = (4 * q.numel() + 4 * k.numel()) * es + 4 * lse.numel()
+            flops = 10 * B * H * D * pairs          # five products
+            row = {"kernel": "flash_attention_backward", "case": name,
+                   "dtype": dname, "shape": [B, H, KH, S, T, D],
+                   "causal": causal, "window": window,
+                   "max_abs_err": max(errs), "max_rel_err": max(rel),
+                   "lse_err": lse_err,
+                   "bound": bound_ms(nbytes, flops, dname)}
+
+            def call():
+                return flash_attention_backward_cuda(
+                    q, k, v, out, lse, do, causal=causal, window=window)
+            row["ms"], row["call_ms"] = time_ms([call], 10)
+            row["kernels_per_call"], row["kernel_names"] = \
+                kernels_per_call(call, calls=3)
+            check(row["kernels_per_call"] == 3,
+                  f"backward {name} {dname}: {row['kernels_per_call']} "
+                  f"kernels a call ({row['kernel_names']}), want 3")
+            row["plain_ms"], row["plain_call_ms"] = time_ms([
+                lambda: ref.flash_attention_backward_reference(
+                    q, k, v, out, lse, do, causal=causal, window=window)], 3)
+            row["fwd_ms"], _ = time_ms([lambda: flash_attention_cuda(
+                q, k, v, causal=causal, window=window)], 10)
+            row["fwd_lse_ms"], _ = time_ms([lambda: flash_attention_cuda(
+                q, k, v, causal=causal, window=window, return_lse=True)], 10)
+
+            # SDPA's backward alone: a retained graph over leaves of the
+            # kernel's shapes (the kv heads expanded inside the graph, so
+            # dK and dV are summed over a kv head's query heads)
+            lq, lk, lv = (t.detach().requires_grad_(True) for t in (q, k, v))
+            G = H // KH
+            kk = lk.repeat_interleave(G, 1) if G > 1 else lk
+            vv = lv.repeat_interleave(G, 1) if G > 1 else lv
+            if window or (causal and S != T):
+                lib_out = F.scaled_dot_product_attention(
+                    lq, kk, vv, attn_mask=ref.attention_mask(
+                        S, T, causal, window, dev))
+            else:
+                lib_out = F.scaled_dot_product_attention(lq, kk, vv,
+                                                         is_causal=causal)
+
+            def sdpa_backward():
+                return torch.autograd.grad(lib_out, (lq, lk, lv), do,
+                                           retain_graph=True)
+            lib = sdpa_backward()
+            torch.cuda.synchronize()
+            row["library_err"] = max((a.float() - b.float()).abs().max().item()
+                                     for a, b in zip(lib, want))
+            row["library_ms"], row["library_call_ms"] = time_ms(
+                [sdpa_backward], 10)
+            del lib_out, lib, lq, lk, lv, kk, vv
+            rows.append(row)
+            log(f"backward {name} {dname}: {row}")
+    return {"phase": "train_kernels", "cases": rows}
+
+
+def _grads_of(model, params, batch):
+    from repro_torch.launch.steps import _value_and_grad
+    loss, metrics, grads = _value_and_grad(model, params, batch)
+    return float(loss), grads
+
+
+def phase_train_crosscheck(dev):
+    """gemma3-1b at full width cut to 2 layers (one local, one global, as
+    phase "crosscheck" cuts it), float32, one 600-token row (past the 512
+    window, so the local mask bites): the loss and every gradient leaf on
+    the card against the same weights on the CPU, the flash forward and
+    backward kernels once a layer; then one AdamW update on each side from
+    the SAME gradients (the CPU's; Adam's first step is ~lr x sign(g), so
+    gradients that differ in rounding give updates that differ where g is
+    ~0)."""
+    import numpy as np
+
+    from repro_torch.configs import get
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_cuda, flash_attention_cuda, reset_launches)
+    from repro_torch.models import build
+    from repro_torch.train.optimizer import AdamWConfig, adamw
+    from repro_torch.train.tree import leaves
+
+    # the loss within 1e-4 and each gradient leaf within 1e-3 of its
+    # largest entry (or 1e-8): the same float32 arithmetic (no TF32) in
+    # another summation order; a wrong mask, window or position moves
+    # them by orders more. The update: within 1e-6 (lr 3e-4 at step 1).
+    tol_loss, tol_grad, tol_update = 1e-4, 1e-3, 1e-6
+    cfg = dataclasses.replace(get(TRAIN_ARCH), n_layers=2,
+                              local_global_period=2, dtype="float32")
+    model = build(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(1))
+    cpu_params = _to_cpu(params)
+    rng = np.random.default_rng(3)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (1, 600)))
+             for k in ("tokens", "labels")}
+    reset_launches()
+    gl, gg = _grads_of(model, params, {k: v.to(dev)
+                                       for k, v in batch.items()})
+    torch.cuda.synchronize()
+    launches = {"flash_attention_fp32": flash_attention_cuda.launches,
+                "flash_attention_backward":
+                    flash_attention_backward_cuda.launches}
+    cl, cg = _grads_of(model, cpu_params, batch)
+    errs = [((a.cpu() - b).abs().max().item(), b.abs().max().item())
+            for a, b in zip(gg, cg)]
+    worst = max(e / max(s, 1e-30) for e, s in errs if s > 1e-5)
+    check(launches == {"flash_attention_fp32": cfg.n_layers,
+                       "flash_attention_backward": cfg.n_layers},
+          f"train cross-check: launches {launches}")
+    check(abs(gl - cl) <= tol_loss, f"train cross-check: loss {gl} vs {cl}")
+    check(all(e <= max(tol_grad * s, 1e-8) for e, s in errs),
+          f"train cross-check: gradients differ (worst {worst} of the "
+          "largest entry)")
+
+    opt_cfg = AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=12)
+    init, update = adamw(opt_cfg)
+    new_gpu, _, m_gpu = update([g.to(dev) for g in cg], init(leaves(params)),
+                               leaves(params))
+    new_cpu, _, m_cpu = update(cg, init(leaves(cpu_params)),
+                               leaves(cpu_params))
+    upd_err = max((a.cpu() - b).abs().max().item()
+                  for a, b in zip(new_gpu, new_cpu))
+    check(upd_err <= tol_update, f"train cross-check: AdamW updates differ "
+          f"by {upd_err}")
+    res = {"phase": "train_crosscheck", "layers": ["local", "global"],
+           "tokens": 600, "loss_gpu": gl, "loss_cpu": cl,
+           "loss_err": abs(gl - cl), "grad_leaves": len(errs),
+           "grad_worst_rel_err": worst,
+           "grad_max_abs_err": max(e for e, _ in errs),
+           "update_max_abs_err": upd_err,
+           "grad_norm": [float(m_gpu["grad_norm"]),
+                         float(m_cpu["grad_norm"])],
+           "tolerance": {"loss": tol_loss, "grad_rel": tol_grad,
+                         "update": tol_update},
+           "launches": launches}
+    log(json.dumps(res))
+    return res
+
+
+def phase_train(dev, steps=TRAIN_STEPS):
+    """The slice: gemma3-1b, all 26 layers at full width, float32, seeded
+    weights, trained by the port's ``Trainer`` through ``make_train_step``
+    on ``TokenPipeline(vocab=262144, batch=4, seq=1024)`` with
+    ``AdamWConfig(lr=TRAIN_LR, warmup_steps=10, total_steps=steps)`` as
+    ``launch/train.py`` builds it (``--lr 1e-3``: ``TRAIN_LR``),
+    checkpointing into a temporary directory
+    at the end. Checks: every loss and grad norm finite, the last loss
+    below the first, the flash forward and backward kernels 26 times a
+    step, peak memory under 80 GB; the final checkpoint restored by a
+    resumed ``Trainer`` into fresh tensors, bitwise equal, at the saved
+    step. Reports step ms, tokens/s against the step's bound (6 N tokens
+    over 67 TFLOP/s), peak memory, the checkpoint's save and restore
+    seconds, and a ``profile_window`` over 2 steps."""
+    import tempfile
+
+    from repro_torch.configs import get
+    from repro_torch.data import TokenPipeline
+    from repro_torch.device import upload
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_cuda, flash_attention_cuda, reset_launches)
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build
+    from repro_torch.train.optimizer import AdamWConfig, adamw
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.train.tree import leaves
+
+    resident = _free_card()
+    cfg = dataclasses.replace(get(TRAIN_ARCH), dtype="float32")
+    model = build(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    n_params = sum(p.numel() for p in leaves(params))
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=10, total_steps=steps)
+    init, _ = adamw(opt_cfg)
+    step_fn = make_train_step(cfg, TRAIN_BATCH, TRAIN_SEQ, opt_cfg=opt_cfg,
+                              device=dev)
+    pipeline = TokenPipeline(vocab=cfg.vocab, batch=TRAIN_BATCH,
+                             seq=TRAIN_SEQ)
+
+    def to_device(b):
+        return {k: upload(v, dev) for k, v in b.items()}
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        tcfg = TrainerConfig(total_steps=steps, ckpt_every=10 ** 9,
+                             ckpt_dir=ckpt_dir, log_every=10 ** 9)
+        trainer = Trainer(step_fn, params, init(params), pipeline, tcfg,
+                          to_device=to_device)
+        saves = []
+        save = trainer.ckpt.save
+
+        def timed_save(*a, **kw):
+            t = time.perf_counter()
+            save(*a, **kw)
+            saves.append(time.perf_counter() - t)
+        trainer.ckpt.save = timed_save
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        hist = trainer.run()
+        wall = time.perf_counter() - t0
+        launches = {"flash_attention_fp32": flash_attention_cuda.launches,
+                    "flash_attention_backward":
+                        flash_attention_backward_cuda.launches}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+
+        # a resumed Trainer restores the final checkpoint into fresh tensors
+        resumed = Trainer(step_fn, trainer.params, trainer.opt_state,
+                          pipeline, tcfg, to_device=to_device)
+        t = time.perf_counter()
+        start = resumed.maybe_restore()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        same = all(torch.equal(a, b) for a, b in zip(
+            leaves((resumed.params, resumed.opt_state)),
+            leaves((trainer.params, trainer.opt_state))))
+        ckpt_bytes = sum(f.stat().st_size for f in
+                         Path(ckpt_dir).rglob("*") if f.is_file())
+        del resumed
+
+    with torch.no_grad():           # the final weights on two seen batches
+        seen = {f"batch_{i}": float(model.loss(trainer.params, to_device(
+            pipeline.batch_at(i)))[0]) for i in (0, steps - 1)}
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    step_ms = [1e3 * h["time_s"] for h in hist]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    med = statistics.median(step_ms[1:])
+    bound = 1e3 * 6 * n_params * tokens / PEAK_FLOPS["float32"]
+    batch = to_device(pipeline.batch_at(steps))
+    state = [trainer.params, trainer.opt_state]
+
+    def one_step():
+        state[0], state[1], _ = step_fn(state[0], state[1], batch)
+    prof = profile_window("train_step", one_step, 2,
+                          share_of=("dkdv_kernel", "dq_kernel",
+                                    "delta_kernel"))
+    prof["backward_kernel_share"] = sum(
+        prof["device_ms_of"].values()) / max(prof["device_busy_ms"], 1e-9)
+    res = {"phase": "train", "model": cfg.name, "params": n_params,
+           "dtype": cfg.dtype, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": len(hist), "loss": losses, "grad_norm": norms,
+           "lr": [h["lr"] for h in hist], "final_loss_on": seen,
+           "step_ms": step_ms,
+           "step_ms_median": med, "tokens_per_s": tokens / (med / 1e3),
+           "step_bound_ms": bound, "wall_s": wall, "launches": launches,
+           "peak_mem_gb": peak, "resident_before_gb": resident,
+           "ckpt_save_s": saves, "ckpt_restore_s": restore_s,
+           "ckpt_bytes": ckpt_bytes, "restored_step": start,
+           "restored_bitwise": same, "profile": prof}
+    log(json.dumps(res))
+    finite = all(math.isfinite(x) for x in losses + norms)
+    check(len(hist) == steps, f"train: {len(hist)} steps of {steps}")
+    check(finite, f"train: non-finite loss or grad norm {losses} {norms}")
+    check(losses[-1] < losses[0], f"train: loss did not fall: {losses}")
+    check(launches == {"flash_attention_fp32": cfg.n_layers * steps,
+                       "flash_attention_backward": cfg.n_layers * steps},
+          f"train: launches {launches} vs {cfg.n_layers} a step")
+    check(peak < 80.0, f"train: peak memory {peak} GB")
+    check(start == steps, f"train: resumed at {start}, saved at {steps}")
+    check(same, "train: the restored checkpoint differs from the state")
+    return res
+
+
 # -- the summary ------------------------------------------------------------------
+
+def emit(phase, *args, **kw):
+    """Run ``phase``, print its result (the first item where it returns
+    several) as one JSON line with its wall ``seconds``, return what it
+    returned."""
+    t = time.perf_counter()
+    out = phase(*args, **kw)
+    res = out[0] if isinstance(out, tuple) else out
+    res["seconds"] = time.perf_counter() - t
+    print(json.dumps(res), flush=True)
+    return out
+
 
 def kernel_entry(rows, kernel, case, launches, source, replaces,
                  dtype="bfloat16", name=None):
@@ -4570,6 +4961,25 @@ def flash_fp32_entry(rows, launches):
     return entry
 
 
+def backward_entry(rows, launches):
+    """The ``kernels`` entry of the attention backward: timed on gemma3-1b's
+    local layer in float32 (the training step's), with every other case
+    and dtype beside it, and its CUDA kernels a call (3)."""
+    entry = kernel_entry(rows, "flash_attention_backward", "gemma_w512",
+                         launches, BWD_SOURCE, "src/repro/kernels/ref.py:300",
+                         dtype="float32")
+    entry["max_rel_err"] = max(r["max_rel_err"] for r in rows
+                               if r["dtype"] == "float32")
+    for r in rows:
+        if (r["case"], r["dtype"]) != ("gemma_w512", "float32"):
+            entry[f"{r['case']}_{r['dtype']}"] = {
+                k: r[k] for k in ("ms", "call_ms", "plain_ms", "library_ms",
+                                  "max_abs_err", "max_rel_err", "fwd_ms",
+                                  "fwd_lse_ms")} | {
+                "bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
+    return entry
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="also write the full report (JSON) here")
@@ -4603,105 +5013,73 @@ def main(argv=None):
              "ptxas": _build.ptxas_usage(build_dir)}
     print(json.dumps(build), flush=True)
 
+    t = time.perf_counter()
     rows = phase_kernels(dev)
-    print(json.dumps({"phase": "kernels", "cases": rows}), flush=True)
-    cross = phase_crosscheck(dev)
-    print(json.dumps(cross), flush=True)
-    serve, engine = phase_serve(dev)
-    print(json.dumps(serve), flush=True)
-    trace = phase_trace(engine)
-    print(json.dumps(trace), flush=True)
+    print(json.dumps({"phase": "kernels", "cases": rows,
+                      "seconds": time.perf_counter() - t}), flush=True)
+    cross = emit(phase_crosscheck, dev)
+    serve, engine = emit(phase_serve, dev)
+    trace = emit(phase_trace, engine)
     del engine
 
-    timing, agents = phase_decide_timing(dev)
-    print(json.dumps(timing), flush=True)
-    rask_kernels = phase_rask_kernels(dev, agents)
-    print(json.dumps(rask_kernels), flush=True)
-    auto, auto_env, auto_agent = phase_autoscale(dev)
-    print(json.dumps(auto), flush=True)
-    rask_cross = phase_rask_crosscheck(auto_env, auto_agent)
-    print(json.dumps(rask_cross), flush=True)
-    rask_trace = phase_rask_trace(auto_env, auto_agent)
-    print(json.dumps(rask_trace), flush=True)
+    timing, agents = emit(phase_decide_timing, dev)
+    rask_kernels = emit(phase_rask_kernels, dev, agents)
+    auto, auto_env, auto_agent = emit(phase_autoscale, dev)
+    rask_cross = emit(phase_rask_crosscheck, auto_env, auto_agent)
+    rask_trace = emit(phase_rask_trace, auto_env, auto_agent)
 
-    ssd_kernels = phase_ssd_kernels(dev)
-    print(json.dumps(ssd_kernels), flush=True)
-    ssm_cross = phase_ssm_crosscheck(dev)
-    print(json.dumps(ssm_cross), flush=True)
-    ssm_serve, ssm_engine = phase_ssm_serve(dev)
-    print(json.dumps(ssm_serve), flush=True)
-    ssm_trace = phase_trace(ssm_engine, name="ssm_trace")
-    print(json.dumps(ssm_trace), flush=True)
+    ssd_kernels = emit(phase_ssd_kernels, dev)
+    ssm_cross = emit(phase_ssm_crosscheck, dev)
+    ssm_serve, ssm_engine = emit(phase_ssm_serve, dev)
+    ssm_trace = emit(phase_trace, ssm_engine, name="ssm_trace")
     del ssm_engine
 
-    engine_compare = phase_engine_compare(dev)
-    print(json.dumps(engine_compare), flush=True)
-    loop = phase_serving_loop(dev)
-    print(json.dumps(loop), flush=True)
+    engine_compare = emit(phase_engine_compare, dev)
+    loop = emit(phase_serving_loop, dev)
     loop_launches = {k: loop["fixed"]["launches"][k]
                      + loop["rask"]["launches"][k]
                      for k in loop["rask"]["launches"]}
 
-    fleet_solve, fleet_keep = phase_fleet_solve(dev)
-    print(json.dumps(fleet_solve), flush=True)
-    failover, _, failover_agent = phase_failover(dev)
-    print(json.dumps(failover), flush=True)
-    fleet_kernels = phase_fleet_kernels(dev, fleet_keep, failover_agent)
-    print(json.dumps(fleet_kernels), flush=True)
+    fleet_solve, fleet_keep = emit(phase_fleet_solve, dev)
+    failover, _, failover_agent = emit(phase_failover, dev)
+    fleet_kernels = emit(phase_fleet_kernels, dev, fleet_keep, failover_agent)
     del fleet_keep, failover_agent
     fleet_launches = {k: sum(fleet_solve[p]["launches"][k]
                              for p in ("hetero", "scale", "placement"))
                       for k in ("rask_objective", "rask_objective_grad")}
 
-    pipeline = phase_pipeline(dev)
-    print(json.dumps(pipeline), flush=True)
-    forecast = phase_forecast(dev)
-    print(json.dumps(forecast), flush=True)
-    transfer = phase_transfer(dev)
-    print(json.dumps(transfer), flush=True)
-    burn = phase_burn_budget(dev)
-    print(json.dumps(burn), flush=True)
-    backends = phase_backends(dev)
-    print(json.dumps(backends), flush=True)
-    auto_degree, auto_agent = phase_auto_degree(dev)
-    print(json.dumps(auto_degree), flush=True)
-    k1 = phase_rask_kernels_k1(dev, agents, auto_agent)
-    print(json.dumps(k1), flush=True)
+    pipeline = emit(phase_pipeline, dev)
+    forecast = emit(phase_forecast, dev)
+    transfer = emit(phase_transfer, dev)
+    burn = emit(phase_burn_budget, dev)
+    backends = emit(phase_backends, dev)
+    auto_degree, auto_agent = emit(phase_auto_degree, dev)
+    k1 = emit(phase_rask_kernels_k1, dev, agents, auto_agent)
     del auto_agent
-    sota, (sota_env, sota_agent) = phase_sota(dev)
-    print(json.dumps(sota), flush=True)
-    metrics = phase_metrics(dev, sota_env, sota_agent)
-    print(json.dumps(metrics), flush=True)
+    sota, (sota_env, sota_agent) = emit(phase_sota, dev)
+    metrics = emit(phase_metrics, dev, sota_env, sota_agent)
     del sota_env, sota_agent
 
-    moe_cross = phase_moe_crosscheck(dev)
-    print(json.dumps(moe_cross), flush=True)
-    moe_serve, moe_engine = phase_moe_serve(dev)
-    print(json.dumps(moe_serve), flush=True)
-    moe_trace = phase_moe_trace(moe_engine)
-    print(json.dumps(moe_trace), flush=True)
+    moe_cross = emit(phase_moe_crosscheck, dev)
+    moe_serve, moe_engine = emit(phase_moe_serve, dev)
+    moe_trace = emit(phase_moe_trace, moe_engine)
     del moe_engine
-    autoscale_cli = phase_autoscale_cli(dev)
-    print(json.dumps(autoscale_cli), flush=True)
-    fleet_launchers = phase_fleet_launchers(dev)
-    print(json.dumps(fleet_launchers), flush=True)
+    autoscale_cli = emit(phase_autoscale_cli, dev)
+    fleet_launchers = emit(phase_fleet_launchers, dev)
 
-    encdec_cross = phase_encdec_crosscheck(dev)
-    print(json.dumps(encdec_cross), flush=True)
-    encdec_serve, whisper = phase_encdec_serve(dev)
-    print(json.dumps(encdec_serve), flush=True)
-    encdec_trace = phase_encdec_trace(*whisper)
-    print(json.dumps(encdec_trace), flush=True)
+    encdec_cross = emit(phase_encdec_crosscheck, dev)
+    encdec_serve, whisper = emit(phase_encdec_serve, dev)
+    encdec_trace = emit(phase_encdec_trace, *whisper)
     del whisper
-    mixed = phase_mixed_cache(dev)
-    print(json.dumps(mixed), flush=True)
-    hybrid_cross = phase_hybrid_crosscheck(dev)
-    print(json.dumps(hybrid_cross), flush=True)
-    hybrid_serve, hybrid_engine = phase_hybrid_serve(dev)
-    print(json.dumps(hybrid_serve), flush=True)
-    hybrid_trace = phase_hybrid_trace(hybrid_engine)
-    print(json.dumps(hybrid_trace), flush=True)
+    mixed = emit(phase_mixed_cache, dev)
+    hybrid_cross = emit(phase_hybrid_crosscheck, dev)
+    hybrid_serve, hybrid_engine = emit(phase_hybrid_serve, dev)
+    hybrid_trace = emit(phase_hybrid_trace, hybrid_engine)
     del hybrid_engine
+
+    train_kernels = emit(phase_train_kernels, dev)
+    train_cross = emit(phase_train_crosscheck, dev)
+    train = emit(phase_train, dev)
     option_launches = {
         "pipeline": {k: sum(pipeline[m]["launches"][k]
                             for m in ("sync", "pipelined"))
@@ -4739,7 +5117,10 @@ def main(argv=None):
         # the longest prompt of the slice, l = 1024
         kernel_entry(ssd_kernels["cases"], "ssd_scan", "b1_l1024",
                      ssm_serve["launches"]["ssd_scan"], SSD_SOURCE,
-                     "src/repro/kernels/ssd_scan.py:79")]}
+                     "src/repro/kernels/ssd_scan.py:79"),
+        # the training slice: a local layer of gemma3-1b's step (22 of 26)
+        backward_entry(train_kernels["cases"],
+                       train["launches"]["flash_attention_backward"])]}
     # each kernel's launches on every path that ran it: "launches" above is
     # its own slice's serving or autoscale phase
     compare = [engine_compare[k][f"{e}_launches"] for k in engine_compare
@@ -4777,7 +5158,14 @@ def main(argv=None):
             "crosscheck": cross["flash_launches"]["tf32x3"],
             "moe_crosscheck": moe_cross["flash_launches"]["tf32x3"],
             "encdec_crosscheck": encdec_cross["flash_launches"]["tf32x3"],
-            "hybrid_crosscheck": hybrid_cross["flash_launches"]["tf32x3"]},
+            "hybrid_crosscheck": hybrid_cross["flash_launches"]["tf32x3"],
+            "train": train["launches"]["flash_attention_fp32"],
+            "train_crosscheck":
+                train_cross["launches"]["flash_attention_fp32"]},
+        "flash_attention_backward": {
+            "train": train["launches"]["flash_attention_backward"],
+            "train_crosscheck":
+                train_cross["launches"]["flash_attention_backward"]},
         "ssd_scan": {"ssm_serve": ssm_serve["launches"]["ssd_scan"],
                      "hybrid_serve": hybrid_serve["launches"]["ssd_scan"],
                      "hybrid_crosscheck": hybrid_cross["ssd_launches"]},
@@ -4895,7 +5283,8 @@ def main(argv=None):
              "encdec_crosscheck": encdec_cross, "encdec_serve": encdec_serve,
              "encdec_trace": encdec_trace, "mixed_cache": mixed,
              "hybrid_crosscheck": hybrid_cross, "hybrid_serve": hybrid_serve,
-             "hybrid_trace": hybrid_trace,
+             "hybrid_trace": hybrid_trace, "train_kernels": train_kernels,
+             "train_crosscheck": train_cross, "train": train,
              "wall_s": time.perf_counter() - t_start, **kernels},
             indent=1))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")

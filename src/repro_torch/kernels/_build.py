@@ -134,6 +134,14 @@ def current_stream(device: torch.device) -> int:
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 
+def refuse_autograd(name: str, why: str, *tensors: torch.Tensor) -> None:
+    """Raise where grad mode is on and an input requires grad: the kernel
+    ``name`` has no backward, and its output would carry no graph (a
+    gradient that silently never arrives)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward; {why}")
+
+
 def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
     """Check that every tensor is contiguous and on the current CUDA
     device; return that device."""

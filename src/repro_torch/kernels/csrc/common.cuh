@@ -17,6 +17,8 @@ constexpr int kBFloat16 = 1;
 constexpr float kNegInf = -1e30f;
 // Floor on the softmax denominator, as in the TPU kernels.
 constexpr float kMinDenom = 1e-30f;
+// ln 2: a log-sum-exp kept in log2 units times this is in natural units.
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {

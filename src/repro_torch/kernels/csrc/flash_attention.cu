@@ -60,6 +60,9 @@
 //    causal bound and the window), the heaviest query blocks start first,
 //    and the mask is applied only on blocks that straddle the diagonal,
 //    the window edge or T.
+//  * The row log-sum-exp (float32 (B, H, S), m + log l in the natural log
+//    of the scaled scores), which the backward kernel reads, is written
+//    only where its pointer is non-null (training); serving passes null.
 //  * Split kv range: 1-4 CTAs share a query block's range, as many as
 //    make the grid finish first when the SMs take the CTAs in launch order
 //    (heaviest query blocks first), and write unnormalised partial rows
@@ -218,9 +221,9 @@ template <int DP>
 __global__ void __launch_bounds__(kThreads, 1) flash_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ o,
-    float* __restrict__ o_part, float* __restrict__ ml_part, int H, int KH,
-    int S, int T_len, int D, int GP, int causal, int window, float scale_log2,
-    int splits, int vec) {
+    float* __restrict__ o_part, float* __restrict__ ml_part,
+    float* __restrict__ lse, int H, int KH, int S, int T_len, int D, int GP,
+    int causal, int window, float scale_log2, int splits, int vec) {
   using L = Layout<DP>;
   constexpr int NC = DP / 32;  // 32-column groups of the output
   extern __shared__ __align__(16) float smem[];
@@ -492,6 +495,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(
     if (splits == 1) {
       dst = o + row * D;
       inv = 1.f / fmaxf(l_i[r], kMinDenom);
+      if (lse != nullptr && t == 0)
+        lse[row] = (m_i[r] + log2f(fmaxf(l_i[r], kMinDenom))) * kLn2;
     } else {
       const size_t prow = (size_t)part * gridDim.z * H * S + row;
       dst = o_part + prow * D;
@@ -521,10 +526,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(
   }
 }
 
-// Merge the splits' partial rows: one warp a row of O (B * H * S rows).
+// Merge the splits' partial rows: one warp a row of O (B * H * S rows),
+// and the row's log-sum-exp where lse is non-null.
 __global__ void __launch_bounds__(256) flash_combine_kernel(
     const float* __restrict__ o_part, const float* __restrict__ ml_part,
-    float* __restrict__ o, int rows, int D, int splits) {
+    float* __restrict__ o, float* __restrict__ lse, int rows, int D,
+    int splits) {
   const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
   if (row >= rows) return;
   float mx = kNegInf, w[kMaxSplits];
@@ -538,6 +545,8 @@ __global__ void __launch_bounds__(256) flash_combine_kernel(
     l += ml.y * w[p];
   }
   const float inv = 1.f / fmaxf(l, kMinDenom);
+  if (lse != nullptr && lane == 0)
+    lse[row] = (mx + log2f(fmaxf(l, kMinDenom))) * kLn2;
   for (int col = lane; col < D; col += 32) {
     float a = 0.f;
     for (int p = 0; p < splits; ++p)
@@ -588,9 +597,9 @@ int choose_splits(int B, int H, int KH, int S, int T_len, int causal,
 
 template <int DP>
 int launch(const float* q, const float* k, const float* v, float* o,
-           float* o_part, float* ml_part, int B, int H, int KH, int S,
-           int T_len, int D, int causal, int window, int splits, int vec,
-           cudaStream_t stream) {
+           float* o_part, float* ml_part, float* lse, int B, int H, int KH,
+           int S, int T_len, int D, int causal, int window, int splits,
+           int vec, cudaStream_t stream) {
   // the shared-memory limit is raised once per device
   static int raised[64] = {};
   const int smem = Layout<DP>::total * (int)sizeof(float);
@@ -608,13 +617,13 @@ int launch(const float* q, const float* k, const float* v, float* o,
   const int GP = gcd(H / KH, BM);
   const dim3 grid((S + BM / GP - 1) / (BM / GP) * splits, H / GP, B);
   flash_kernel<DP><<<grid, kThreads, smem, stream>>>(
-      q, k, v, o, o_part, ml_part, H, KH, S, T_len, D, GP, causal, window,
-      rsqrtf((float)D) * 1.4426950408889634f, splits, vec);
+      q, k, v, o, o_part, ml_part, lse, H, KH, S, T_len, D, GP, causal,
+      window, rsqrtf((float)D) * 1.4426950408889634f, splits, vec);
   err = cudaGetLastError();
   if (splits == 1 || err != cudaSuccess) return (int)err;
   const int rows = B * H * S;
-  flash_combine_kernel<<<(rows + 7) / 8, 256, 0, stream>>>(o_part, ml_part,
-                                                          o, rows, D, splits);
+  flash_combine_kernel<<<(rows + 7) / 8, 256, 0, stream>>>(
+      o_part, ml_part, o, lse, rows, D, splits);
   return (int)cudaGetLastError();
 }
 
@@ -625,11 +634,13 @@ int launch(const float* q, const float* k, const float* v, float* o,
 // float32 tensors, contiguous; D <= 256. With splits > 1 (what
 // flash_attention_splits returns), o_part (splits, B, H, S, D) and ml_part
 // (splits, B, H, S, 2) are float32 scratch and a merge kernel follows.
+// lse, where non-null, is float32 (B, H, S): each row's log-sum-exp.
 // Returns a cudaError_t code (0 = launched).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* o, void* o_part, void* ml_part, int B,
-                               int H, int KH, int S, int T, int D, int causal,
-                               int window, int splits, void* stream) {
+                               void* o, void* o_part, void* ml_part,
+                               void* lse, int B, int H, int KH, int S, int T,
+                               int D, int causal, int window, int splits,
+                               void* stream) {
   using namespace repro_torch;
   if (D <= 0 || D > kMaxD || H % KH != 0 || T < S || S <= 0 || splits < 1 ||
       splits > kMaxSplits ||
@@ -641,6 +652,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   float* of = static_cast<float*>(o);
   float* op = static_cast<float*>(o_part);
   float* mp = static_cast<float*>(ml_part);
+  float* lp = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // 16-byte copies and stores need D % 4 == 0 and 16-byte aligned tensors
   const uintptr_t any = reinterpret_cast<uintptr_t>(q) |
@@ -649,16 +661,16 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                         reinterpret_cast<uintptr_t>(o);
   const int vec = D % 4 == 0 && any % 16 == 0;
   if (D <= 32)
-    return launch<32>(qf, kf, vf, of, op, mp, B, H, KH, S, T, D, causal,
-                      window, splits, vec, s);
+    return launch<32>(qf, kf, vf, of, op, mp, lp, B, H, KH, S, T, D,
+                      causal, window, splits, vec, s);
   if (D <= 64)
-    return launch<64>(qf, kf, vf, of, op, mp, B, H, KH, S, T, D, causal,
-                      window, splits, vec, s);
+    return launch<64>(qf, kf, vf, of, op, mp, lp, B, H, KH, S, T, D,
+                      causal, window, splits, vec, s);
   if (D <= 128)
-    return launch<128>(qf, kf, vf, of, op, mp, B, H, KH, S, T, D, causal,
-                       window, splits, vec, s);
-  return launch<256>(qf, kf, vf, of, op, mp, B, H, KH, S, T, D, causal,
-                     window, splits, vec, s);
+    return launch<128>(qf, kf, vf, of, op, mp, lp, B, H, KH, S, T, D,
+                       causal, window, splits, vec, s);
+  return launch<256>(qf, kf, vf, of, op, mp, lp, B, H, KH, S, T, D,
+                     causal, window, splits, vec, s);
 }
 
 // How many CTAs share a query block's kv range on device ``device``.

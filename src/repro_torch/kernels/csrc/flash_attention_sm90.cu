@@ -52,6 +52,10 @@
 //    bucket that is 128 CTAs with chains of 8 (global) and 5 (window 512)
 //    blocks, where one CTA a query block gave 64 CTAs and chains of 16 and
 //    9.
+//  * The row log-sum-exp (float32 (B, H, S), m + log l in the natural log
+//    of the scaled float32 scores), which the backward kernel reads, is
+//    written only where its pointer is non-null (training); serving passes
+//    null.
 
 #include <cuda.h>  // CUtensorMap and its enums (types only; no libcuda link)
 #include <stdint.h>
@@ -181,9 +185,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_sm90_kernel(
     const __grid_constant__ CUtensorMap qmap,
     const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o,
-    float* __restrict__ o_part, float* __restrict__ ml_part, int H, int KH,
-    int S, int T_len, int D, int GP, int causal, int window, float scale_log2,
-    int splits) {
+    float* __restrict__ o_part, float* __restrict__ ml_part,
+    float* __restrict__ lse, int H, int KH, int S, int T_len, int D, int GP,
+    int causal, int window, float scale_log2, int splits) {
   extern __shared__ uint8_t smem_raw[];
   Smem<NCB>& sm = *reinterpret_cast<Smem<NCB>*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -354,6 +358,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_sm90_kernel(
     const size_t row = (size_t)(b * H + h0 + m / RP) * S + spos;
     if (splits == 1) {
       const float inv = 1.f / fmaxf(l_i[r], kMinDenom);
+      if (lse != nullptr && quad == 0)
+        lse[row] = (m_i[r] + log2f(fmaxf(l_i[r], kMinDenom))) * kLn2;
 #pragma unroll
       for (int cb = 0; cb < NCB; ++cb)
 #pragma unroll
@@ -382,10 +388,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_sm90_kernel(
   }
 }
 
-// Merge the splits' partial rows: one warp a row of O (B * H * S rows).
+// Merge the splits' partial rows: one warp a row of O (B * H * S rows),
+// and the row's log-sum-exp where lse is non-null.
 __global__ void __launch_bounds__(256) flash_combine_kernel(
     const float* __restrict__ o_part, const float* __restrict__ ml_part,
-    bf16* __restrict__ o, int rows, int D, int splits) {
+    bf16* __restrict__ o, float* __restrict__ lse, int rows, int D,
+    int splits) {
   const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
   if (row >= rows) return;
   float mx = kNegInf, w[kMaxSplits];
@@ -399,6 +407,8 @@ __global__ void __launch_bounds__(256) flash_combine_kernel(
     l += ml.y * w[p];
   }
   const float inv = 1.f / fmaxf(l, kMinDenom);
+  if (lse != nullptr && lane == 0)
+    lse[row] = (mx + log2f(fmaxf(l, kMinDenom))) * kLn2;
   for (int col = 2 * lane; col < D; col += 64) {
     float2 a = make_float2(0.f, 0.f);
     for (int p = 0; p < splits; ++p) {
@@ -481,8 +491,8 @@ int choose_splits(int B, int H, int KH, int S, int T_len, int causal,
 
 template <int NCB>
 int launch(const void* q, const void* k, const void* v, void* o,
-           float* o_part, float* ml_part, int B, int H, int KH, int S,
-           int T_len, int D, int causal, int window, int splits,
+           float* o_part, float* ml_part, float* lse, int B, int H, int KH,
+           int S, int T_len, int D, int causal, int window, int splits,
            cudaStream_t stream) {
   EncodeTiled enc;
   cudaError_t err = encode_fn(&enc);
@@ -500,14 +510,14 @@ int launch(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + BM / GP - 1) / (BM / GP) * splits, H / GP, B);
   flash_sm90_kernel<NCB><<<grid, kThreads, smem, stream>>>(
-      qmap, kmap, vmap, static_cast<bf16*>(o), o_part, ml_part, H, KH, S,
-      T_len, D, GP, causal, window, rsqrtf((float)D) * 1.4426950408889634f,
-      splits);
+      qmap, kmap, vmap, static_cast<bf16*>(o), o_part, ml_part, lse, H, KH,
+      S, T_len, D, GP, causal, window,
+      rsqrtf((float)D) * 1.4426950408889634f, splits);
   err = cudaGetLastError();
   if (splits == 1 || err != cudaSuccess) return (int)err;
   const int rows = B * H * S;
   flash_combine_kernel<<<(rows + 7) / 8, 256, 0, stream>>>(
-      o_part, ml_part, static_cast<bf16*>(o), rows, D, splits);
+      o_part, ml_part, static_cast<bf16*>(o), lse, rows, D, splits);
   return (int)cudaGetLastError();
 }
 
@@ -518,12 +528,13 @@ int launch(const void* q, const void* k, const void* v, void* o,
 // tensors, contiguous, 16-byte aligned; D % 8 == 0 and D <= 256. With
 // splits > 1 (what flash_attention_sm90_splits returns), o_part (splits, B,
 // H, S, D) and ml_part (splits, B, H, S, 2) are float32 scratch and a
-// combine kernel follows. Returns a cudaError_t code (0 = launched).
+// combine kernel follows. lse, where non-null, is float32 (B, H, S): each
+// row's log-sum-exp. Returns a cudaError_t code (0 = launched).
 extern "C" int flash_attention_sm90(const void* q, const void* k,
                                     const void* v, void* o, void* o_part,
-                                    void* ml_part, int B, int H, int KH, int S,
-                                    int T, int D, int causal, int window,
-                                    int splits, void* stream) {
+                                    void* ml_part, void* lse, int B, int H,
+                                    int KH, int S, int T, int D, int causal,
+                                    int window, int splits, void* stream) {
   using namespace repro_torch;
   if (D <= 0 || D > 64 * kMaxCB || D % 8 != 0 || H % KH != 0 || T < S ||
       S <= 0 || splits < 1 || splits > kMaxSplits ||
@@ -532,19 +543,20 @@ extern "C" int flash_attention_sm90(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* op = static_cast<float*>(o_part);
   float* mp = static_cast<float*>(ml_part);
+  float* lp = static_cast<float*>(lse);
   switch ((D + 63) / 64) {
     case 1:
-      return launch<1>(q, k, v, o, op, mp, B, H, KH, S, T, D, causal, window,
-                       splits, s);
+      return launch<1>(q, k, v, o, op, mp, lp, B, H, KH, S, T, D, causal,
+                       window, splits, s);
     case 2:
-      return launch<2>(q, k, v, o, op, mp, B, H, KH, S, T, D, causal, window,
-                       splits, s);
+      return launch<2>(q, k, v, o, op, mp, lp, B, H, KH, S, T, D, causal,
+                       window, splits, s);
     case 3:
-      return launch<3>(q, k, v, o, op, mp, B, H, KH, S, T, D, causal, window,
-                       splits, s);
+      return launch<3>(q, k, v, o, op, mp, lp, B, H, KH, S, T, D, causal,
+                       window, splits, s);
     default:
-      return launch<4>(q, k, v, o, op, mp, B, H, KH, S, T, D, causal, window,
-                       splits, s);
+      return launch<4>(q, k, v, o, op, mp, lp, B, H, KH, S, T, D, causal,
+                       window, splits, s);
   }
 }
 

@@ -58,10 +58,14 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     """q: (B,H,D); caches: (B,S,KH,D); length, start: (B,) int32.
 
     Returns (B,H,D) in q's dtype. Raises on anything the kernel does not
-    take; never computes on another path.
+    take, and where an input requires grad (there is no backward); never
+    computes on another path.
     """
     _build.require_cuda("decode_attention", q, k_cache, v_cache, length,
                         start)
+    _build.refuse_autograd(
+        "decode_attention", "it serves decode steps, which train nothing",
+        q, k_cache, v_cache)
     if q.dtype not in _build.DTYPE_CODES:
         raise ValueError(f"decode_attention: dtype {q.dtype} not supported")
     if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:

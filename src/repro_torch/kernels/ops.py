@@ -6,6 +6,12 @@ The tensor's device picks the implementation and nothing else does: a CUDA
 tensor goes to the hand-written kernel (which launches or raises), a CPU
 tensor goes to the plain PyTorch version in ``ref.py``. There is no
 fallback between them.
+
+Gradients: on a CPU tensor every entry point differentiates through its
+plain version under ordinary autograd. On a CUDA tensor attention
+differentiates through its backward kernel (``FlashAttention``) and the
+RASK objective through its own; the decode kernel and the SSD scan have no
+backward and raise when asked for a graph.
 """
 from __future__ import annotations
 
@@ -13,7 +19,7 @@ import torch
 
 from . import ref
 from .decode_attention import decode_attention_cuda
-from .flash_attention import flash_attention_cuda
+from .flash_attention import FlashAttention, flash_attention_cuda
 from .rask_objective import RaskObjective, rask_objective_backward_cuda
 from .ssd_scan import ssd_cuda
 
@@ -28,8 +34,14 @@ def _route(t: torch.Tensor, name: str) -> bool:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: (B,H,S,D); k,v: (B,KH,T,D). Tiled online-softmax attention."""
+    """q: (B,H,S,D); k,v: (B,KH,T,D). Tiled online-softmax attention.
+    Where grad mode is on and an input requires grad, a CUDA call goes
+    through ``FlashAttention`` (forward kernel with ``lse``, backward
+    kernel); otherwise through the forward kernel alone."""
     if _route(q, "flash_attention"):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return FlashAttention.apply(q, k, v, causal, window)
         return flash_attention_cuda(q, k, v, causal=causal, window=window)
     return ref.flash_attention_reference(q, k, v, causal=causal,
                                          window=window)

@@ -1,6 +1,8 @@
 """Plain PyTorch versions of the port's kernels (the ``ref.py`` contract of
-``repro/kernels/ref.py``): the two attention oracles, the Mamba-2 chunked
-SSD scan (``ssd_reference``) and its one-step recurrence
+``repro/kernels/ref.py``): the two attention oracles, attention's row
+log-sum-exp and backward (``flash_attention_lse_reference``,
+``flash_attention_backward_reference``: ``_ca_bwd``'s maths), the
+Mamba-2 chunked SSD scan (``ssd_reference``) and its one-step recurrence
 (``ssd_decode_reference``), the RASK objective (``rask_objective_reference``)
 and its analytic VJP (``rask_objective_grad``, transcribed from
 ``repro/kernels/rask_objective.py``).
@@ -33,17 +35,76 @@ def flash_attention_reference(q, k, v, *, causal: bool = True,
     G = H // KH
     qg = q.reshape(B, KH, G, S, D)
     scores = torch.einsum("bkgsd,bktd->bkgst", qg, k).float() * (D ** -0.5)
-    qpos = torch.arange(S, device=q.device)[:, None] + (T - S)   # right-aligned
-    kpos = torch.arange(T, device=q.device)[None, :]
-    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    scores = scores.masked_fill(
+        ~attention_mask(S, T, causal, window, q.device), NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,bktd->bkgsd", probs, v)
+    return out.reshape(B, H, S, D)
+
+
+def attention_mask(S: int, T: int, causal: bool, window: int, device):
+    """(S, T) True where a query (right-aligned at T - S) sees a key."""
+    qpos = torch.arange(S, device=device)[:, None] + (T - S)
+    kpos = torch.arange(T, device=device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=device)
     if causal:
         mask &= qpos >= kpos
     if window > 0:
         mask &= qpos - kpos < window
-    scores = scores.masked_fill(~mask, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bkgst,bktd->bkgsd", probs, v)
-    return out.reshape(B, H, S, D)
+    return mask
+
+
+def _scaled_scores(q, k, causal: bool, window: int):
+    """float32 masked scores q k^T / sqrt(D), (B,KH,G,S,T), from the
+    operands as given (no rounding of the product: ``repro``'s backward
+    takes them at float32)."""
+    B, H, S, D = q.shape
+    KH, T = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, KH, H // KH, S, D)
+    scores = torch.einsum("bkgsd,bktd->bkgst", qg, k.float()) * (D ** -0.5)
+    return scores.masked_fill(
+        ~attention_mask(S, T, causal, window, q.device), NEG_INF)
+
+
+def flash_attention_lse_reference(q, k, *, causal: bool = True,
+                                  window: int = 0):
+    """The row log-sum-exp of the masked scaled scores: q (B,H,S,D), k
+    (B,KH,T,D) -> float32 (B,H,S), what the forward kernels return as
+    ``lse`` (their m + log l)."""
+    B, H, S, _ = q.shape
+    return torch.logsumexp(_scaled_scores(q, k, causal, window),
+                           dim=-1).reshape(B, H, S)
+
+
+def flash_attention_backward_reference(q, k, v, o, lse, do, *,
+                                       causal: bool = True, window: int = 0):
+    """Attention's gradient from the forward's output and row log-sum-exp:
+    (q, k, v, o, lse, do) -> (dq, dk, dv) in the inputs' dtypes.
+
+    The maths of ``repro/kernels/ref.py::_ca_bwd`` in the port's (B,H,S,D)
+    / (B,KH,T,D) layout, without its chunking: delta = sum(dO * O),
+    P = exp(S scale - lse), dV = P^T dO, dS = P (dO V^T - delta) scale,
+    dQ = dS K, dK = dS^T Q, dK and dV summed over the G query heads of a
+    kv head. Masks are right-aligned at T - S as in the forward. The
+    products take float32 operands; P and dS are rounded to dO's and q's
+    dtype before the products that read them, as ``_ca_bwd`` rounds them
+    (a no-op in float32). ``lse``: float32 (B,H,S)."""
+    B, H, S, D = q.shape
+    KH, T = k.shape[1], k.shape[2]
+    G = H // KH
+    qf = q.float().reshape(B, KH, G, S, D)
+    dof = do.float().reshape(B, KH, G, S, D)
+    kf, vf = k.float(), v.float()
+    delta = (dof * o.float().reshape(B, KH, G, S, D)).sum(-1)   # (B,KH,G,S)
+    p = torch.exp(_scaled_scores(q, k, causal, window)
+                  - lse.float().reshape(B, KH, G, S)[..., None])
+    dv = torch.einsum("bkgst,bkgsd->bktd", p.to(do.dtype).float(), dof)
+    dp = torch.einsum("bkgsd,bktd->bkgst", dof, vf)
+    ds = (p * (dp - delta[..., None]) * (D ** -0.5)).to(q.dtype).float()
+    dq = torch.einsum("bkgst,bktd->bkgsd", ds, kf)
+    dk = torch.einsum("bkgst,bkgsd->bktd", ds, qf)
+    return (dq.reshape(B, H, S, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def decode_attention_reference(q, k_cache, v_cache, length, start=0):

@@ -50,12 +50,16 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     Returns (y (b,l,h,p), final_state (b,h,p,n)) in x's dtype, with
     ``ssd_pallas``'s chunking: ``ck = min(chunk, l)`` and ``l % ck == 0``.
-    Raises on anything the kernel does not take; never computes on another
+    Raises on anything the kernel does not take, and where an input
+    requires grad (there is no backward yet); never computes on another
     path.
     """
     tensors = [x, dt, A, B, C] + ([] if initial_state is None
                                   else [initial_state])
     dev = _build.require_cuda("ssd", *tensors)
+    _build.refuse_autograd(
+        "ssd", "training mamba2 or jamba on the card waits for the SSD "
+        "scan's backward (ROADMAP item 27)", *tensors)
     if x.dtype not in _build.DTYPE_CODES:
         raise ValueError(f"ssd: dtype {x.dtype} not supported")
     if any(t.dtype != x.dtype for t in tensors):

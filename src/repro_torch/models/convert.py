@@ -23,11 +23,13 @@ expert is an MLP of ``"w"`` leaves, transposed like any other).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Mapping, Tuple
 
 import numpy as np
 import torch
 
+from ..train.optimizer import AdamWState, CompressedState
 from .config import ModelConfig
 from .transformer import Params
 
@@ -100,3 +102,21 @@ def params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
     if "head" in tree:
         params["head"] = _tensor(np.asarray(tree["head"]).T, dtype, device)
     return params
+
+
+def opt_state_from_numpy(cfg: ModelConfig, state, device="cpu"):
+    """``repro``'s optimizer state with numpy leaves (an ``AdamWState``
+    (step, mu, nu) or a ``CompressedState`` (inner, error), as
+    ``jax.tree.map(np.asarray, ...)`` leaves it) as the port's: the step an
+    int32 scalar tensor, every params-shaped tree through
+    ``params_from_numpy`` in float32, whatever ``cfg.dtype``."""
+    f32 = dataclasses.replace(cfg, dtype="float32")
+
+    def tree(t):
+        return params_from_numpy(f32, t, device)
+    if hasattr(state, "inner"):
+        return CompressedState(opt_state_from_numpy(cfg, state.inner, device),
+                               tree(state.error))
+    return AdamWState(torch.tensor(np.asarray(state.step), dtype=torch.int32,
+                                   device=device),
+                      tree(state.mu), tree(state.nu))

@@ -2,6 +2,7 @@
 
 ``build(cfg)`` returns a ``Model`` with:
   init(gen) -> params                     # on gen.device
+  loss(params, batch) -> (loss, {"ce", "aux"})   # teacher-forced CE
   prefill(params, batch, max_seq, length=None) -> (logits, cache)
   decode(params, tokens, cache) -> (logits, cache)
   init_cache(batch, max_seq, device) -> zeroed cache
@@ -10,13 +11,18 @@ The port runs every family of ``repro``: the decoder (dense and MoE, with
 gemma3's mixed ring cache under ``mixed_cache``), the ssm program
 (Mamba-2), the hybrid (jamba) and the encoder-decoder (whisper, whose
 ``prefill`` takes ``{"frames", "tokens"}``). ``logit_cap`` is not ported
-(no config sets it). The teacher-forced ``loss`` waits for the training
-slice.
+(no config sets it).
+
+``loss`` is differentiable with ordinary autograd: on the CPU through the
+plain kernels, on the card through the attention backward kernel
+(``kernels/flash_attention.py::FlashAttention``). The SSD scan has no
+backward on the card yet, so an ssm or hybrid loss there raises (ROADMAP
+item 27).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -26,6 +32,14 @@ from .config import ModelConfig
 Params = Dict[str, Any]
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
+ENCDEC_DEC_FRac = 8      # train: decoder tokens = frames // 8, as in repro
+
+
+def _xent(logits, labels):
+    """Mean CE in float32; logits (B,S,V), labels (B,S) integer."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    return -ll.mean()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +66,26 @@ class Model:
         if f == "encdec":
             return T.init_encdec(gen, self.cfg)
         return T.init_decoder(gen, self.cfg)
+
+    def loss(self, params: Params, batch) -> Tuple[torch.Tensor, Dict]:
+        """Teacher-forced loss: mean CE of ``batch["tokens"]``'s logits
+        against ``batch["labels"]`` (the encoder-decoder also takes
+        ``"frames"``), plus 0.01 x the MoE load-balancing loss, as in
+        ``repro``. Returns (loss, {"ce", "aux"}), float32 scalars."""
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            logits, aux, _ = T.encdec_forward(params, cfg, batch["frames"],
+                                              batch["tokens"])
+        elif cfg.family == "ssm":
+            logits, _ = T.ssm_forward(params, cfg, batch["tokens"])
+            aux = 0.0
+        elif cfg.family == "hybrid":
+            logits, aux, _ = T.hybrid_forward(params, cfg, batch["tokens"])
+        else:
+            logits, aux, _ = T.decoder_forward(params, cfg, batch["tokens"])
+        ce = _xent(logits, batch["labels"])
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     def prefill(self, params: Params, batch, max_seq: int, length=None):
         """``batch = {"tokens": (B,S)}`` (and ``"frames": (B,T,d_model)``

@@ -1391,3 +1391,173 @@ def test_mixed_cache_on_the_card_matches_the_full_cache(cuda_device):
         lf, fc = full.decode(params, toks[t], fc)
         torch.testing.assert_close(lm, lf, rtol=1e-4, atol=1e-4)
     assert decode_attention_cuda.launches == 2 * 40 * cfg.n_layers
+
+
+# -- training: attention's backward kernel, the forward's lse -----------------
+
+def _grad_err(got, want):
+    """Largest gap over the gradient's largest entry."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+# 1e-4 of each gradient's largest entry in float32 (the same sums in
+# another order), 5e-2 in bf16 (inputs, P and dS rounded to bf16)
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# lse: float32 scores on both sides (bf16 inputs, float32 products)
+LSE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+
+BWD_CASES = [
+    (4, 4, 1, 1024, 1024, 256, True, 512),   # gemma3-1b training: local
+    (4, 4, 1, 1024, 1024, 256, True, 0),     # and global layers
+    (1, 20, 20, 187, 1500, 64, False, 0),    # whisper: decoder over frames
+    (2, 4, 2, 37, 53, 40, True, 9),          # ragged, right-aligned, GQA
+    (1, 8, 1, 200, 200, 64, True, 0),        # G = 8
+    (1, 2, 1, 129, 129, 200, False, 33),     # D not a power of two
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KH,S,T,D,causal,window", BWD_CASES)
+def test_flash_backward_kernel_matches_plain(cuda_device, dtype, B, H, KH,
+                                             S, T, D, causal, window):
+    from repro_torch.kernels.flash_attention import \
+        flash_attention_backward_cuda
+    g = torch.Generator(cuda_device).manual_seed(S + T + D)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    q, k, v = randn(B, H, S, D), randn(B, KH, T, D), randn(B, KH, T, D)
+    do = randn(B, H, S, D)
+    o = ref.flash_attention_reference(q, k, v, causal=causal, window=window)
+    lse = ref.flash_attention_lse_reference(q, k, causal=causal,
+                                            window=window)
+    n = flash_attention_backward_cuda.launches
+    got = flash_attention_backward_cuda(q, k, v, o, lse, do, causal=causal,
+                                        window=window)
+    want = ref.flash_attention_backward_reference(
+        q, k, v, o, lse, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_backward_cuda.launches == n + 1
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert _grad_err(a, b) <= BWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KH,S,T,D,causal,window", [
+    (4, 4, 1, 1024, 1024, 256, True, 512),
+    (1, 4, 1, 1024, 1024, 256, True, 0),     # the kv range splits: merged
+    (1, 20, 20, 187, 1500, 64, False, 0),
+    (1, 2, 1, 700, 900, 64, False, 0),
+])
+def test_flash_forward_lse_matches_plain(cuda_device, dtype, B, H, KH, S, T,
+                                         D, causal, window):
+    g = torch.Generator(cuda_device).manual_seed(7)
+    q = torch.randn((B, H, S, D), generator=g, device=cuda_device).to(dtype)
+    k = torch.randn((B, KH, T, D), generator=g, device=cuda_device).to(dtype)
+    v = torch.randn((B, KH, T, D), generator=g, device=cuda_device).to(dtype)
+    out, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    return_lse=True)
+    plain = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_lse_reference(q, k, causal=causal,
+                                             window=window)
+    torch.cuda.synchronize()
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, S)
+    assert float((lse - want).abs().max()) <= LSE_TOL[dtype]
+    assert torch.equal(out, plain)           # lse changes nothing else
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_autograd_goes_through_the_kernels(cuda_device,
+                                                           dtype):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_cuda, reset_launches)
+    g = torch.Generator(cuda_device).manual_seed(3)
+    q = torch.randn((2, 4, 300, 64), generator=g, device=cuda_device)
+    k = torch.randn((2, 1, 300, 64), generator=g, device=cuda_device)
+    v = torch.randn((2, 1, 300, 64), generator=g, device=cuda_device)
+    do = torch.randn((2, 4, 300, 64), generator=g, device=cuda_device)
+    leaves = [t.to(dtype).requires_grad_(True) for t in (q, k, v)]
+    reset_launches()
+    out = ops.flash_attention(*leaves, causal=True, window=128)
+    got = torch.autograd.grad(out, leaves, do.to(dtype))
+    assert flash_attention_cuda.launches == 1
+    assert flash_attention_backward_cuda.launches == 1
+    plain = [t.detach().float().requires_grad_(True) for t in leaves]
+    want = torch.autograd.grad(ref.flash_attention_reference(
+        *plain, causal=True, window=128), plain, do.to(dtype).float())
+    for a, b in zip(got, want):
+        assert _grad_err(a, b) <= BWD_TOL[dtype]
+    with torch.no_grad():                    # no graph: the forward alone
+        ops.flash_attention(*leaves, causal=True, window=128)
+    assert flash_attention_cuda.launches == 2
+    assert flash_attention_backward_cuda.launches == 1
+
+
+@pytest.mark.cuda
+def test_kernels_without_a_backward_refuse_autograd(cuda_device):
+    g = torch.Generator(cuda_device).manual_seed(0)
+    q = torch.randn((2, 4, 64), generator=g, device=cuda_device,
+                    requires_grad=True)
+    cache = torch.randn((2, 16, 1, 64), generator=g, device=cuda_device)
+    length = torch.full((2,), 16, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(RuntimeError, match="no backward"):
+        decode_attention_cuda(q, cache, cache, length, torch.zeros_like(
+            length))
+    with torch.no_grad():
+        decode_attention_cuda(q, cache, cache, length,
+                              torch.zeros_like(length))
+    b, l, h, p, n = 1, 64, 4, 16, 16
+    x = torch.randn((b, l, h, p), generator=g, device=cuda_device,
+                    requires_grad=True)
+    dt = torch.rand((b, l, h), generator=g, device=cuda_device)
+    A = -torch.rand((h,), generator=g, device=cuda_device)
+    Bm = torch.randn((b, l, n), generator=g, device=cuda_device)
+    with pytest.raises(RuntimeError, match="ROADMAP item 27"):
+        ssd_cuda(x, dt, A, Bm, Bm, chunk=32)
+
+
+@pytest.mark.cuda
+def test_smoke_loss_on_the_card_matches_the_cpu(cuda_device):
+    """gemma3-1b's smoke cut (7 layers, window 16) in float32: the loss and
+    every gradient leaf on the card (flash forward and backward kernels,
+    once a layer each) against the CPU's plain autograd, within 1e-4 of
+    each leaf's largest entry or 1e-7; mamba2's loss raises on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_cuda, reset_launches)
+    from repro_torch.models import build
+    from repro_torch.train.tree import leaves, map_tree
+    cfg = dataclasses.replace(get("gemma3-1b").smoke(), dtype="float32")
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 48)))
+             for k in ("tokens", "labels")}
+    grads = []
+    for dev in (cuda_device, torch.device("cpu")):
+        p = map_tree(lambda t: t.to(dev).requires_grad_(True), params)
+        reset_launches()
+        loss, _ = model.loss(p, {k: v.to(dev) for k, v in batch.items()})
+        grads.append((float(loss), torch.autograd.grad(loss, leaves(p))))
+        if dev.type == "cuda":
+            assert flash_attention_cuda.launches == cfg.n_layers
+            assert flash_attention_backward_cuda.launches == cfg.n_layers
+    (lc, gc), (lp, gp) = grads
+    assert abs(lc - lp) <= 1e-4
+    for a, b in zip(gc, gp):
+        bar = max(1e-4 * float(b.abs().max()), 1e-7)
+        assert float((a.cpu() - b).abs().max()) <= bar
+    scfg = dataclasses.replace(get("mamba2-370m").smoke(), dtype="float32")
+    smodel = build(scfg)
+    sp = map_tree(lambda t: t.requires_grad_(True), smodel.init(
+        torch.Generator(cuda_device).manual_seed(0)))
+    with pytest.raises(RuntimeError, match="ROADMAP item 27"):
+        smodel.loss(sp, {k: v.to(cuda_device) for k, v in batch.items()})
