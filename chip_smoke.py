@@ -416,17 +416,21 @@ engine beside a decode step's byte bound (every weight but the
 embedding table, the K/V read, the Mamba-2 states read and written).
 
 Training. Phase "train_kernels" holds attention's backward kernel
-(``csrc/flash_attention_backward.cu``: three CUDA kernels a call, checked
-with the profiler) and the forward kernels' ``lse`` against their plain
+(``csrc/flash_attention_backward.cu``: three or four CUDA kernels a call,
+as ``flash_attention.plan_of`` says, checked with the profiler; two calls
+bitwise equal) and the forward kernels' ``lse`` against their plain
 versions, in float32 (1e-4 of each gradient's largest entry; lse within
 1e-4) and bf16 (5e-2; lse 1e-3), at gemma3-1b's training shape (4 x 1,024
 tokens, 4 query heads on 1 kv head, d_head 256, causal, window 512 and
 none), a ragged 600-token row and whisper's decoder over its frames (187
 tokens against 1,500, G = 1, d_head 64, not causal). It times the backward
-(device and call ms), its plain version and, as the library yardstick,
-SDPA's backward alone on a retained graph (which the port never calls),
-beside its bound: bytes over 3.35 TB/s against five products' flops over
-67 or 989 TFLOP/s; and the forward with and without ``lse``. Phase
+(device and call ms, and each of its CUDA kernels with the profiler), its
+plain version and, as the library yardstick, SDPA's backward alone on a
+retained graph (which the port never calls), beside its bound: bytes over
+3.35 TB/s against five products' flops over 67 or 989 TFLOP/s, and in
+float32 also over the tensor cores' TF32 rate (3 x flops over 494.7
+TFLOP/s); its CTAs a pass from the plan; and the forward with and without
+``lse`` beside the forward's plain version and SDPA's forward. Phase
 "train_crosscheck" runs gemma3-1b at full width cut to 2 layers (one
 local, one global), float32, on one 600-token row: the loss and every
 gradient leaf on the card against the CPU (1e-4; 1e-3 of each leaf's
@@ -4582,6 +4586,9 @@ BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_backward.cu"
 # 1e-3 in bf16 (float32 scores on both sides)
 BWD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 LSE_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
+# the backward's CUDA kernels, by names no other kernel's holds
+BWD_KERNELS = ("delta_kernel", "dkdv_kernel", "dq_kernel", "dq_ds_kernel",
+               "sum_partials_kernel")
 
 
 def train_cases(dev, dtype):
@@ -4613,13 +4620,16 @@ def phase_train_kernels(dev):
     versions on the card, float32 and bf16, on ``train_cases``; times of the
     backward (device and call ms, its plain version, and SDPA's backward
     alone on a retained graph, which the port never calls), the forward
-    with and without ``lse``, the bound, and the CUDA kernels a backward
-    call launches (3)."""
+    with and without ``lse`` beside its plain version and SDPA's forward
+    (the library yardstick, never called by the port), the bounds (float32
+    also on the tensor cores: 3 x flops over TF32's rate), the backward's
+    CTAs a pass from ``backward_plan``, and the CUDA kernels a backward
+    call launches (the plan's 3 or 4)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (
-        flash_attention_backward_cuda, flash_attention_cuda)
+        flash_attention_backward_cuda, flash_attention_cuda, plan_of)
 
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -4631,6 +4641,9 @@ def phase_train_kernels(dev):
                 q, k, causal=causal, window=window)
             got = flash_attention_backward_cuda(q, k, v, out, lse, do,
                                                 causal=causal, window=window)
+            again = flash_attention_backward_cuda(q, k, v, out, lse, do,
+                                                  causal=causal,
+                                                  window=window)
             want = ref.flash_attention_backward_reference(
                 q, k, v, out, lse, do, causal=causal, window=window)
             torch.cuda.synchronize()
@@ -4644,18 +4657,39 @@ def phase_train_kernels(dev):
             check(max(rel) <= BWD_TOL[dname],
                   f"backward {name} {dname}: errors over the largest entry "
                   f"{rel}")
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"backward {name} {dname}: two calls differ")
             B, H, S, D = q.shape
             KH, T = k.shape[1], k.shape[2]
+            plan = plan_of(q, k, causal=causal, window=window)
             pairs = int(ref.attention_mask(S, T, causal, window, dev).sum())
             es = q.element_size()
             nbytes = (4 * q.numel() + 4 * k.numel()) * es + 4 * lse.numel()
             flops = 10 * B * H * D * pairs          # five products
+            chains = {p: (items[:, 4] - items[:, 3]).tolist() for p, items
+                      in (("kv", plan.kv_items), ("q", plan.q_items))}
             row = {"kernel": "flash_attention_backward", "case": name,
                    "dtype": dname, "shape": [B, H, KH, S, T, D],
                    "causal": causal, "window": window,
                    "max_abs_err": max(errs), "max_rel_err": max(rel),
-                   "lse_err": lse_err,
-                   "bound": bound_ms(nbytes, flops, dname)}
+                   "lse_err": lse_err, "bitwise_repeatable": True,
+                   "bound": bound_ms(nbytes, flops, dname),
+                   "dkdv_ctas": len(plan.kv_items),
+                   "dq_ctas": len(plan.q_items),
+                   "split_chains": len(plan.reduce),
+                   "dq_block": plan.dq_block, "ds_tiles": plan.ds_tiles,
+                   "chain_max_mean": {
+                       p: [max(c), sum(c) / len(c)] for p, c in chains.items()}}
+            fwd_bytes = (2 * q.numel() + 2 * k.numel()) * es
+            fwd_flops = 4 * B * H * D * pairs       # two products
+            row["fwd_bound"] = bound_ms(fwd_bytes, fwd_flops, dname)
+            if dtype == torch.float32:
+                row["bound_tf32x3"] = (1e3 * max(
+                    nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_FLOPS),
+                    "operations")
+                row["fwd_bound_tf32x3"] = (1e3 * max(
+                    fwd_bytes / HBM_BYTES_PER_S, 3 * fwd_flops / TF32_FLOPS),
+                    "operations")
 
             def call():
                 return flash_attention_backward_cuda(
@@ -4663,9 +4697,13 @@ def phase_train_kernels(dev):
             row["ms"], row["call_ms"] = time_ms([call], 10)
             row["kernels_per_call"], row["kernel_names"] = \
                 kernels_per_call(call, calls=3)
-            check(row["kernels_per_call"] == 3,
+            check(row["kernels_per_call"] == plan.kernels,
                   f"backward {name} {dname}: {row['kernels_per_call']} "
-                  f"kernels a call ({row['kernel_names']}), want 3")
+                  f"kernels a call ({row['kernel_names']}), want "
+                  f"{plan.kernels}")
+            row["device_ms_of"] = profile_window(
+                f"backward_{name}", call, 5, share_of=BWD_KERNELS)[
+                "device_ms_of"]
             row["plain_ms"], row["plain_call_ms"] = time_ms([
                 lambda: ref.flash_attention_backward_reference(
                     q, k, v, out, lse, do, causal=causal, window=window)], 3)
@@ -4673,21 +4711,35 @@ def phase_train_kernels(dev):
                 q, k, v, causal=causal, window=window)], 10)
             row["fwd_lse_ms"], _ = time_ms([lambda: flash_attention_cuda(
                 q, k, v, causal=causal, window=window, return_lse=True)], 10)
+            row["fwd_plain_ms"], _ = time_ms([
+                lambda: ref.flash_attention_reference(
+                    q, k, v, causal=causal, window=window)], 3)
 
-            # SDPA's backward alone: a retained graph over leaves of the
-            # kernel's shapes (the kv heads expanded inside the graph, so
-            # dK and dV are summed over a kv head's query heads)
-            lq, lk, lv = (t.detach().requires_grad_(True) for t in (q, k, v))
+            # SDPA, forward and backward: the kv heads expanded (inside the
+            # backward's retained graph over leaves of the kernel's shapes,
+            # so dK and dV are summed over a kv head's query heads)
             G = H // KH
+            mask = ref.attention_mask(S, T, causal, window, dev) \
+                if window or (causal and S != T) else None
+
+            def sdpa(a, b, c):
+                if mask is not None:
+                    return F.scaled_dot_product_attention(a, b, c,
+                                                          attn_mask=mask)
+                return F.scaled_dot_product_attention(a, b, c,
+                                                      is_causal=causal)
+            kx, vx = (t.repeat_interleave(G, 1) if G > 1 else t
+                      for t in (k, v))
+            lib_fwd = sdpa(q, kx, vx)
+            torch.cuda.synchronize()
+            row["fwd_library_err"] = (lib_fwd.float()
+                                      - out.float()).abs().max().item()
+            row["fwd_library_ms"], _ = time_ms([lambda: sdpa(q, kx, vx)], 10)
+            del lib_fwd, kx, vx
+            lq, lk, lv = (t.detach().requires_grad_(True) for t in (q, k, v))
             kk = lk.repeat_interleave(G, 1) if G > 1 else lk
             vv = lv.repeat_interleave(G, 1) if G > 1 else lv
-            if window or (causal and S != T):
-                lib_out = F.scaled_dot_product_attention(
-                    lq, kk, vv, attn_mask=ref.attention_mask(
-                        S, T, causal, window, dev))
-            else:
-                lib_out = F.scaled_dot_product_attention(lq, kk, vv,
-                                                         is_causal=causal)
+            lib_out = sdpa(lq, kk, vv)
 
             def sdpa_backward():
                 return torch.autograd.grad(lib_out, (lq, lk, lv), do,
@@ -4878,9 +4930,7 @@ def phase_train(dev, steps=TRAIN_STEPS):
 
     def one_step():
         state[0], state[1], _ = step_fn(state[0], state[1], batch)
-    prof = profile_window("train_step", one_step, 2,
-                          share_of=("dkdv_kernel", "dq_kernel",
-                                    "delta_kernel"))
+    prof = profile_window("train_step", one_step, 2, share_of=BWD_KERNELS)
     prof["backward_kernel_share"] = sum(
         prof["device_ms_of"].values()) / max(prof["device_busy_ms"], 1e-9)
     res = {"phase": "train", "model": cfg.name, "params": n_params,
@@ -4963,26 +5013,39 @@ def flash_fp32_entry(rows, launches):
 
 def backward_entry(rows, launches):
     """The ``kernels`` entry of the attention backward: timed on gemma3-1b's
-    local layer in float32 (the training step's), with every other case
-    and dtype beside it, and its CUDA kernels a call (3)."""
+    local layer in float32 (the training step's), with its tensor-core
+    bound, its CTAs a pass and its CUDA kernels a call (the plan's 3 or
+    4), and every other case and dtype beside it."""
     entry = kernel_entry(rows, "flash_attention_backward", "gemma_w512",
                          launches, BWD_SOURCE, "src/repro/kernels/ref.py:300",
                          dtype="float32")
+    rep = next(r for r in rows if (r["case"], r["dtype"])
+                == ("gemma_w512", "float32"))
     entry["max_rel_err"] = max(r["max_rel_err"] for r in rows
                                if r["dtype"] == "float32")
+    entry["bound_tf32x3_ms"] = rep["bound_tf32x3"][0]
+    for key in ("kernels_per_call", "dkdv_ctas", "dq_ctas"):
+        entry[key] = rep[key]
     for r in rows:
         if (r["case"], r["dtype"]) != ("gemma_w512", "float32"):
             entry[f"{r['case']}_{r['dtype']}"] = {
                 k: r[k] for k in ("ms", "call_ms", "plain_ms", "library_ms",
                                   "max_abs_err", "max_rel_err", "fwd_ms",
-                                  "fwd_lse_ms")} | {
-                "bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
+                                  "fwd_lse_ms", "fwd_plain_ms",
+                                  "fwd_library_ms", "kernels_per_call",
+                                  "dkdv_ctas", "dq_ctas")} | {
+                "bound_ms": r["bound"][0], "bound_by": r["bound"][1]} | (
+                {"bound_tf32x3_ms": r["bound_tf32x3"][0]}
+                if "bound_tf32x3" in r else {})
     return entry
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="also write the full report (JSON) here")
+    ap.add_argument("--phases", help="after the build, run only these of "
+                    "the training phases (comma-separated: train_kernels, "
+                    "train_crosscheck, train) and print no summary")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -5012,6 +5075,13 @@ def main(argv=None):
              "seconds": time.perf_counter() - t,
              "ptxas": _build.ptxas_usage(build_dir)}
     print(json.dumps(build), flush=True)
+    if args.phases:
+        training = {"train_kernels": phase_train_kernels,
+                    "train_crosscheck": phase_train_crosscheck,
+                    "train": phase_train}
+        for name in args.phases.split(","):
+            emit(training[name], dev)
+        return 0
 
     t = time.perf_counter()
     rows = phase_kernels(dev)

@@ -18,12 +18,21 @@ a call launches one or two CUDA kernels. With ``return_lse`` either also
 writes each row's log-sum-exp (float32 (B,H,S)), which the backward reads;
 serving passes no ``lse`` buffer, and the kernels then write none.
 
-The gradient: ``csrc/flash_attention_backward.cu`` (both dtypes; three
-CUDA kernels a call, one count), the counterpart of ``repro``'s
-hand-written ``kernels/ref.py::_ca_bwd``. ``FlashAttention`` is the
+The gradient: ``csrc/flash_attention_backward.cu`` (both dtypes, on the
+tensor cores: split TF32 on ``mma.sync`` in float32, bf16 ``mma.sync`` in
+bf16), the counterpart of ``repro``'s hand-written ``kernels/ref.py::
+_ca_bwd``. Its two passes (dK/dV over resident key blocks, storing dS
+tiles; dQ over resident query blocks, reading them back, or computing
+them again where they would pass ``BWD_DS_CAP``) run from work lists
+that ``backward_plan`` builds from the shape and the card's SM count,
+cached per shape on the device: long chains split over several CTAs,
+heaviest first, their float32 partials summed by a reduce kernel in a
+fixed order (no atomics: two calls give bitwise-equal gradients). A call
+is three or four CUDA kernels (``plan_of(q, k, ...).kernels``), one
+count; the wrapper allocates the workspaces. ``FlashAttention`` is the
 autograd function over the forward and that kernel, which
-``kernels/ops.py`` runs where a CUDA input requires grad. The source notes
-say what bounds each kernel on the H100 and how it is tiled.
+``kernels/ops.py`` runs where a CUDA input requires grad. The source
+notes say what bounds each kernel on the H100 and how it is tiled.
 
 Plain versions: ``kernels/ref.py::flash_attention_reference``,
 ``flash_attention_lse_reference`` and
@@ -32,8 +41,11 @@ Plain versions: ``kernels/ref.py::flash_attention_reference``,
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+import heapq
 
+import numpy as np
 import torch
 
 from . import _build
@@ -125,12 +137,224 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, lse) if return_lse else out
 
 
+# -- the backward ------------------------------------------------------------
+
+# csrc/flash_attention_backward.cu's tiles: a CTA keeps BWD_BLOCK_R keys
+# (dK/dV pass) or queries (dQ pass) resident and streams BWD_BLOCK_C rows of
+# the other side a step
+BWD_BLOCK_R, BWD_BLOCK_C = 64, 32
+# a CTA's fixed cost in streamed steps (its resident tiles, its epilogue
+# and, for a split chain, the reduce), for the plan's makespan model
+_BWD_CTA_COST = 1
+# bytes of dS tiles the dK/dV pass may store for the dQ pass (which then
+# reads dS in blocks of 64 keys); above, the dQ pass computes S and dP
+# again, in blocks of 32 keys
+BWD_DS_CAP = 256 << 20
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+    """The backward kernel's work lists for one shape.
+
+    ``kv_items`` (dK/dV pass) and ``q_items`` (dQ pass): int32 (n, 6), one
+    row a CTA, heaviest first: (resident block, first streamed block,
+    streamed blocks a head, begin, end, slot). The dK/dV pass's resident
+    block ``(b * KH + kh) * ceil(T / 64) + kb`` holds keys 64 kb.. of kv
+    head kh; its step i in [begin, end) is query head kh * G + i // count,
+    queries 32 (first + i % count)... The dQ pass's resident ``(b * H + h)
+    * ceil(S / 64) + qb`` holds queries 64 qb.. of head h; step i is keys
+    ``dq_block`` (first + i)... (64 where the dQ pass reads the dS tiles
+    the dK/dV pass stored, 32 where it computes them again). ``slot`` is
+    -1 where the row covers its resident block's whole chain (it writes
+    the gradient), else its float32 partial's place in the pass's
+    workspace. ``reduce``: int32 (m, 4), one row a split chain: (pass 0
+    dK/dV or 1 dQ, resident block, first slot, slots), summed in slot
+    order. ``kv_chains``: int32 (resident blocks, 3), each key block's
+    (first, count, first dS tile): the dK/dV pass's step i of it stores
+    tile first-tile + i (32 queries x 64 keys); ``ds_tiles`` in all."""
+    kv_items: np.ndarray
+    q_items: np.ndarray
+    reduce: np.ndarray
+    kv_chains: np.ndarray
+    kv_slots: int
+    q_slots: int
+    ds_tiles: int
+    dq_block: int
+
+    @property
+    def kernels(self) -> int:
+        """CUDA kernels a call: delta, the two passes, and the reduce where
+        a chain splits."""
+        return 3 + (len(self.reduce) > 0)
+
+
+def _kv_chains(B, H, KH, S, T, causal, window):
+    """The dK/dV pass's chains: per resident key block, (first, count) of
+    the 32-query blocks that see some key of it (a superset: the kernel
+    masks within a block), count steps for each of the G heads."""
+    off, G, out = T - S, H // KH, []
+    for kb in range(_cdiv(T, BWD_BLOCK_R)):
+        k0 = kb * BWD_BLOCK_R
+        k_last = min(k0 + BWD_BLOCK_R, T) - 1
+        lo = max(0, k0 - off) if causal else 0           # qpos >= k0
+        hi = min(S, k_last + window - off) if window > 0 else S
+        first = lo // BWD_BLOCK_C
+        count = _cdiv(hi, BWD_BLOCK_C) - first if hi > lo else 0
+        out.append((first, count, G * count))
+    return [((b * KH + kh) * len(out) + kb, *c)
+            for b in range(B) for kh in range(KH)
+            for kb, c in enumerate(out)]
+
+
+def _q_chains(B, H, KH, S, T, causal, window, block):
+    """The dQ pass's chains: per resident query block, (first, count) of
+    the key blocks of ``block`` keys some query of it sees, one step
+    each."""
+    off, out = T - S, []
+    for qb in range(_cdiv(S, BWD_BLOCK_R)):
+        q_first = qb * BWD_BLOCK_R + off
+        q_last = min((qb + 1) * BWD_BLOCK_R, S) - 1 + off
+        lo = max(0, q_first - window + 1) if window > 0 else 0
+        hi = min(T, q_last + 1) if causal else T
+        first = lo // block
+        count = _cdiv(hi, block) - first if hi > lo else 0
+        out.append((first, count, count))
+    return [((b * H + h) * len(out) + qb, *c)
+            for b in range(B) for h in range(H)
+            for qb, c in enumerate(out)]
+
+
+def _makespan(lengths, sms: int) -> int:
+    """When the last of CTAs of these chain lengths ends, taken in order
+    by whichever of ``sms`` SMs frees first, each costing its length plus
+    ``_BWD_CTA_COST``."""
+    free = [0] * sms
+    end = 0
+    for n in lengths:
+        t = heapq.heappop(free) + n + _BWD_CTA_COST
+        heapq.heappush(free, t)
+        end = max(end, t)
+    return end
+
+
+def _pieces(n: int, c: int):
+    """A chain of n steps in ceil(n / c) near-equal ranges (one if n = 0)."""
+    p = max(1, _cdiv(n, c))
+    return [(i * n // p, (i + 1) * n // p) for i in range(p)]
+
+
+def _split_chains(chains, sms: int):
+    """The work list of one pass: each chain (resident, first, count, n)
+    cut into ranges of at most c steps, c chosen so that the pass has at
+    least a wave of ``sms`` CTAs where the work allows (every step its own
+    CTA if not) and, among such c, the earliest modelled end (ties: the
+    larger c, fewer partials); sorted longest first."""
+    ns = [n for *_, n in chains]
+    need = min(sms, sum(max(1, n) for n in ns))
+    best = None
+    for c in range(1, max(ns, default=0) + 1):
+        lengths = sorted((hi - lo for n in ns for lo, hi in _pieces(n, c)),
+                         reverse=True)
+        if len(lengths) < need:
+            break
+        span = _makespan(lengths, sms)
+        if best is None or span <= best[0]:
+            best = (span, c)
+    c = best[1] if best else 1
+    items, reduce, slots = [], [], 0
+    for resident, first, count, n in chains:
+        pieces = _pieces(n, c)
+        if len(pieces) > 1:
+            reduce.append((resident, slots, len(pieces)))
+        for j, (lo, hi) in enumerate(pieces):
+            slot = slots + j if len(pieces) > 1 else -1
+            items.append((resident, first, count, lo, hi, slot))
+        if len(pieces) > 1:
+            slots += len(pieces)
+    # longest first; among equals, in resident and step order
+    items.sort(key=lambda it: (it[3] - it[4], it[0], it[3]))
+    return np.array(items, dtype=np.int32).reshape(-1, 6), reduce, slots
+
+
+@functools.lru_cache(maxsize=256)
+def backward_plan(B: int, H: int, KH: int, S: int, T: int, causal: bool,
+                  window: int, sms: int,
+                  dq_block: int = BWD_BLOCK_R) -> BackwardPlan:
+    """The backward kernel's work lists for q (B,H,S,D) against k, v
+    (B,KH,T,D) on a card of ``sms`` SMs (D does not change them), the dQ
+    pass in blocks of ``dq_block`` keys (64: from stored dS; 32: computing
+    it again). Plain Python: the CPU tests check that every (query, key)
+    pair the masks let through is covered once in each pass."""
+    chains = _kv_chains(B, H, KH, S, T, causal, window)
+    kv, kv_red, kv_slots = _split_chains(chains, sms)
+    q, q_red, q_slots = _split_chains(
+        _q_chains(B, H, KH, S, T, causal, window, dq_block), sms)
+    reduce = [(0, *r) for r in kv_red] + [(1, *r) for r in q_red]
+    steps = np.array([n for *_, n in chains], dtype=np.int64)
+    bases = np.concatenate([[0], np.cumsum(steps)[:-1]])
+    kv_chains = np.array([(first, count, base) for (_, first, count, _), base
+                          in zip(chains, bases)], dtype=np.int32)
+    return BackwardPlan(kv, q, np.array(reduce, dtype=np.int32).reshape(
+        -1, 4), kv_chains.reshape(-1, 3), kv_slots, q_slots,
+        int(steps.sum()), dq_block)
+
+
+@functools.lru_cache(maxsize=256)
+def _ds_tiles(B, H, KH, S, T, causal, window) -> int:
+    """The dS tiles (32 queries x 64 keys) the dK/dV pass stores."""
+    return sum(n for *_, n in _kv_chains(B, H, KH, S, T, causal, window))
+
+
+def _plan_key(q: torch.Tensor, k: torch.Tensor, causal: bool,
+              window: int) -> tuple:
+    B, H, S, _ = q.shape
+    KH, T = k.shape[1], k.shape[2]
+    key = (B, H, KH, S, T, bool(causal), int(window))
+    ds_bytes = _ds_tiles(*key) * BWD_BLOCK_C * BWD_BLOCK_R * q.element_size()
+    block = BWD_BLOCK_R if ds_bytes <= BWD_DS_CAP else BWD_BLOCK_C
+    return key + (_sm_count(q.device.index), block)
+
+
+def plan_of(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+            window: int = 0) -> BackwardPlan:
+    """The plan ``flash_attention_backward_cuda`` runs for q, k on their
+    card: stored dS (``dq_block`` 64) where the tiles fit under
+    ``BWD_DS_CAP``."""
+    return backward_plan(*_plan_key(q, k, causal, window))
+
+
+@functools.lru_cache(maxsize=256)
+def _device_lists(key: tuple, device: torch.device):
+    """``backward_plan(*key)``'s four int32 lists on ``device`` (one copy
+    a plan)."""
+    plan = backward_plan(*key)
+    parts = (plan.kv_items, plan.q_items, plan.reduce, plan.kv_chains)
+    lists = torch.from_numpy(np.concatenate([a.ravel() for a in parts])
+                             ).to(device)
+    out, at = [], 0
+    for a in parts:
+        out.append(lists[at:at + a.size])
+        at += a.size
+    return out
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 @functools.cache
 def _backward_lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention_backward")
-    # q, k, v, o, lse, do, delta, dq, dk, dv; dtype and 8 ints; the stream
-    lib.flash_attention_backward.argtypes = [ctypes.c_void_p] * 10 \
-        + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    # q, k, v, o, lse, do, delta, dq, dk, dv, the work lists, the reduce
+    # list, the chains, the two partials' workspaces, the dS tiles; dtype
+    # and 14 ints; the stream
+    lib.flash_attention_backward.argtypes = [ctypes.c_void_p] * 17 \
+        + [ctypes.c_int] * 15 + [ctypes.c_void_p]
     lib.flash_attention_backward.restype = ctypes.c_int
     return lib
 
@@ -141,8 +365,11 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor,
                                   causal: bool = True, window: int = 0):
     """Attention's gradient on the card: (q, k, v, o, lse, do) -> (dq, dk,
     dv), q, o, do (B,H,S,D) and k, v (B,KH,T,D) of one dtype, lse the
-    forward's float32 (B,H,S). Three CUDA kernels (delta, dK/dV, dQ), one
-    count. Raises on anything the kernel does not take."""
+    forward's float32 (B,H,S). Three or four CUDA kernels (delta, the dK/dV
+    pass, the dQ pass, the reduce where the plan splits a chain), one
+    count; the dS tiles and the float32 partials of split chains go to
+    workspaces allocated here. Raises on anything the kernel does not
+    take."""
     _check_shapes("flash_attention_backward", q, k, v, window)
     _build.require_cuda("flash_attention_backward", q, o, lse, do)
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
@@ -150,19 +377,36 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor,
         raise ValueError("flash_attention_backward: o and do must match q "
                          "in shape and dtype")
     B, H, S, D = q.shape
+    KH, T = k.shape[1], k.shape[2]
     if lse.dtype != torch.float32 or lse.shape != (B, H, S):
         raise ValueError(f"flash_attention_backward: lse must be float32 of "
                          f"shape {(B, H, S)}")
+    key = _plan_key(q, k, causal, window)
+    plan = backward_plan(*key)
+    kv_items, q_items, reduce, chains = _device_lists(key, q.device)
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
                   torch.empty_like(v))
+    kv_ws = torch.empty((plan.kv_slots, 2, BWD_BLOCK_R, D),
+                        dtype=torch.float32, device=q.device) \
+        if plan.kv_slots else None
+    q_ws = torch.empty((plan.q_slots, BWD_BLOCK_R, D), dtype=torch.float32,
+                       device=q.device) if plan.q_slots else None
+    ds_ws = torch.empty((plan.ds_tiles, BWD_BLOCK_C, BWD_BLOCK_R),
+                        dtype=q.dtype, device=q.device) \
+        if plan.dq_block == BWD_BLOCK_R else None
     lib = _backward_lib()
+    ptr = [None if t is None else t.data_ptr()
+           for t in (kv_ws, q_ws, ds_ws)]
     code = lib.flash_attention_backward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), _build.DTYPE_CODES[q.dtype], B, H,
-        k.shape[1], S, k.shape[2], D, int(bool(causal)), int(window),
-        _build.current_stream(q.device))
+        dk.data_ptr(), dv.data_ptr(), kv_items.data_ptr(),
+        q_items.data_ptr(), reduce.data_ptr() if len(plan.reduce) else None,
+        chains.data_ptr(), *ptr, _build.DTYPE_CODES[q.dtype], B, H, KH, S,
+        T, D, int(bool(causal)), int(window), len(plan.kv_items),
+        len(plan.q_items), len(plan.reduce), BWD_BLOCK_R, BWD_BLOCK_C,
+        plan.dq_block, _build.current_stream(q.device))
     _build.check_launch(lib, "flash_attention_backward", code)
     flash_attention_backward_cuda.launches += 1
     return dq, dk, dv

@@ -1411,6 +1411,7 @@ BWD_CASES = [
     (4, 4, 1, 1024, 1024, 256, True, 512),   # gemma3-1b training: local
     (4, 4, 1, 1024, 1024, 256, True, 0),     # and global layers
     (1, 20, 20, 187, 1500, 64, False, 0),    # whisper: decoder over frames
+    (1, 4, 1, 600, 600, 256, True, 512),     # the ragged row of a cross-check
     (2, 4, 2, 37, 53, 40, True, 9),          # ragged, right-aligned, GQA
     (1, 8, 1, 200, 200, 64, True, 0),        # G = 8
     (1, 2, 1, 129, 129, 200, False, 33),     # D not a power of two
@@ -1442,6 +1443,69 @@ def test_flash_backward_kernel_matches_plain(cuda_device, dtype, B, H, KH,
     assert flash_attention_backward_cuda.launches == n + 1
     for a, b in zip(got, want):
         assert a.dtype == dtype and a.shape == b.shape
+        assert _grad_err(a, b) <= BWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KH,S,T,D,causal,window", [
+    (4, 4, 1, 1024, 1024, 256, True, 512),   # chains split: the reduce
+    (1, 4, 1, 600, 600, 256, True, 512),
+    (1, 20, 20, 187, 1500, 64, False, 0),
+])
+def test_flash_backward_kernel_is_deterministic(cuda_device, dtype, B, H, KH,
+                                                S, T, D, causal, window):
+    """Two calls on the same inputs give bitwise-equal gradients: split
+    chains are summed by the reduce kernel in a fixed order, no atomics."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_cuda, plan_of)
+    g = torch.Generator(cuda_device).manual_seed(S + T)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    q, k, v, do = (randn(B, H, S, D), randn(B, KH, T, D), randn(B, KH, T, D),
+                   randn(B, H, S, D))
+    o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                  return_lse=True)
+    a = flash_attention_backward_cuda(q, k, v, o, lse, do, causal=causal,
+                                      window=window)
+    b = flash_attention_backward_cuda(q, k, v, o, lse, do, causal=causal,
+                                      window=window)
+    torch.cuda.synchronize()
+    if (S, window) != (187, 0):
+        assert len(plan_of(q, k, causal=causal, window=window).reduce) > 0
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KH,S,T,D,causal,window", [
+    BWD_CASES[0], BWD_CASES[2], BWD_CASES[4], BWD_CASES[6]])
+def test_flash_backward_recomputing_dq_matches_plain(cuda_device, dtype, B,
+                                                     H, KH, S, T, D, causal,
+                                                     window, monkeypatch):
+    """Where the dS tiles would not fit under ``BWD_DS_CAP`` (0 here), the
+    dQ pass computes S and dP again in blocks of 32 keys: the same
+    gradient."""
+    from repro_torch.kernels import flash_attention as fa
+    monkeypatch.setattr(fa, "BWD_DS_CAP", 0)
+    g = torch.Generator(cuda_device).manual_seed(S + T + D)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    q, k, v = randn(B, H, S, D), randn(B, KH, T, D), randn(B, KH, T, D)
+    do = randn(B, H, S, D)
+    o = ref.flash_attention_reference(q, k, v, causal=causal, window=window)
+    lse = ref.flash_attention_lse_reference(q, k, causal=causal,
+                                            window=window)
+    assert fa.plan_of(q, k, causal=causal, window=window).dq_block == 32
+    got = fa.flash_attention_backward_cuda(q, k, v, o, lse, do,
+                                           causal=causal, window=window)
+    want = ref.flash_attention_backward_reference(
+        q, k, v, o, lse, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
         assert _grad_err(a, b) <= BWD_TOL[dtype]
 
 
