@@ -450,6 +450,31 @@ final weights' loss on the first and last batches it trained on. Its
 optimizer is ``launch/train.py``'s at ``--lr 1e-3``: at the launcher's
 default 3e-3, set for the smoke cut, the full width's loss rose.
 
+Training the SSD scan. Phase "ssd_backward_kernels" holds the scan's
+backward kernel (``csrc/ssd_scan_backward.cu``: five CUDA kernels a call,
+checked with the profiler; two calls bitwise equal) against its plain
+version (``ref.ssd_backward_reference``), in float32 (1e-4 of each
+gradient's largest entry) and bf16 (5e-2), on mamba2-370m's training shape
+(4 x 1,024 tokens, 32 heads of 64, state 128, chunk 128), jamba's
+full-width Mamba-2 sublayer (256 heads) at l = 384 and 1,024, two rows with
+an initial state and a final-state cotangent, and one chunk. It times the
+backward, its plain version and the forward kernel at the same shapes,
+beside the bound (bytes, the float32 partials of dB and dC included, over
+3.35 TB/s against the products' flops over 67 or 989 TFLOP/s; in float32
+also 3 x flops over TF32's 494.7, as the kernel runs them); no PyTorch
+call computes this function. Phase "ssm_train_crosscheck" holds
+the loss and every gradient leaf on the card against the CPU (the loss
+within 1e-4, each leaf within 1e-3 of its largest entry, as
+"train_crosscheck") for mamba2-370m at full width cut to 2 layers on a
+ragged 600-token row (and both against a float64 CPU run) and for jamba's
+period at "hybrid_crosscheck"'s narrow cut, with the launch counts. Phase "ssm_train" trains mamba2-370m,
+all 48 layers at full width, float32 (419.8 M parameters), as phase
+"train" trains gemma3-1b but without the checkpoint: losses finite and
+falling, the SSD forward and backward kernels 48 times a step, no plain
+version on the card, peak memory under 80 GB; it reports step ms,
+tokens/s against 6 N tokens over 67 TFLOP/s and a ``profile_window`` over
+2 steps with the SSD kernels' shares of device time.
+
 Every phase line carries its wall ``seconds``.
 
 Prints the card's name and power limit, one JSON line per phase, a
@@ -981,52 +1006,100 @@ def phase_serve(dev, arch="gemma3-1b", name="serve", wrap=FiniteLogits):
 
 
 
+PROFILE_TRIES = 6
+WAKE_KERNEL = "spin_kernel"   # the name of ``torch.cuda._sleep``'s kernel
+
+
+def not_measured(num, den):
+    """``num / den``, or None where the tracer measured neither."""
+    return None if num is None or den is None else num / max(den, 1e-9)
+
+
+def dev_us(e):              # the attribute's name moved in torch 2.4
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def traced(label, fn, n):
+    """``torch.profiler`` over ``n`` calls of ``fn`` (after one warm call):
+    (the key averages, the trace's launch calls that ``fn`` made, wall us a
+    call, tries that recorded no device event).
+
+    A short trace of only the port's own kernels (a few calls of a
+    sub-millisecond backward) often recorded no device event at all, though
+    it recorded their launch calls, and more often the longer the host had
+    waited since the trace before it; traces that also ran PyTorch's
+    kernels never dropped them. So each trace first launches one empty
+    PyTorch kernel (``torch.cuda._sleep(1)``; its event and its launch call
+    are left out of what this returns), and a trace with no device event
+    is taken again at once, up to ``PROFILE_TRIES`` times in all, each
+    dropped try logged. ``PROFILE_TRIES`` dropped tries mean the device
+    was not measured."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for dropped in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0) / n
+        ka = [e for e in prof.key_averages() if WAKE_KERNEL not in e.key]
+        launches = sum(e.count for e in ka if e.device_type == DeviceType.CPU
+                       and e.key in _LAUNCH_KEYS) - 1
+        if sum(dev_us(e) for e in ka if e.device_type != DeviceType.CPU) > 0:
+            return ka, launches, wall_us, dropped
+        log(f"traced {label}: the tracer recorded no device event "
+            f"(try {dropped + 1} of {PROFILE_TRIES})")
+    return ka, launches, wall_us, PROFILE_TRIES
+
+
 def profile_window(label, fn, n, share_of=()):
-    """``torch.profiler`` over ``n`` calls of ``fn`` (after one warm call).
+    """``traced`` over ``n`` calls of ``fn``.
 
     Device busy time is the summed duration of the device's own events
     (kernels, copies, memsets). A CPU op's device time repeats the kernels
     it launched, so CPU ops are left out of that sum; the rest of the wall
     clock the device idles. Also counts the kernel launch calls a call and
     the device-to-host copies the device ran a call, and, for each name in
-    ``share_of``, the device ms a call of the kernels whose names hold it."""
+    ``share_of``, the device ms a call of the kernels whose names hold it.
+    ``dropped_windows`` counts the traces that recorded no device event; if
+    every try dropped them, the device numbers are None (not measured),
+    never zeros."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def dev_us(e):          # the attribute's name moved in torch 2.4
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0) / n
-    ka = prof.key_averages()
+    ka, launches, wall_us, dropped = traced(label, fn, n)
     dev = [e for e in ka if e.device_type != DeviceType.CPU]
     host = [e for e in ka if e.device_type == DeviceType.CPU]
+    res = {"window": label, "wall_ms": wall_us / 1e3,
+           "dropped_windows": dropped,
+           "launches": launches / n,
+           "top_host_self_ms": [[e.key, e.self_cpu_time_total / n / 1e3,
+                                 e.count / n] for e in sorted(
+               host, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]]}
+    if dropped == PROFILE_TRIES:
+        res.update({"device_busy_ms": None, "device_idle_share": None,
+                    "dtoh_copies": None, "top_device_ms": None})
+        if share_of:
+            res["device_ms_of"] = {name: None for name in share_of}
+        return res
     busy = sum(dev_us(e) for e in dev) / n
-    top_dev = sorted(dev, key=dev_us, reverse=True)[:8]
-    top_cpu = sorted(host, key=lambda e: e.self_cpu_time_total,
-                     reverse=True)[:8]
-    extra = {"device_ms_of": {name: sum(dev_us(e) for e in dev
-                                        if name in e.key) / n / 1e3
-                              for name in share_of}} if share_of else {}
-    return {"window": label, "wall_ms": wall_us / 1e3,
-            "device_busy_ms": busy / 1e3,
-            "device_idle_share": max(0.0, 1.0 - busy / wall_us),
-            "launches": sum(e.count for e in host
-                            if e.key in _LAUNCH_KEYS) / n,
-            "dtoh_copies": sum(e.count for e in dev
-                               if e.key.startswith("Memcpy DtoH")) / n,
-            "top_device_ms": [[e.key, dev_us(e) / n / 1e3, e.count / n]
-                              for e in top_dev],
-            "top_host_self_ms": [[e.key, e.self_cpu_time_total / n / 1e3,
-                                  e.count / n] for e in top_cpu], **extra}
+    res.update({
+        "device_busy_ms": busy / 1e3,
+        "device_idle_share": max(0.0, 1.0 - busy / wall_us),
+        "dtoh_copies": sum(e.count for e in dev
+                           if e.key.startswith("Memcpy DtoH")) / n,
+        "top_device_ms": [[e.key, dev_us(e) / n / 1e3, e.count / n]
+                          for e in sorted(dev, key=dev_us, reverse=True)[:8]]})
+    if share_of:
+        res["device_ms_of"] = {name: sum(dev_us(e) for e in dev
+                                         if name in e.key) / n / 1e3
+                               for name in share_of}
+    return res
 
 
 def phase_trace(engine, name="trace", steps=3):
@@ -1582,23 +1655,14 @@ def phase_ssd_kernels(dev):
 
 def ssd_launch_breakdown(fn, calls=20):
     """Device ms a call of each of the scan's kernels (chunk_state,
-    state_passing, chunk_scan), from ``torch.profiler`` over ``calls``
-    calls after a warm one."""
+    state_passing, chunk_scan), from ``traced`` over ``calls`` calls."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+    ka, _, _, _ = traced("ssd_launch_breakdown", fn, calls)
     out = {}
-    for e in prof.key_averages():
+    for e in ka:
         if e.device_type == DeviceType.CPU:
             continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
+        us = dev_us(e)
         for part in ("chunk_state", "state_passing", "chunk_scan"):
             if part in e.key:
                 out[part] = {"ms": us / calls / 1e3,
@@ -1652,9 +1716,9 @@ def phase_ssm_crosscheck(dev):
 class PlainOnCard:
     """Counts calls of the kernels' plain versions with CUDA tensors while
     active (``ops`` reaches them through the ``ref`` module)."""
-    NAMES = ("ssd_reference", "flash_attention_reference",
-             "decode_attention_reference", "rask_objective_reference",
-             "rask_objective_grad")
+    NAMES = ("ssd_reference", "ssd_backward_reference",
+             "flash_attention_reference", "decode_attention_reference",
+             "rask_objective_reference", "rask_objective_grad")
 
     def __enter__(self):
         from repro_torch.kernels import ref
@@ -2842,7 +2906,8 @@ def phase_pipeline(dev):
           f"pipeline: the first solved cycle is no fill round {res['fill_round']}")
     check(agent.collects_ready >= 1,
           f"pipeline: no collect found its event complete ({agent.collects})")
-    check(piped["trace"]["dtoh_copies"] <= 1.0
+    check(piped["trace"]["dtoh_copies"] is not None
+          and piped["trace"]["dtoh_copies"] <= 1.0
           and not piped["syncs_in_one_decide"],
           f"pipeline: a pipelined decide copied {piped['trace']['dtoh_copies']}"
           f" times, syncs {piped['syncs_in_one_decide']}")
@@ -2973,7 +3038,9 @@ def phase_forecast(dev):
             == [h.forecast_used for h in cpu_hist]
         row["added_launches_a_decide"] = row["trace"]["launches"] \
             - react["trace"]["launches"]
-        row["added_busy_ms_a_decide"] = row["trace"]["device_busy_ms"] \
+        row["added_busy_ms_a_decide"] = None if None in (
+            row["trace"]["device_busy_ms"], react["trace"]["device_busy_ms"]) \
+            else row["trace"]["device_busy_ms"] \
             - react["trace"]["device_busy_ms"]
         res[kind] = {"reactive": react, "forecast": row}
         log(json.dumps({kind: res[kind]}))
@@ -2984,7 +3051,8 @@ def phase_forecast(dev):
               f"{cpu_row['mean_fulfillment']} on the CPU")
         check(row["proactive_cycles"] > 0,
               f"forecast {kind}: the gate never opened")
-        check(row["trace"]["dtoh_copies"] <= 1.0,
+        check(row["trace"]["dtoh_copies"] is not None
+              and row["trace"]["dtoh_copies"] <= 1.0,
               f"forecast {kind}: {row['trace']['dtoh_copies']} copies a "
               "decide")
     return res
@@ -3874,8 +3942,8 @@ def phase_moe_trace(engine):
     busy = res["decode_step"]["device_busy_ms"]
     res.update({"step_bytes": parts, "step_bytes_total": step_bytes,
                 "step_bound_ms": 1e3 * step_bytes / HBM_BYTES_PER_S,
-                "busy_over_bound": busy / (1e3 * step_bytes
-                                           / HBM_BYTES_PER_S)})
+                "busy_over_bound": not_measured(
+                    busy, 1e3 * step_bytes / HBM_BYTES_PER_S)})
     log(json.dumps(res))
     return res
 
@@ -4269,8 +4337,8 @@ def phase_encdec_trace(model, params, batch, cache):
     busy = res["decode_step"]["device_busy_ms"]
     res.update({"step_bytes": parts, "step_bytes_total": step_bytes,
                 "step_bound_ms": 1e3 * step_bytes / HBM_BYTES_PER_S,
-                "busy_over_bound": busy / (1e3 * step_bytes
-                                           / HBM_BYTES_PER_S)})
+                "busy_over_bound": not_measured(
+                    busy, 1e3 * step_bytes / HBM_BYTES_PER_S)})
     log(json.dumps(res))
     return res
 
@@ -4565,8 +4633,8 @@ def phase_hybrid_trace(engine):
     busy = res["decode_step"]["device_busy_ms"]
     res.update({"step_bytes": parts, "step_bytes_total": step_bytes,
                 "step_bound_ms": 1e3 * step_bytes / HBM_BYTES_PER_S,
-                "busy_over_bound": busy / (1e3 * step_bytes
-                                           / HBM_BYTES_PER_S)})
+                "busy_over_bound": not_measured(
+                    busy, 1e3 * step_bytes / HBM_BYTES_PER_S)})
     log(json.dumps(res))
     return res
 
@@ -4931,8 +4999,10 @@ def phase_train(dev, steps=TRAIN_STEPS):
     def one_step():
         state[0], state[1], _ = step_fn(state[0], state[1], batch)
     prof = profile_window("train_step", one_step, 2, share_of=BWD_KERNELS)
-    prof["backward_kernel_share"] = sum(
-        prof["device_ms_of"].values()) / max(prof["device_busy_ms"], 1e-9)
+    of = prof["device_ms_of"]
+    prof["backward_kernel_share"] = not_measured(
+        None if None in of.values() else sum(of.values()),
+        prof["device_busy_ms"])
     res = {"phase": "train", "model": cfg.name, "params": n_params,
            "dtype": cfg.dtype, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
            "steps": len(hist), "loss": losses, "grad_norm": norms,
@@ -4955,6 +5025,382 @@ def phase_train(dev, steps=TRAIN_STEPS):
     check(peak < 80.0, f"train: peak memory {peak} GB")
     check(start == steps, f"train: resumed at {start}, saved at {steps}")
     check(same, "train: the restored checkpoint differs from the state")
+    return res
+
+
+# -- training the SSD scan: mamba2-370m --------------------------------------------
+
+SSM_TRAIN_ARCH = "mamba2-370m"
+SSD_BWD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan_backward.cu"
+# the SSD backward's CUDA kernels and the forward's, by names no other
+# kernel's holds
+SSD_BWD_KERNELS = ("chunk_dstate_kernel", "state_backward_kernel",
+                   "chunk_local_kernel", "chunk_diag_kernel",
+                   "reduce_heads_kernel")
+SSD_FWD_KERNELS = ("chunk_state_kernel", "state_passing_kernel",
+                   "chunk_scan_kernel")
+GRAD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dinitial")
+
+
+def ssd_backward_cases(dev, dtype):
+    """The SSD backward's inputs, with ``ssd_cases``' distributions (32
+    heads of 64, state 128, chunk 128) and a cotangent dy ~ N(0, 1):
+    mamba2-370m's training shape (4 rows of 1,024 tokens); jamba's
+    full-width Mamba-2 sublayer (256 heads of 64) at l = 384 and 1024; two
+    rows of 512 with an initial state and a final-state cotangent; one
+    chunk (l = 64). Each case is (name, [x, dt, A, B, C], initial state,
+    dy, dfinal)."""
+    g = torch.Generator(dev).manual_seed(29)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    out = []
+    for name, b, l, h, state in (("mamba2_b4_l1024", 4, 1024, 32, False),
+                                 ("h256_b1_l384", 1, 384, 256, False),
+                                 ("h256_b1_l1024", 1, 1024, 256, False),
+                                 ("b2_l512_state", 2, 512, 32, True),
+                                 ("b1_l64", 1, 64, 32, False)):
+        p, n = 64, 128
+        args = [randn(b, l, h, p) * 0.5,
+                torch.nn.functional.softplus(randn(b, l, h)),
+                -torch.exp(randn(h) * 0.3),
+                randn(b, l, n) * 0.5, randn(b, l, n) * 0.5]
+        init = randn(b, h, p, n) * 0.5 if state else None
+        dy = randn(b, l, h, p)
+        dfin = randn(b, h, p, n) if state else None
+        out.append((name, [t.to(dtype) for t in args],
+                    None if init is None else init.to(dtype), dy.to(dtype),
+                    None if dfin is None else dfin.to(dtype)))
+    return out
+
+
+def phase_ssd_backward_kernels(dev):
+    """The SSD scan's backward kernel (``csrc/ssd_scan_backward.cu``: five
+    CUDA kernels a call, counted with the profiler) against its plain
+    version (``ref.ssd_backward_reference``) on ``ssd_backward_cases``, in
+    float32 (1e-4 of each gradient's largest entry) and bf16 (5e-2), the
+    forward's cs and prev from the forward kernel; two calls bitwise equal.
+    Times: the backward (device and call ms), its plain version, the
+    forward kernel at the same shapes (with its plain version and bound),
+    and, on mamba2's case, each of the five kernels' device ms; the bound
+    from ``ssd_scan.backward_work``, the function's own bytes (inputs, the
+    forward's cs and prev, gradients) over 3.35 TB/s against its flops
+    over 67 or 989 TFLOP/s; the bytes of the kernel's float32 dB/dC
+    partials (``backward_partials_bytes``) beside it, not in it. No single
+    PyTorch call computes this function: ``library_ms`` is null. float32
+    runs three TF32 tensor-core products for each product, so its rows
+    also carry that bound (3 x flops over 494.7 TFLOP/s, or the bytes)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import (backward_partials_bytes,
+                                              backward_work,
+                                              ssd_backward_cuda, ssd_cuda)
+
+    rows, chunk = [], 128
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for name, args, init, dy, dfin in ssd_backward_cases(dev, dtype):
+            _, _, cs, prev = ssd_cuda(*args, chunk=chunk, initial_state=init,
+                                      return_states=True)
+
+            def call():
+                return ssd_backward_cuda(*args, dy, cs, prev, dfin,
+                                         chunk=chunk)
+            ck = min(chunk, args[0].shape[1])
+            got, again = call(), call()
+            want = ref.ssd_backward_reference(*args, dy, dfin, chunk=ck,
+                                              initial_state=init)
+            torch.cuda.synchronize()
+            errs, rel = {}, {}
+            for key, a, w in zip(GRAD_NAMES, got, want):
+                check(bool(torch.isfinite(a).all()),
+                      f"ssd backward {name} {dname}: non-finite {key}")
+                errs[key] = (a.float() - w.float()).abs().max().item()
+                rel[key] = errs[key] / max(w.float().abs().max().item(),
+                                           1e-30)
+            # BWD_TOL: 1e-4 of each gradient's largest entry in float32
+            # (the same sums in another order), 5e-2 in bf16 (bf16 inputs
+            # and forward states, one TF32 product for each)
+            check(max(rel.values()) <= BWD_TOL[dname],
+                  f"ssd backward {name} {dname}: errors over the largest "
+                  f"entry {rel}")
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"ssd backward {name} {dname}: two calls differ")
+            x, B = args[0], args[3]
+            b, l, h, p = x.shape
+            n = B.shape[-1]
+            nbytes, flops = backward_work(b, l, h, p, n, ck,
+                                          x.element_size(),
+                                          dfinal=dfin is not None)
+            row = {"kernel": "ssd_scan_backward", "case": name,
+                   "dtype": dname, "shape": [b, l, h, p, n, chunk],
+                   "max_abs_err": max(errs.values()), "errors": errs,
+                   "max_rel_err": max(rel.values()), "rel_errors": rel,
+                   "tolerance_rel": BWD_TOL[dname],
+                   "bitwise_repeatable": True, "bytes": nbytes,
+                   "partials_bytes": backward_partials_bytes(b, l, h, n),
+                   "flops": flops, "bound": bound_ms(nbytes, flops, dname),
+                   "variant": "tf32x3" if dtype == torch.float32 else "tf32",
+                   "library_ms": None}
+            if dtype == torch.float32:
+                row["bound_tf32x3"] = (1e3 * max(
+                    nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_FLOPS),
+                    "operations" if 3 * flops / TF32_FLOPS
+                    > nbytes / HBM_BYTES_PER_S else "bytes")
+            row["ms"], row["call_ms"] = time_ms([call], 10)
+            row["kernels_per_call"], row["kernel_names"] = \
+                kernels_per_call(call, calls=3)
+            check(row["kernels_per_call"] == len(SSD_BWD_KERNELS),
+                  f"ssd backward {name} {dname}: {row['kernels_per_call']} "
+                  f"kernels a call ({row['kernel_names']})")
+            if name == "mamba2_b4_l1024":
+                row["device_ms_of"] = profile_window(
+                    f"ssd_backward_{name}_{dname}", call, 3,
+                    share_of=SSD_BWD_KERNELS)["device_ms_of"]
+            row["plain_ms"], row["plain_call_ms"] = time_ms([
+                lambda: ref.ssd_backward_reference(
+                    *args, dy, dfin, chunk=ck, initial_state=init)], 3)
+            row["fwd_ms"], row["fwd_call_ms"] = time_ms([
+                lambda: ssd_cuda(*args, chunk=chunk, initial_state=init)],
+                10)
+            row["fwd_plain_ms"], _ = time_ms([
+                lambda: ref.ssd_reference(*args, chunk=ck,
+                                          initial_state=init)], 3)
+            row["fwd_bound"] = bound_ms(*_ssd_work(args, init, ck), dname)
+            del got, again, want
+            rows.append(row)
+            log(f"ssd backward {name} {dname}: {row}")
+    return {"phase": "ssd_backward_kernels", "cases": rows}
+
+
+def _ssd_launches():
+    from repro_torch.kernels.ssd_scan import ssd_backward_cuda, ssd_cuda
+    return {"ssd_scan": ssd_cuda.launches,
+            "ssd_scan_backward": ssd_backward_cuda.launches}
+
+
+def _zero_ssd_launches():
+    from repro_torch.kernels.ssd_scan import ssd_backward_cuda, ssd_cuda
+    ssd_cuda.launches = ssd_backward_cuda.launches = 0
+
+
+def _worst_rel(got, want):
+    """The largest of the leaves' max |got - want| over their largest
+    |want| entry (leaves whose largest entry passes 1e-5)."""
+    return max((a.double() - b.double()).abs().max().item()
+               / b.double().abs().max().item()
+               for a, b in zip(got, want) if b.abs().max().item() > 1e-5)
+
+
+def _loss_and_grads_both(model, params, batch, dev, model64=None):
+    """The loss and its gradient leaves on the card (launch counts read
+    just after; no plain version on the card) and on the CPU from the same
+    weights; with ``model64`` also on the CPU in float64. Returns (card
+    loss, CPU loss, card leaves on the CPU, CPU leaves, float64 leaves or
+    None, card launches)."""
+    from repro_torch.kernels.flash_attention import \
+        flash_attention_backward_cuda
+    from repro_torch.train.tree import map_tree
+    cpu_params = _to_cpu(params)
+    _zero_ssd_launches()
+    _zero_attention_launches()
+    with PlainOnCard() as plain:
+        gl, gg = _grads_of(model, params, {k: v.to(dev)
+                                           for k, v in batch.items()})
+        torch.cuda.synchronize()
+    launches = dict(_ssd_launches(), **_attention_launches(),
+                    flash_attention_backward=flash_attention_backward_cuda
+                    .launches)
+    check(not any(plain.calls.values()),
+          f"ssm train cross-check: plain versions on the card {plain.calls}")
+    gg = [g.cpu() for g in gg]
+    cl, cg = _grads_of(model, cpu_params, batch)
+    g64 = None
+    if model64 is not None:
+        _, g64 = _grads_of(model64, map_tree(torch.Tensor.double,
+                                             cpu_params), batch)
+    return gl, cl, gg, cg, g64, launches
+
+
+# A Mamba-2 layer's per-head leaves: each entry a sum over every position
+# of a row, so float32 in another order stands ~1e-4 of the largest entry
+# from float64 on either side (PERF.md section 6)
+PER_HEAD_LEAVES = ("A_log", "dt_bias", "D")
+
+
+def phase_ssm_train_crosscheck(dev):
+    """The loss and every gradient leaf on the card against the CPU, float32
+    on both sides in another summation order: the loss within 1e-4, each
+    leaf within 1e-4 of its largest entry (or 1e-8), the kernels' float32
+    bar and "train_crosscheck"'s loss bar, except the per-head leaves (A_log,
+    dt_bias, D), held at 3e-4: the CPU's own float32 run stands ~1e-4 from
+    float64 there. mamba2-370m at full width cut to 2 layers on a ragged
+    600-token row (the model pads it to 640, dt = 0 on the pad), the SSD
+    forward and backward kernels once a layer; a float64 run on the CPU is
+    made too, and the card must stand within 3e-4 of it on every leaf. And
+    jamba's period at ``phase_hybrid_crosscheck``'s narrow cut (d_model
+    1024, 4 experts) on that phase's 300-token prompt (whose routes the
+    card keeps bit for bit there) with labels of its own: the SSD kernels
+    7 times, the float32 flash forward and backward once."""
+    import numpy as np
+
+    from repro_torch.configs import get
+    from repro_torch.models import build
+    from repro_torch.train.tree import stack_keys
+
+    tol_loss, tol_grad, tol_head = 1e-4, 1e-4, 3e-4
+    res = {"phase": "ssm_train_crosscheck",
+           "tolerance": {"loss": tol_loss, "grad_rel": tol_grad,
+                         "per_head_grad_rel": tol_head,
+                         "float64_rel": tol_head}}
+    cfg = dataclasses.replace(get(SSM_TRAIN_ARCH), n_layers=2,
+                              dtype="float32")
+    jcfg = dataclasses.replace(_jamba_cut(), d_model=1024, d_ff=2048,
+                               n_experts=4, dtype="float32")
+    n_attn, n_mamba, _ = _hybrid_counts(jcfg)
+    rng = np.random.default_rng(31)
+    jtoks = np.random.default_rng(9).integers(0, jcfg.vocab, (1, 300))
+    cases = (
+        ("mamba2", cfg, 5, {"tokens": rng.integers(0, cfg.vocab, (1, 600)),
+                            "labels": rng.integers(0, cfg.vocab, (1, 600))},
+         {"ssd_scan": 2, "ssd_scan_backward": 2}),
+        ("jamba", jcfg, 4, {"tokens": jtoks,
+                            "labels": rng.integers(0, jcfg.vocab, (1, 300))},
+         {"ssd_scan": n_mamba, "ssd_scan_backward": n_mamba,
+          "flash_tf32x3": n_attn, "flash_attention_backward": n_attn}))
+    for key, c, seed, batch, want in cases:
+        model = build(c)
+        model64 = build(dataclasses.replace(c, dtype="float64")) \
+            if key == "mamba2" else None
+        params = model.init(torch.Generator(dev).manual_seed(seed))
+        batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+        gl, cl, gg, cg, g64, launches = _loss_and_grads_both(
+            model, params, batch, dev, model64)
+        head = [k[-1] in PER_HEAD_LEAVES for k in stack_keys(params)]
+        errs = [((a - b).abs().max().item(), b.abs().max().item())
+                for a, b in zip(gg, cg)]
+        bars = [tol_head if hd else tol_grad for hd in head]
+
+        def worst(per_head):
+            return max((e / max(s, 1e-30) for (e, s), hd in zip(errs, head)
+                        if hd == per_head and s > 1e-5), default=0.0)
+        vs64 = None if g64 is None else {"card": _worst_rel(gg, g64),
+                                         "cpu": _worst_rel(cg, g64)}
+        res[key] = {"layers": c.n_layers, "d_model": c.d_model,
+                    "tokens": batch["tokens"].shape[1], "loss_gpu": gl,
+                    "loss_cpu": cl, "loss_err": abs(gl - cl),
+                    "grad_leaves": len(errs), "per_head_leaves": sum(head),
+                    "grad_worst_rel_err": worst(False),
+                    "per_head_worst_rel_err": worst(True),
+                    "grad_max_abs_err": max(e for e, _ in errs),
+                    "worst_rel_to_float64": vs64, "launches": launches}
+        log(json.dumps(res[key]))
+        del model, model64, params, gg, cg, g64
+        check({k: launches[k] for k in want} == want
+              and all(v == 0 for k, v in launches.items() if k not in want),
+              f"ssm train cross-check {key}: launches {launches}, want "
+              f"{want}")
+        check(abs(gl - cl) <= tol_loss,
+              f"ssm train cross-check {key}: loss {gl} vs {cl}")
+        check(all(e <= max(t * s, 1e-8) for (e, s), t in zip(errs, bars)),
+              f"ssm train cross-check {key}: gradients differ (worst "
+              f"{res[key]['grad_worst_rel_err']} of the largest entry, "
+              f"per-head {res[key]['per_head_worst_rel_err']})")
+        check(vs64 is None or vs64["card"] <= tol_head,
+              f"ssm train cross-check {key}: the card's gradients stand "
+              f"{vs64} from float64")
+    return res
+
+
+def phase_ssm_train(dev, steps=TRAIN_STEPS):
+    """mamba2-370m, all 48 layers at full width, float32, seeded weights,
+    trained by the port's ``Trainer`` through ``make_train_step`` on
+    ``TokenPipeline(vocab=50280, batch=4, seq=1024)`` with
+    ``AdamWConfig(lr=TRAIN_LR, warmup_steps=10, total_steps=steps)``, as
+    phase "train" trains gemma3-1b, without the checkpoint (phase "train"
+    covers it: the Trainer's save is a no-op here). Checks: every loss and
+    grad norm finite, the last loss below the first, the SSD forward and
+    backward kernels 48 times a step, no plain version on the card, peak
+    memory under 80 GB. Reports step ms, tokens/s against the step's bound
+    (6 N tokens over 67 TFLOP/s), peak memory and a ``profile_window`` over
+    2 steps with the SSD kernels' shares of device time."""
+    from repro_torch.configs import get
+    from repro_torch.data import TokenPipeline
+    from repro_torch.device import upload
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build
+    from repro_torch.train.optimizer import AdamWConfig, adamw
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.train.tree import leaves
+
+    resident = _free_card()
+    cfg = dataclasses.replace(get(SSM_TRAIN_ARCH), dtype="float32")
+    model = build(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    n_params = sum(p.numel() for p in leaves(params))
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=10, total_steps=steps)
+    init, _ = adamw(opt_cfg)
+    step_fn = make_train_step(cfg, TRAIN_BATCH, TRAIN_SEQ, opt_cfg=opt_cfg,
+                              device=dev)
+    pipeline = TokenPipeline(vocab=cfg.vocab, batch=TRAIN_BATCH,
+                             seq=TRAIN_SEQ)
+
+    def to_device(b):
+        return {k: upload(v, dev) for k, v in b.items()}
+
+    tcfg = TrainerConfig(total_steps=steps, ckpt_every=10 ** 9,
+                         log_every=10 ** 9)
+    trainer = Trainer(step_fn, params, init(params), pipeline, tcfg,
+                      to_device=to_device)
+    trainer.ckpt.save = lambda *a, **kw: None
+    torch.cuda.synchronize()
+    _zero_ssd_launches()
+    with PlainOnCard() as plain:
+        t0 = time.perf_counter()
+        hist = trainer.run()
+        wall = time.perf_counter() - t0
+    launches = _ssd_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    step_ms = [1e3 * h["time_s"] for h in hist]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    med = statistics.median(step_ms[1:])
+    bound = 1e3 * 6 * n_params * tokens / PEAK_FLOPS["float32"]
+    batch = to_device(pipeline.batch_at(steps))
+    state = [trainer.params, trainer.opt_state]
+
+    def one_step():
+        state[0], state[1], _ = step_fn(state[0], state[1], batch)
+    prof = profile_window("ssm_train_step", one_step, 2,
+                          share_of=SSD_BWD_KERNELS + SSD_FWD_KERNELS)
+    of = prof["device_ms_of"]
+    for key, names in (("ssd_backward_share", SSD_BWD_KERNELS),
+                       ("ssd_forward_share", SSD_FWD_KERNELS)):
+        prof[key] = not_measured(
+            None if None in of.values() else sum(of[k] for k in names),
+            prof["device_busy_ms"])
+    res = {"phase": "ssm_train", "model": cfg.name, "params": n_params,
+           "dtype": cfg.dtype, "layers": cfg.n_layers, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "steps": len(hist), "loss": losses,
+           "grad_norm": norms, "lr": [h["lr"] for h in hist],
+           "step_ms": step_ms, "step_ms_median": med,
+           "tokens_per_s": tokens / (med / 1e3), "step_bound_ms": bound,
+           "wall_s": wall, "launches": launches,
+           "plain_calls_on_card": plain.calls, "peak_mem_gb": peak,
+           "resident_before_gb": resident, "profile": prof}
+    log(json.dumps(res))
+    finite = all(math.isfinite(x) for x in losses + norms)
+    check(len(hist) == steps, f"ssm train: {len(hist)} steps of {steps}")
+    check(finite, f"ssm train: non-finite loss or grad norm {losses} "
+          f"{norms}")
+    check(losses[-1] < losses[0], f"ssm train: loss did not fall: {losses}")
+    check(launches == {"ssd_scan": cfg.n_layers * steps,
+                       "ssd_scan_backward": cfg.n_layers * steps},
+          f"ssm train: launches {launches} vs {cfg.n_layers} a step")
+    check(not any(plain.calls.values()),
+          f"ssm train: plain versions ran on the card: {plain.calls}")
+    check(peak < 80.0, f"ssm train: peak memory {peak} GB")
     return res
 
 
@@ -5040,12 +5486,40 @@ def backward_entry(rows, launches):
     return entry
 
 
+def ssd_backward_entry(rows, launches):
+    """The ``kernels`` entry of the SSD backward: timed on mamba2-370m's
+    training shape in float32 (the training step's), with its CUDA kernels
+    a call and each one's device ms there, the forward kernel's time at the
+    same shape, and every other case and dtype beside it."""
+    entry = kernel_entry(rows, "ssd_scan_backward", "mamba2_b4_l1024",
+                         launches, SSD_BWD_SOURCE,
+                         "src/repro/kernels/ref.py:72 (jax.vjp of "
+                         "ssd_reference)", dtype="float32")
+    rep = next(r for r in rows if (r["case"], r["dtype"])
+               == ("mamba2_b4_l1024", "float32"))
+    entry["max_rel_err"] = max(r["max_rel_err"] for r in rows
+                               if r["dtype"] == "float32")
+    for key in ("kernels_per_call", "device_ms_of", "fwd_ms",
+                "fwd_plain_ms", "fwd_bound"):
+        entry[key] = rep[key]
+    entry["bound_tf32x3_ms"], entry["bound_tf32x3_by"] = rep["bound_tf32x3"]
+    for r in rows:
+        if (r["case"], r["dtype"]) != ("mamba2_b4_l1024", "float32"):
+            entry[f"{r['case']}_{r['dtype']}"] = {
+                k: r[k] for k in ("ms", "call_ms", "plain_ms", "library_ms",
+                                  "max_abs_err", "max_rel_err", "fwd_ms",
+                                  "kernels_per_call")} | {
+                "bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
+    return entry
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="also write the full report (JSON) here")
     ap.add_argument("--phases", help="after the build, run only these of "
                     "the training phases (comma-separated: train_kernels, "
-                    "train_crosscheck, train) and print no summary")
+                    "train_crosscheck, train, ssd_backward_kernels, "
+                    "ssm_train_crosscheck, ssm_train) and print no summary")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -5078,7 +5552,10 @@ def main(argv=None):
     if args.phases:
         training = {"train_kernels": phase_train_kernels,
                     "train_crosscheck": phase_train_crosscheck,
-                    "train": phase_train}
+                    "train": phase_train,
+                    "ssd_backward_kernels": phase_ssd_backward_kernels,
+                    "ssm_train_crosscheck": phase_ssm_train_crosscheck,
+                    "ssm_train": phase_ssm_train}
         for name in args.phases.split(","):
             emit(training[name], dev)
         return 0
@@ -5150,6 +5627,9 @@ def main(argv=None):
     train_kernels = emit(phase_train_kernels, dev)
     train_cross = emit(phase_train_crosscheck, dev)
     train = emit(phase_train, dev)
+    ssd_backward = emit(phase_ssd_backward_kernels, dev)
+    ssm_train_cross = emit(phase_ssm_train_crosscheck, dev)
+    ssm_train = emit(phase_ssm_train, dev)
     option_launches = {
         "pipeline": {k: sum(pipeline[m]["launches"][k]
                             for m in ("sync", "pipelined"))
@@ -5190,7 +5670,10 @@ def main(argv=None):
                      "src/repro/kernels/ssd_scan.py:79"),
         # the training slice: a local layer of gemma3-1b's step (22 of 26)
         backward_entry(train_kernels["cases"],
-                       train["launches"]["flash_attention_backward"])]}
+                       train["launches"]["flash_attention_backward"]),
+        # mamba2-370m's training step, float32
+        ssd_backward_entry(ssd_backward["cases"],
+                           ssm_train["launches"]["ssd_scan_backward"])]}
     # each kernel's launches on every path that ran it: "launches" above is
     # its own slice's serving or autoscale phase
     compare = [engine_compare[k][f"{e}_launches"] for k in engine_compare
@@ -5235,10 +5718,21 @@ def main(argv=None):
         "flash_attention_backward": {
             "train": train["launches"]["flash_attention_backward"],
             "train_crosscheck":
-                train_cross["launches"]["flash_attention_backward"]},
+                train_cross["launches"]["flash_attention_backward"],
+            "ssm_train_crosscheck": ssm_train_cross["jamba"]["launches"][
+                "flash_attention_backward"]},
         "ssd_scan": {"ssm_serve": ssm_serve["launches"]["ssd_scan"],
                      "hybrid_serve": hybrid_serve["launches"]["ssd_scan"],
-                     "hybrid_crosscheck": hybrid_cross["ssd_launches"]},
+                     "hybrid_crosscheck": hybrid_cross["ssd_launches"],
+                     "ssm_train": ssm_train["launches"]["ssd_scan"],
+                     "ssm_train_crosscheck": sum(
+                         ssm_train_cross[m]["launches"]["ssd_scan"]
+                         for m in ("mamba2", "jamba"))},
+        "ssd_scan_backward": {
+            "ssm_train": ssm_train["launches"]["ssd_scan_backward"],
+            "ssm_train_crosscheck": sum(
+                ssm_train_cross[m]["launches"]["ssd_scan_backward"]
+                for m in ("mamba2", "jamba"))},
         "rask_objective": {"autoscale": auto["launches"]["rask_objective"],
                            "serving_loop": loop_launches["rask_objective"],
                            "fleet_solve": fleet_launches["rask_objective"],
@@ -5355,6 +5849,8 @@ def main(argv=None):
              "hybrid_crosscheck": hybrid_cross, "hybrid_serve": hybrid_serve,
              "hybrid_trace": hybrid_trace, "train_kernels": train_kernels,
              "train_crosscheck": train_cross, "train": train,
+             "ssd_backward_kernels": ssd_backward,
+             "ssm_train_crosscheck": ssm_train_cross, "ssm_train": ssm_train,
              "wall_s": time.perf_counter() - t_start, **kernels},
             indent=1))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")

@@ -9,9 +9,9 @@ fallback between them.
 
 Gradients: on a CPU tensor every entry point differentiates through its
 plain version under ordinary autograd. On a CUDA tensor attention
-differentiates through its backward kernel (``FlashAttention``) and the
-RASK objective through its own; the decode kernel and the SSD scan have no
-backward and raise when asked for a graph.
+differentiates through its backward kernel (``FlashAttention``), the SSD
+scan through its own (``SSDScan``) and the RASK objective through its
+own; the decode kernel has no backward and raises when asked for a graph.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ from . import ref
 from .decode_attention import decode_attention_cuda
 from .flash_attention import FlashAttention, flash_attention_cuda
 from .rask_objective import RaskObjective, rask_objective_backward_cuda
-from .ssd_scan import ssd_cuda
+from .ssd_scan import SSDScan, ssd_cuda
 
 
 def _route(t: torch.Tensor, name: str) -> bool:
@@ -59,8 +59,15 @@ def decode_attention(q, k_cache, v_cache, length, start):
 def ssd(x, dt, A, B, C, *, chunk: int = 128, initial_state=None):
     """Mamba-2 chunked SSD scan: x (b,l,h,p), dt (b,l,h), A (h,), B/C
     (b,l,n) -> (y (b,l,h,p), final_state (b,h,p,n)). Shapes and dtype flow:
-    ``ref.ssd_reference``."""
+    ``ref.ssd_reference``. Where grad mode is on and an input requires
+    grad, a CUDA call goes through ``SSDScan`` (forward kernel, keeping its
+    states, then the backward kernel); otherwise through the forward kernel
+    alone."""
     if _route(x, "ssd"):
+        tensors = (x, dt, A, B, C) + (() if initial_state is None
+                                      else (initial_state,))
+        if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+            return SSDScan.apply(x, dt, A, B, C, initial_state, chunk)
         return ssd_cuda(x, dt, A, B, C, chunk=chunk,
                         initial_state=initial_state)
     return ref.ssd_reference(x, dt, A, B, C, chunk=chunk,

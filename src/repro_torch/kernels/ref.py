@@ -241,6 +241,122 @@ def ssd_reference(x, dt, A, B, C, *, chunk: int = 128,
     return y.to(x.dtype), carry.to(x.dtype)
 
 
+def ssd_backward_reference(x, dt, A, B, C, dy, dfinal=None, *,
+                           chunk: int = 128,
+                           initial_state: Optional[torch.Tensor] = None):
+    """The SSD scan's gradient: cotangents dy (b,l,h,p) of y and dfinal
+    (b,h,p,n) of the final state (None: zeros) -> (dx, ddt, dA, dB, dC,
+    dinitial) in the inputs' dtypes (dinitial in x's where there is no
+    initial state: the gradient of a zero state).
+
+    The vector-Jacobian product of ``ssd_reference``, written out per
+    (row, head, chunk) in the passes of the CUDA kernel
+    (``csrc/ssd_scan_backward.cu``), with cs the chunk's cumulative sum of
+    dt A, xd = x dt, prev_c the state entering chunk c, E_c = exp(cs_last)
+    and L_ij = exp(cs_i - cs_j) for i >= j:
+
+    1. off-diagonal output: dprev_c = sum_i exp(cs_i) dy_i (x) C_i;
+       dC_i += exp(cs_i) prev_c^T dy_i, and cs_i gets C_i . that.
+    2. reverse state passing: dS_last = dfinal, dS_{c-1} = dS_c E_c +
+       dprev_c; dinitial = dS_{-1}; cs_last gets E_c <dS_c, prev_c>.
+    3. local state (w_j = exp(cs_last - cs_j)): dxd_j += w_j dS_c B_j,
+       dB_j += w_j dS_c^T xd_j; w_j's share goes to cs_last and cs_j.
+    4. diagonal block (P = (C B^T) o L, M = (dy xd^T) o L): dxd += P^T dy,
+       dC += M B, dB += M^T C; cs_i gets the row sums of P o (dy xd^T) and
+       cs_j loses its column sums.
+    5. a reverse cumulative sum in the chunk turns d cs into d(dt A):
+       ddt = sum_p dxd x + A d(dt A), dA = sum dt d(dt A), dx = dxd dt.
+    B and C are one group that every head shares: dB and dC sum over the
+    heads.
+
+    Arithmetic in float32 from the inputs as given; cs is rounded where
+    the forward rounds it (``_cumsum``: in bf16 the backward reads the
+    forward's cumulative sum), every other rounding of the bf16 forward is
+    taken as the identity, as autograd takes a cast."""
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    if l % chunk:
+        raise ValueError(f"sequence {l} not divisible by chunk {chunk}")
+    c = l // chunk
+    cs = _cumsum((dt * A[None, None, :]).reshape(b, c, chunk, h)
+                 .permute(0, 3, 1, 2)).float()                  # (b,h,c,s)
+    xf = x.float().reshape(b, c, chunk, h, p)
+    dtf = dt.float().reshape(b, c, chunk, h)
+    xd = xf * dtf[..., None]
+    Bc = B.float().reshape(b, c, chunk, n)
+    Cc = C.float().reshape(b, c, chunk, n)
+    dyc = dy.float().reshape(b, c, chunk, h, p)
+    last = cs[..., -1]                                          # (b,h,c)
+    E = torch.exp(last)
+    w = torch.exp(last[..., None] - cs)                         # (b,h,c,s)
+
+    # the states entering the chunks, as the forward passes them
+    local = torch.einsum("bczn,bhcz,bczhp->bchpn", Bc, w, xd)
+    carry = (torch.zeros((b, h, p, n), device=x.device)
+             if initial_state is None else initial_state.float())
+    prev = []
+    for i in range(c):
+        prev.append(carry)
+        carry = carry * E[:, :, i, None, None] + local[:, i]
+    prev = torch.stack(prev, dim=1)                             # (b,c,h,p,n)
+
+    # 1. off-diagonal output
+    ecs = torch.exp(cs)
+    dprev = torch.einsum("bhcs,bcshp,bcsn->bchpn", ecs, dyc, Cc)
+    dC = torch.einsum("bhcs,bchpn,bcshp->bcshn", ecs, prev, dyc)
+    dcs = torch.einsum("bcshn,bcsn->bhcs", dC, Cc)
+
+    # 2. reverse state passing
+    g = (torch.zeros((b, h, p, n), device=x.device) if dfinal is None
+         else dfinal.float())
+    dS = [None] * c
+    dlast = torch.zeros_like(last)
+    for i in reversed(range(c)):
+        dS[i] = g
+        dlast[:, :, i] = E[:, :, i] * (g * prev[:, i]).sum((-2, -1))
+        g = g * E[:, :, i, None, None] + dprev[:, i]
+    dinit = g
+    dS = torch.stack(dS, dim=1)                                 # (b,c,h,p,n)
+
+    # 3. local state
+    gb = torch.einsum("bchpn,bczn->bczhp", dS, Bc)
+    wz = w.permute(0, 2, 3, 1)                                  # (b,c,s,h)
+    dxd = wz[..., None] * gb
+    dB = torch.einsum("bhcz,bchpn,bczhp->bczhn", w, dS, xd)
+    wdw = wz * (xd * gb).sum(-1)                                # (b,c,s,h)
+    wdw = wdw.permute(0, 3, 1, 2)                               # (b,h,c,s)
+    dcs = dcs - wdw
+    dlast = dlast + wdw.sum(-1)
+
+    # 4. diagonal block
+    seg = cs[..., :, None] - cs[..., None, :]
+    tril = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=x.device))
+    L = torch.exp(seg.masked_fill(~tril, float("-inf")))       # (b,h,c,i,j)
+    P = torch.einsum("bcin,bcjn->bcij", Cc, Bc)[:, None] * L
+    DX = torch.einsum("bcihp,bcjhp->bhcij", dyc, xd)
+    M = DX * L
+    dxd = dxd + torch.einsum("bhcij,bcihp->bcjhp", P, dyc)
+    dC = dC + torch.einsum("bhcij,bcjn->bcihn", M, Bc)
+    dB = dB + torch.einsum("bhcij,bcin->bcjhn", M, Cc)
+    Q = P * DX
+    dcs = dcs + Q.sum(-1) - Q.sum(-2)
+    dcs[..., -1] += dlast
+
+    # 5. back to the inputs
+    da = torch.flip(torch.cumsum(torch.flip(dcs, (-1,)), -1), (-1,))
+    da = da.permute(0, 2, 3, 1).reshape(b, l, h)                # d(dt A)
+    dxd = dxd.reshape(b, l, h, p)
+    dx = dxd * dt.float()[..., None]
+    ddt = (dxd * x.float()).sum(-1) + A.float() * da
+    dA = (dt.float() * da).sum((0, 1))
+    dB = dB.sum(-2).reshape(b, l, n)
+    dC = dC.sum(-2).reshape(b, l, n)
+    init_dtype = x.dtype if initial_state is None else initial_state.dtype
+    return (dx.to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype), dB.to(B.dtype),
+            dC.to(C.dtype), dinit.to(init_dtype))
+
+
 def ssd_decode_reference(x, dt, A, B, C, state):
     """One recurrent SSD step, in the dtype of its inputs.
 

@@ -1,4 +1,5 @@
-"""Wrapper of the CUDA SSD scan kernel (``csrc/ssd_scan.cu``).
+"""Wrappers of the CUDA SSD scan kernels (``csrc/ssd_scan.cu`` and
+``csrc/ssd_scan_backward.cu``).
 
 Counterpart of ``repro/kernels/ssd_scan.py::ssd_pallas``: the Mamba-2
 chunked SSD scan with dt folded in, as three launches on the current
@@ -7,7 +8,12 @@ passed across chunks, and each chunk's output (chunk-parallel). The source
 note in the ``.cu`` file says what bounds the kernel on the H100 and how it
 is split across CTAs. One call counts one launch.
 
-Plain version: ``kernels/ref.py::ssd_reference``.
+Its backward (``ssd_backward_cuda``, five launches, one count) has no
+Pallas counterpart: ``repro`` differentiates ``ssd_reference`` with
+``jax.vjp``. ``SSDScan`` joins the two as one differentiable function.
+
+Plain versions: ``kernels/ref.py::ssd_reference`` and
+``ssd_backward_reference``.
 """
 from __future__ import annotations
 
@@ -37,61 +43,93 @@ def _lib() -> ctypes.CDLL:
 
 
 @functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("ssd_scan_backward")
+    lib.ssd_scan_backward.argtypes = [ctypes.c_void_p] * 22 \
+        + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.ssd_scan_backward_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.ssd_scan_backward_dot_partials.argtypes = [ctypes.c_int] * 2
+    for fn in (lib.ssd_scan_backward, lib.ssd_scan_backward_smem_bytes,
+               lib.ssd_scan_backward_dot_partials):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
 def _smem_limit(device_index: int) -> int:
     return _lib().ssd_scan_smem_limit(device_index)
 
 
+def _check(name: str, tensors, chunk: int, more=()):
+    """Check what both kernels take: ``tensors`` (x, dt, A, B, C first) on
+    one CUDA device, contiguous, of one dtype; the shapes of x, dt, A, B, C
+    and of ``more``, (name, tensor, "state" for (b,h,p,n) or "x" for
+    (b,l,h,p)); the chunking. Returns (device, (b, l, h, p, n), ck)."""
+    dev = _build.require_cuda(name, *tensors)
+    x, dt, A, B, C = tensors[:5]
+    if x.dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"{name}: dtype {x.dtype} not supported")
+    if any(t.dtype != x.dtype for t in tensors):
+        raise ValueError(f"{name}: the inputs differ in dtype")
+    if x.dim() != 4:
+        raise ValueError(f"{name}: want x (b,l,h,p)")
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    want = {"state": (b, h, p, n), "x": (b, l, h, p)}
+    shapes = {"dt": (dt, (b, l, h)), "A": (A, (h,)), "B": (B, (b, l, n)),
+              "C": (C, (b, l, n))}
+    for key, t, kind in more:
+        shapes[key] = (t, want[kind])
+    for key, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
+                             f"want {shape}")
+    ck = min(chunk, l)
+    if ck <= 0 or l % ck:
+        raise ValueError(f"{name}: sequence {l} not divisible by chunk {ck}")
+    if ck > MAX_CHUNK or n > MAX_STATE:
+        raise ValueError(f"{name}: the kernel takes chunks of at most "
+                         f"{MAX_CHUNK} and a state of at most {MAX_STATE}, "
+                         f"got {ck} and {n}")
+    return dev, (b, l, h, p, n), ck
+
+
+def _check_smem(name: str, smem: int, dev, ck: int, n: int, p: int):
+    limit = _smem_limit(dev.index)
+    if smem > limit:
+        raise ValueError(f"{name}: chunk {ck}, state {n} and head dim {p} "
+                         f"need {smem} bytes of shared memory per CTA; this "
+                         f"card allows {limit}")
+
+
 def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, *, chunk: int = 128,
-             initial_state: Optional[torch.Tensor] = None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+             initial_state: Optional[torch.Tensor] = None,
+             return_states: bool = False):
     """x (b,l,h,p), dt (b,l,h), A (h,), B/C (b,l,n), initial_state
     (b,h,p,n) or None for zeros; one dtype (float32 or bf16) for all.
 
     Returns (y (b,l,h,p), final_state (b,h,p,n)) in x's dtype, with
-    ``ssd_pallas``'s chunking: ``ck = min(chunk, l)`` and ``l % ck == 0``.
+    ``ssd_pallas``'s chunking: ``ck = min(chunk, l)`` and ``l % ck == 0``;
+    with ``return_states`` also what the backward reads of the forward's
+    scratch: cs, the chunks' cumulative sums of dt A (float32 (b,h,l)), and
+    prev, the state entering each chunk ((b,l/ck,h,p,n) in x's dtype).
     Raises on anything the kernel does not take, and where an input
-    requires grad (there is no backward yet); never computes on another
-    path.
+    requires grad (``ops.ssd`` differentiates through ``SSDScan``); never
+    computes on another path.
     """
     tensors = [x, dt, A, B, C] + ([] if initial_state is None
                                   else [initial_state])
-    dev = _build.require_cuda("ssd", *tensors)
+    more = [] if initial_state is None \
+        else [("initial_state", initial_state, "state")]
+    dev, (b, l, h, p, n), ck = _check("ssd", tensors, chunk, more)
     _build.refuse_autograd(
-        "ssd", "training mamba2 or jamba on the card waits for the SSD "
-        "scan's backward (ROADMAP item 27)", *tensors)
-    if x.dtype not in _build.DTYPE_CODES:
-        raise ValueError(f"ssd: dtype {x.dtype} not supported")
-    if any(t.dtype != x.dtype for t in tensors):
-        raise ValueError("ssd: x, dt, A, B, C and initial_state differ in "
-                         "dtype")
-    if x.dim() != 4:
-        raise ValueError("ssd: want x (b,l,h,p)")
-    b, l, h, p = x.shape
-    n = B.shape[-1]
-    shapes = {"dt": (dt, (b, l, h)), "A": (A, (h,)), "B": (B, (b, l, n)),
-              "C": (C, (b, l, n))}
-    if initial_state is not None:
-        shapes["initial_state"] = (initial_state, (b, h, p, n))
-    for name, (t, want) in shapes.items():
-        if tuple(t.shape) != want:
-            raise ValueError(f"ssd: {name} has shape {tuple(t.shape)}, "
-                             f"want {want}")
-    ck = min(chunk, l)
-    if ck <= 0 or l % ck:
-        raise ValueError(f"ssd: sequence {l} not divisible by chunk {ck}")
-    if ck > MAX_CHUNK or n > MAX_STATE:
-        raise ValueError(f"ssd: the kernel takes chunks of at most "
-                         f"{MAX_CHUNK} and a state of at most {MAX_STATE}, "
-                         f"got {ck} and {n}")
+        "ssd", "call kernels/ops.py::ssd, which differentiates through "
+        "SSDScan (the forward and backward kernels)", *tensors)
     lib = _lib()
     code_t = _build.DTYPE_CODES[x.dtype]
-    smem = lib.ssd_scan_smem_bytes(ck, n, p, code_t)
-    limit = _smem_limit(dev.index)
-    if smem > limit:
-        raise ValueError(f"ssd: chunk {ck}, state {n} and head dim {p} need "
-                         f"{smem} bytes of shared memory per CTA; this card "
-                         f"allows {limit}")
+    _check_smem("ssd", lib.ssd_scan_smem_bytes(ck, n, p, code_t), dev, ck,
+                n, p)
     y = torch.empty_like(x)
     fin = torch.empty((b, h, p, n), dtype=x.dtype, device=dev)
     cs = torch.empty((b, h, l), dtype=torch.float32, device=dev)
@@ -108,7 +146,134 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(lib, "ssd_scan", code)
     ssd_cuda.launches += 1
+    if return_states:
+        return y, fin, cs, prev
     return y, fin
 
 
+def backward_scratch(b: int, l: int, h: int, p: int, n: int, ck: int,
+                     dots: int) -> dict:
+    """The float32 scratch of one backward call, name -> shape, in the
+    order the C entry point takes it: dS (each chunk's dprev, then its
+    state gradient), the per-head partials of dC and dB, dxd (x dt's
+    gradient), d cs, the reverse state passing's per-CTA partials of
+    <dS_c, prev_c> (``dots`` a (row, head, chunk): the kernel's
+    ``ssd_scan_backward_dot_partials``) and dA's per (row, chunk)
+    partials. The partials are summed in a fixed order."""
+    nc = l // ck
+    return {"ds": (b, nc, h, p, n), "dcp": (b, l, h, n), "dbp": (b, l, h, n),
+            "dxd": (b, l, h, p), "dcs": (b, h, l), "dot": (b, h, nc, dots),
+            "dap": (b, nc, h)}
+
+
+def backward_work(b: int, l: int, h: int, p: int, n: int, ck: int, es: int,
+                  *, dfinal: bool = False) -> Tuple[int, int]:
+    """(bytes, flops) that the backward function itself needs at these
+    shapes, element size ``es``: the bound's work. Bytes: every input read
+    once (x, dt, A, B, C, dy, dfinal where given, and the forward's float32
+    cs and prev in the input type) and every gradient written once; the
+    kernel's own scratch is not counted (``backward_partials_bytes``).
+    Flops: per (row, head, chunk) dprev, dC's off-diagonal share, dS B and
+    xd^T dS (ck p n each) and the lower triangles (ck (ck + 1) / 2 pairs)
+    of M B, M^T C (n each) and dy xd^T and P^T dy (p each); per (row,
+    chunk) the triangle of C B^T (n), once for all heads, as B and C are
+    one group; two flops a multiply-add."""
+    nc = l // ck
+    tri = ck * (ck + 1) // 2
+    per_head = 4 * ck * p * n + tri * (2 * n + 2 * p)
+    flops = 2 * b * nc * (h * per_head + tri * n)
+    xs, ss = b * l * h * p, b * h * p * n
+    inputs = es * (2 * xs + b * l * h + h + 2 * b * l * n
+                   + (ss if dfinal else 0) + b * nc * h * p * n) \
+        + 4 * b * h * l
+    grads = es * (xs + b * l * h + h + 2 * b * l * n + ss)
+    return inputs + grads, flops
+
+
+def backward_partials_bytes(b: int, l: int, h: int, n: int) -> int:
+    """The bytes the kernel's design adds to the function's own: the
+    float32 per-head partials of dB and dC, each written once and read
+    once. Reported beside the bound, not in it."""
+    return 2 * 2 * 4 * b * l * h * n
+
+
+def ssd_backward_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                      B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor,
+                      cs: torch.Tensor, prev: torch.Tensor,
+                      dfinal: Optional[torch.Tensor] = None, *,
+                      chunk: int = 128):
+    """The scan's gradient on the card: the forward's inputs, the
+    cotangents dy (b,l,h,p) and dfinal (b,h,p,n) or None for zeros, and
+    the forward's cs and prev (``ssd_cuda(..., return_states=True)``) ->
+    (dx, ddt, dA, dB, dC, dinitial) in x's dtype. Five CUDA kernels, one
+    count; no atomics, so two calls are bitwise equal. Raises on anything
+    the kernel does not take; never computes on another path."""
+    tensors = [x, dt, A, B, C, dy, prev] + ([] if dfinal is None
+                                            else [dfinal])
+    more = [("dy", dy, "x")] + ([] if dfinal is None
+                                else [("dfinal", dfinal, "state")])
+    dev, (b, l, h, p, n), ck = _check("ssd_backward", tensors, chunk, more)
+    nc = l // ck
+    if cs.dtype != torch.float32 or tuple(cs.shape) != (b, h, l) \
+            or cs.device != dev or not cs.is_contiguous():
+        raise ValueError(f"ssd_backward: cs must be the forward's float32 "
+                         f"(b,h,l) = {(b, h, l)}, got {cs.dtype} "
+                         f"{tuple(cs.shape)}")
+    if tuple(prev.shape) != (b, nc, h, p, n):
+        raise ValueError(f"ssd_backward: prev has shape {tuple(prev.shape)},"
+                         f" want {(b, nc, h, p, n)}")
+    lib = _bwd_lib()
+    _check_smem("ssd_backward", lib.ssd_scan_backward_smem_bytes(ck, n, p),
+                dev, ck, n, p)
+    dots = lib.ssd_scan_backward_dot_partials(p, n)
+    scratch = [torch.empty(shape, dtype=torch.float32, device=dev)
+               for shape in backward_scratch(b, l, h, p, n, ck,
+                                             dots).values()]
+    dx, ddt, dA = torch.empty_like(x), torch.empty_like(dt), \
+        torch.empty_like(A)
+    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    dinit = torch.empty((b, h, p, n), dtype=x.dtype, device=dev)
+    code = lib.ssd_scan_backward(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+        C.data_ptr(), dy.data_ptr(),
+        None if dfinal is None else dfinal.data_ptr(), cs.data_ptr(),
+        prev.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+        dB.data_ptr(), dC.data_ptr(), dinit.data_ptr(),
+        *(t.data_ptr() for t in scratch),
+        b, l, h, p, n, ck, _build.DTYPE_CODES[x.dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(lib, "ssd_scan_backward", code)
+    ssd_backward_cuda.launches += 1
+    return dx, ddt, dA, dB, dC, dinit
+
+
+class SSDScan(torch.autograd.Function):
+    """The scan differentiable on the card: the forward kernel (keeping its
+    cs and prev for the backward), the backward kernel for the gradient of
+    x, dt, A, B, C and the initial state. An unused output's cotangent is
+    taken as zeros (the loss drops the final state). Only the CUDA kernels
+    run; ``kernels/ops.py`` takes the plain version under ordinary autograd
+    for CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, initial_state, chunk: int):
+        y, fin, cs, prev = ssd_cuda(x, dt, A, B, C, chunk=chunk,
+                                    initial_state=initial_state,
+                                    return_states=True)
+        ctx.save_for_backward(x, dt, A, B, C, cs, prev)
+        ctx.chunk, ctx.has_init = chunk, initial_state is not None
+        ctx.set_materialize_grads(False)
+        return y, fin
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, dt, A, B, C, cs, prev = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        dfinal = None if dfinal is None else dfinal.contiguous()
+        dx, ddt, dA, dB, dC, dinit = ssd_backward_cuda(
+            x, dt, A, B, C, dy, cs, prev, dfinal, chunk=ctx.chunk)
+        return (dx, ddt, dA, dB, dC, dinit if ctx.has_init else None, None)
+
+
 ssd_cuda.launches = 0
+ssd_backward_cuda.launches = 0

@@ -10,10 +10,10 @@ cut), and training runs in float32 with the synthetic ``TokenPipeline``,
 AdamW (warmup 10, cosine over ``--steps``), checkpoint/restart and
 straggler monitoring through the ``Trainer``. Weights are random, from a
 seeded ``torch.Generator`` on the device. The device defaults to ``cuda``;
-a missing card is an error. On the card attention's gradient is the
-backward kernel; mamba2 and jamba raise there (the SSD scan has no
-backward yet, ROADMAP item 27), and whisper raises everywhere (the
-pipeline makes tokens, not audio frames).
+a missing card is an error. On the card the gradients of attention and of
+the SSD scan are their backward kernels, so mamba2 and jamba train there
+as the decoders do (``--arch mamba2-370m``); whisper raises everywhere
+(the pipeline makes tokens, not audio frames).
 """
 from __future__ import annotations
 

@@ -14,10 +14,10 @@ gemma3's mixed ring cache under ``mixed_cache``), the ssm program
 (no config sets it).
 
 ``loss`` is differentiable with ordinary autograd: on the CPU through the
-plain kernels, on the card through the attention backward kernel
-(``kernels/flash_attention.py::FlashAttention``). The SSD scan has no
-backward on the card yet, so an ssm or hybrid loss there raises (ROADMAP
-item 27).
+plain kernels, on the card through the backward kernels of attention
+(``kernels/flash_attention.py::FlashAttention``) and of the SSD scan
+(``kernels/ssd_scan.py::SSDScan``), so an ssm or hybrid loss
+differentiates on the card as a decoder's does.
 """
 from __future__ import annotations
 

@@ -4,8 +4,9 @@
 in_proj -> [z | x | B | C | dt] -> causal conv over (x,B,C) -> SiLU ->
 SSD(x dt, exp(dt A)) -> gate by SiLU(z) -> RMSNorm -> out_proj.
 
-Prefill runs the chunked SSD (``kernels/ops.ssd``: the CUDA kernel on the
-card); decode runs the O(1) recurrence (``ref.ssd_decode_reference``, plain
+Prefill and the training loss run the chunked SSD (``kernels/ops.ssd``:
+the CUDA kernel on the card, and under autograd its backward kernel too);
+decode runs the O(1) recurrence (``ref.ssd_decode_reference``, plain
 PyTorch, as ``repro`` runs it in plain jnp) with a (conv, ssm) state cache.
 The casts are ``repro``'s: ``dt`` and ``A`` are computed in float32 and
 cast to the activation dtype before the scan, and the decode recurrence and

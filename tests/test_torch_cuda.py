@@ -1582,7 +1582,7 @@ def test_kernels_without_a_backward_refuse_autograd(cuda_device):
     dt = torch.rand((b, l, h), generator=g, device=cuda_device)
     A = -torch.rand((h,), generator=g, device=cuda_device)
     Bm = torch.randn((b, l, n), generator=g, device=cuda_device)
-    with pytest.raises(RuntimeError, match="ROADMAP item 27"):
+    with pytest.raises(RuntimeError, match="ops.py::ssd"):
         ssd_cuda(x, dt, A, Bm, Bm, chunk=32)
 
 
@@ -1591,7 +1591,9 @@ def test_smoke_loss_on_the_card_matches_the_cpu(cuda_device):
     """gemma3-1b's smoke cut (7 layers, window 16) in float32: the loss and
     every gradient leaf on the card (flash forward and backward kernels,
     once a layer each) against the CPU's plain autograd, within 1e-4 of
-    each leaf's largest entry or 1e-7; mamba2's loss raises on the card."""
+    each leaf's largest entry or 1e-7; then mamba2's and jamba's smoke cuts
+    (the SSD forward and backward kernels once a Mamba-2 layer) the same
+    way."""
     import dataclasses
 
     from repro_torch.configs import get
@@ -1619,9 +1621,155 @@ def test_smoke_loss_on_the_card_matches_the_cpu(cuda_device):
     for a, b in zip(gc, gp):
         bar = max(1e-4 * float(b.abs().max()), 1e-7)
         assert float((a.cpu() - b).abs().max()) <= bar
-    scfg = dataclasses.replace(get("mamba2-370m").smoke(), dtype="float32")
-    smodel = build(scfg)
-    sp = map_tree(lambda t: t.requires_grad_(True), smodel.init(
-        torch.Generator(cuda_device).manual_seed(0)))
-    with pytest.raises(RuntimeError, match="ROADMAP item 27"):
-        smodel.loss(sp, {k: v.to(cuda_device) for k, v in batch.items()})
+    from repro_torch.kernels.ssd_scan import ssd_backward_cuda
+    from repro_torch.models.transformer import _hybrid_layout
+    for arch in ("mamba2-370m", "jamba-1.5-large-398b"):
+        scfg = dataclasses.replace(get(arch).smoke(), dtype="float32")
+        smodel = build(scfg)
+        sparams = smodel.init(torch.Generator().manual_seed(1))
+        n_mamba = scfg.n_layers
+        if scfg.family == "hybrid":
+            n_periods, P, _, _ = _hybrid_layout(scfg)
+            n_mamba = n_periods * (P - 1)
+        grads = []
+        for dev in (cuda_device, torch.device("cpu")):
+            p = map_tree(lambda t: t.to(dev).requires_grad_(True), sparams)
+            ssd_cuda.launches = ssd_backward_cuda.launches = 0
+            loss, _ = smodel.loss(p, {k: v.to(dev) for k, v in batch.items()})
+            grads.append((float(loss), torch.autograd.grad(loss, leaves(p))))
+            if dev.type == "cuda":
+                assert ssd_cuda.launches == n_mamba
+                assert ssd_backward_cuda.launches == n_mamba
+        (lc, gc), (lp, gp) = grads
+        assert abs(lc - lp) <= 1e-4, arch
+        for a, b in zip(gc, gp):
+            bar = max(1e-4 * float(b.abs().max()), 1e-7)
+            assert float((a.cpu() - b).abs().max()) <= bar, arch
+
+
+# -- the SSD scan's backward ----------------------------------------------------
+
+def _bwd_rel_errors(got, want):
+    return [float((a.float() - b.float()).abs().max())
+            / max(float(b.float().abs().max()), 1e-30)
+            for a, b in zip(got, want)]
+
+
+def _ssd_bwd_inputs(dev, dtype, b, l, h, p, n, with_state, seed):
+    """``_ssd_inputs`` and cotangents dy ~ N(0, 1) and, with a state,
+    dfinal ~ N(0, 1)."""
+    args, init = _ssd_inputs(dev, dtype, b, l, h, p, n, with_state, seed)
+    g = torch.Generator(dev).manual_seed(seed + 1)
+    dy = torch.randn((b, l, h, p), generator=g, device=dev).to(dtype)
+    dfin = torch.randn((b, h, p, n), generator=g, device=dev).to(dtype) \
+        if with_state else None
+    return args, init, dy, dfin
+
+
+SSD_BWD_CASES = [
+    (1, 64, 2, 16, 8, 16, False),
+    (2, 128, 4, 32, 16, 32, True),
+    (1, 20, 2, 24, 16, 128, True),        # ck = l = 20: ragged chunk and P
+    (1, 64, 32, 64, 128, 128, False),     # one chunk
+    (2, 256, 32, 64, 128, 128, False),    # mamba2-370m's heads, two chunks
+    (2, 384, 32, 64, 128, 128, True),     # a state and a final cotangent
+    (1, 256, 256, 64, 128, 128, False),   # jamba: 256 heads of 64
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,h,p,n,chunk,with_state", SSD_BWD_CASES)
+def test_ssd_backward_kernel_matches_plain(cuda_device, dtype, b, l, h, p, n,
+                                           chunk, with_state):
+    """The backward kernel against ``ref.ssd_backward_reference``: 1e-4 of
+    each gradient's largest entry in float32 (the same sums in another
+    order), 5e-2 in bf16 (bf16 inputs and forward states, float32 sums);
+    one count a call."""
+    from repro_torch.kernels.ssd_scan import ssd_backward_cuda
+    args, init, dy, dfin = _ssd_bwd_inputs(cuda_device, dtype, b, l, h, p,
+                                           n, with_state, seed=l + h)
+    _, _, cs, prev = ssd_cuda(*args, chunk=chunk, initial_state=init,
+                              return_states=True)
+    launches = ssd_backward_cuda.launches
+    got = ssd_backward_cuda(*args, dy, cs, prev, dfin, chunk=chunk)
+    want = ref.ssd_backward_reference(*args, dy, dfin, chunk=min(chunk, l),
+                                      initial_state=init)
+    torch.cuda.synchronize()
+    assert ssd_backward_cuda.launches == launches + 1
+    assert all(a.dtype == dtype and a.shape == w.shape
+               for a, w in zip(got, want))
+    assert all(bool(torch.isfinite(a).all()) for a in got)
+    bar = 5e-2 if dtype == torch.bfloat16 else 1e-4
+    assert max(_bwd_rel_errors(got, want)) <= bar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_kernel_is_bitwise_repeatable(cuda_device, dtype):
+    from repro_torch.kernels.ssd_scan import ssd_backward_cuda
+    args, init, dy, dfin = _ssd_bwd_inputs(cuda_device, dtype, 2, 384, 32,
+                                           64, 128, True, seed=7)
+    _, _, cs, prev = ssd_cuda(*args, chunk=128, initial_state=init,
+                              return_states=True)
+    one = ssd_backward_cuda(*args, dy, cs, prev, dfin, chunk=128)
+    two = ssd_backward_cuda(*args, dy, cs, prev, dfin, chunk=128)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+@pytest.mark.cuda
+def test_ssd_backward_kernel_refuses_bad_input(cuda_device):
+    from repro_torch.kernels.ssd_scan import ssd_backward_cuda
+    args, _, dy, _ = _ssd_bwd_inputs(cuda_device, torch.float32, 1, 64, 2,
+                                     16, 8, False, seed=3)
+    x, dt, A, B, C = args
+    _, _, cs, prev = ssd_cuda(*args, chunk=16, return_states=True)
+    launches = ssd_backward_cuda.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_backward_cuda(x, dt, A, B, C, dy.transpose(2, 3).contiguous()
+                          .transpose(2, 3), cs, prev, chunk=16)
+    with pytest.raises(ValueError, match="dtype"):
+        ssd_backward_cuda(x, dt, A, B, C, dy.bfloat16(), cs, prev, chunk=16)
+    with pytest.raises(ValueError, match="shape"):
+        ssd_backward_cuda(x, dt, A, B, C, dy[:, :32], cs, prev, chunk=16)
+    with pytest.raises(ValueError, match="cs"):
+        ssd_backward_cuda(x, dt, A, B, C, dy, cs.double(), prev, chunk=16)
+    with pytest.raises(ValueError, match="prev"):
+        ssd_backward_cuda(x, dt, A, B, C, dy, cs, prev[:, :1], chunk=32)
+    with pytest.raises(ValueError, match="divisible"):
+        ssd_backward_cuda(x, dt, A, B, C, dy, cs, prev, chunk=48)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ssd_backward_cuda(x.cpu(), dt, A, B, C, dy, cs, prev, chunk=16)
+    assert ssd_backward_cuda.launches == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_ssd_scan_autograd_goes_through_the_kernels(cuda_device, dtype,
+                                                    with_state):
+    """``ops.ssd`` under autograd: ``SSDScan`` (the forward kernel once, the
+    backward kernel once) gives the plain backward's gradients of x, dt, A,
+    B, C and the initial state; y alone (the final state unused, dfinal
+    None) and both outputs; without a graph the forward kernel alone."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import ssd_backward_cuda
+    args, init, dy, dfin = _ssd_bwd_inputs(cuda_device, dtype, 2, 256, 32,
+                                           64, 128, with_state, seed=11)
+    bar = 5e-2 if dtype == torch.bfloat16 else 1e-4
+    leaves = [t.clone().requires_grad_(True)
+              for t in args + ([init] if with_state else [])]
+    for cot in ((dy, None), (dy, dfin if with_state else None)):
+        ssd_cuda.launches = ssd_backward_cuda.launches = 0
+        y, fin = ops.ssd(*leaves[:5], chunk=128,
+                         initial_state=leaves[5] if with_state else None)
+        outs, cts = zip(*[(o, c) for o, c in zip((y, fin), cot)
+                          if c is not None])
+        got = torch.autograd.grad(outs, leaves, cts)
+        assert ssd_cuda.launches == 1 and ssd_backward_cuda.launches == 1
+        want = ref.ssd_backward_reference(*args, cot[0], cot[1], chunk=128,
+                                          initial_state=init)
+        assert max(_bwd_rel_errors(got, want[:len(got)])) <= bar
+    with torch.no_grad():
+        ops.ssd(*leaves[:5], chunk=128)
+    assert ssd_cuda.launches == 2 and ssd_backward_cuda.launches == 1

@@ -423,6 +423,20 @@ def test_launcher_trains_on_cpu(tmp_path, capsys):
         launch_train.main(["--arch", "whisper-large-v3", "--device", "cpu"])
 
 
+def test_launcher_trains_mamba2_on_cpu(tmp_path):
+    """mamba2-370m's smoke cut through the launcher: the SSD scan's
+    gradient is the plain one on the CPU (on the card, its backward
+    kernel); 12 steps, the loss finite and falling, the last checkpoint
+    at step 12."""
+    hist = launch_train.main(["--arch", "mamba2-370m", "--device", "cpu",
+                              "--steps", "12", "--batch", "4", "--seq", "64",
+                              "--ckpt-dir", str(tmp_path)])
+    losses = [h["loss"] for h in hist]
+    assert len(hist) == 12 and all(np.isfinite(losses))
+    assert losses[-1] < losses[0]
+    assert CheckpointManager(tmp_path).latest_step() == 12
+
+
 # -- repro's test_checkpoint.py cases -----------------------------------------
 
 def _tree():
