@@ -128,7 +128,8 @@ prefill.
 e11, the closed serving loop (src/repro_torch/serve, env/scenarios.py,
 obs), adds:
 
-Phase "engine_compare" runs gemma3-1b at full width in bf16 behind the
+Phase "engine_compare" runs gemma3-1b at full width in bf16, cut to one
+local:global period (6 of its 26 layers: ``PERIOD_LAYERS``), behind the
 dict-cache engine (one batch-1 decode and one host sync per slot, exact-
 length prefill) and the stacked engine, at 1, 4 and 8 slots (max_seq 64,
 prompts of 6 to 23 tokens, requests that never finish, 4 warm and 40
@@ -139,11 +140,12 @@ every token is in the vocab; it reports, unchecked, the share of positions
 where the two engines' greedy streams agree (bf16 rounds a batch of rows
 otherwise than one row).
 
-Phase "serving_loop" is e11's loop: ``real_serving_scenario`` with the
-full gemma3-1b in bf16 (2 services on 6 chips, bursty load to 4 and 14
-rps, 4 slots, max_seq 64, the SLO accountant with the latency override on
-service 0), 180 simulated seconds (e11 runs 600; 6 solved decides) of
-the fixed equal split and of the RASK agent (xi 12, resource "chips").
+Phase "serving_loop" is e11's loop: ``real_serving_scenario`` with
+gemma3-1b at full width in bf16, cut to the same 6 layers (2 services on
+6 chips, bursty load to 4 and 14 rps, 4 slots, max_seq 64, the SLO
+accountant with the latency override on service 0), 180 simulated
+seconds (e11 runs 600; 6 solved decides) of the fixed equal split and of
+the RASK agent (xi 12, resource "chips").
 Launch counters are zeroed just before each run and read just after:
 decode n_layers x engine steps, flash (all wgmma) n_layers x admissions
 (the engines' own ``steps`` and ``admissions``), the RASK forward once
@@ -394,11 +396,12 @@ ms, decode-step ms, decode tokens/s and peak memory. Phase
 "encdec_trace" profiles 3 decode steps and one prefill beside a step's
 byte bound.
 
-Phase "mixed_cache" runs gemma3-1b at full width in float32 with
-``mixed_cache=True``: 2 rows decode 528 steps (the 512-slot rings wrap)
-from token 0, in lockstep with the full-cache decode fed the same seeded
-tokens; the largest logit gap (bar 1e-3), both paths' step ms, the two
-caches' bytes and the decode launches (one a layer a step on each path).
+Phase "mixed_cache" runs gemma3-1b at full width in float32, cut to the
+same 6 layers (5 local, 1 global), with ``mixed_cache=True``: 2 rows
+decode 528 steps (the 512-slot rings wrap) from token 0, in lockstep with
+the full-cache decode fed the same seeded tokens; the largest logit gap
+(bar 1e-3), both paths' step ms, the two caches' bytes and the decode
+launches (one a layer a step on each path).
 
 Phase "hybrid_crosscheck" runs jamba's one period at a narrower width
 that keeps its attention and SSD shapes (d_model 1024, 64 heads on 8 kv
@@ -436,44 +439,48 @@ local, one global), float32, on one 600-token row: the loss and every
 gradient leaf on the card against the CPU (1e-4; 1e-3 of each leaf's
 largest entry), the flash forward and backward kernels once a layer, then
 one AdamW update on each side from the same gradients (1e-6). Phase
-"train" trains gemma3-1b, all 26 layers at full width, float32 (1.0 B
-parameters), through ``make_train_step`` and the ``Trainer`` on
-``TokenPipeline(vocab=262144, batch=4, seq=1024)`` for 12 steps, the
-checkpoint in a temporary directory: losses and grad norms finite, the
-loss falling, the forward and backward kernels 26 times a step, peak
-memory under 80 GB; the final checkpoint restored by a resumed
-``Trainer`` bitwise equal at the saved step. It reports step ms, tokens/s
-against the step's bound (6 N tokens over 67 TFLOP/s), peak memory, the
-checkpoint's save and restore seconds and bytes, and a ``profile_window``
-over 2 steps with the backward kernel's share of device time, and the
-final weights' loss on the first and last batches it trained on. Its
-optimizer is ``launch/train.py``'s at ``--lr 1e-3``: at the launcher's
-default 3e-3, set for the smoke cut, the full width's loss rose.
+"train" trains gemma3-1b at full width cut to one local:global period (6
+layers: ``PERIOD_LAYERS``), float32 (0.46 B parameters), through
+``make_train_step`` and the ``Trainer`` on ``TokenPipeline(vocab=262144,
+batch=4, seq=1024)`` for 12 steps, the checkpoint in a temporary
+directory: losses and grad norms finite, the loss falling, the forward
+and backward kernels 6 times a step, peak memory under 80 GB; the final
+checkpoint restored by a resumed ``Trainer`` bitwise equal at the saved
+step. It reports step ms, tokens/s against the step's bound (6 N tokens
+over 67 TFLOP/s), peak memory, the checkpoint's save and restore seconds
+and bytes, and a ``profile_window`` over 2 steps with the backward
+kernel's share of device time, and the final weights' loss on the first
+and last batches it trained on. Its optimizer is ``launch/train.py``'s
+at ``--lr 1e-3``: at the launcher's default 3e-3, set for the smoke cut,
+the full width's loss rose.
 
 Training the SSD scan. Phase "ssd_backward_kernels" holds the scan's
-backward kernel (``csrc/ssd_scan_backward.cu``: five CUDA kernels a call,
-checked with the profiler; two calls bitwise equal) against its plain
-version (``ref.ssd_backward_reference``), in float32 (1e-4 of each
-gradient's largest entry) and bf16 (5e-2), on mamba2-370m's training shape
-(4 x 1,024 tokens, 32 heads of 64, state 128, chunk 128), jamba's
-full-width Mamba-2 sublayer (256 heads) at l = 384 and 1,024, two rows with
-an initial state and a final-state cotangent, and one chunk. It times the
-backward, its plain version and the forward kernel at the same shapes,
-beside the bound (bytes, the float32 partials of dB and dC included, over
-3.35 TB/s against the products' flops over 67 or 989 TFLOP/s; in float32
-also 3 x flops over TF32's 494.7, as the kernel runs them); no PyTorch
-call computes this function. Phase "ssm_train_crosscheck" holds
-the loss and every gradient leaf on the card against the CPU (the loss
-within 1e-4, each leaf within 1e-3 of its largest entry, as
-"train_crosscheck") for mamba2-370m at full width cut to 2 layers on a
-ragged 600-token row (and both against a float64 CPU run) and for jamba's
-period at "hybrid_crosscheck"'s narrow cut, with the launch counts. Phase "ssm_train" trains mamba2-370m,
-all 48 layers at full width, float32 (419.8 M parameters), as phase
-"train" trains gemma3-1b but without the checkpoint: losses finite and
-falling, the SSD forward and backward kernels 48 times a step, no plain
-version on the card, peak memory under 80 GB; it reports step ms,
-tokens/s against 6 N tokens over 67 TFLOP/s and a ``profile_window`` over
-2 steps with the SSD kernels' shares of device time.
+backward kernel (``csrc/ssd_scan_backward.cu``: four CUDA kernels a call,
+checked with the profiler, split between CTAs and clusters as
+``ssd_scan.backward_plan`` says on this card; two calls bitwise equal)
+against its plain version (``ref.ssd_backward_reference``), in float32
+(1e-4 of each gradient's largest entry) and bf16 (5e-2), on mamba2-370m's
+training shape (4 x 1,024 tokens, 32 heads of 64, state 128, chunk 128),
+jamba's full-width Mamba-2 sublayer (256 heads) at l = 384 and 1,024, two
+rows with an initial state and a final-state cotangent, and one chunk. It
+times the backward, its plain version and the forward kernel at the same
+shapes, beside the bound (the function's own bytes over 3.35 TB/s against
+its flops over 67 or 989 TFLOP/s; in float32 also 3 x flops over TF32's
+494.7, as the kernel runs them), and, at mamba2's shape, other partitions
+of the heads; no PyTorch call computes this function. Phase
+"ssm_train_crosscheck" holds the loss and every gradient leaf on the
+card against the CPU (the loss and each leaf within 1e-4 of its largest
+entry, the per-head leaves A_log, dt_bias and D within 3e-4) for
+mamba2-370m at full width cut to 2 layers on a ragged 600-token row (and
+both against a float64 CPU run) and for jamba's period at
+"hybrid_crosscheck"'s narrow cut, with the launch counts. Phase
+"ssm_train" trains mamba2-370m, all 48 layers at full width, float32
+(419.8 M parameters), as phase "train" trains gemma3-1b but without the
+checkpoint: losses finite and falling, the SSD forward and backward
+kernels 48 times a step, no plain version on the card, peak memory under
+80 GB; it reports step ms, tokens/s against 6 N tokens over 67 TFLOP/s
+and a ``profile_window`` over 2 steps with the SSD kernels' shares of
+device time.
 
 Every phase line carries its wall ``seconds``.
 
@@ -1821,16 +1828,30 @@ def phase_ssm_serve(dev):
 # -- e11: the engine comparison and the closed serving loop -----------------------
 
 E11_XI, E11_SECONDS, E11_CHIPS = 12, 180.0, 6.0
+# the phases that run gemma3-1b at full width for many steps
+# ("engine_compare", "serving_loop", "mixed_cache", "train") cut it to one
+# local:global period (5 local layers, 1 global), so that the whole script
+# keeps well inside its time limit on a slow host: each layer adds launches
+# and time (the decode steps are host-bound), and no check of theirs reads
+# the depth but through the launch counts
+PERIOD_LAYERS = 6
+
+
+def gemma_period(**changes):
+    """gemma3-1b at full width, cut to ``PERIOD_LAYERS`` layers."""
+    from repro_torch.configs import get
+    return dataclasses.replace(get("gemma3-1b"), n_layers=PERIOD_LAYERS,
+                               **changes)
 
 
 def phase_engine_compare(dev):
-    """e11's engine stage at full width in bf16: the dict-cache engine (one
-    batch-1 decode and one host sync per slot) against the stacked one (one
-    batched decode, one sync), every slot held by a request that never
-    finishes, 4 warm then 40 timed steps at 1, 4 and 8 slots."""
+    """e11's engine stage at full width in bf16 (one local:global period
+    deep): the dict-cache engine (one batch-1 decode and one host sync per
+    slot) against the stacked one (one batched decode, one sync), every
+    slot held by a request that never finishes, 4 warm then 40 timed steps
+    at 1, 4 and 8 slots."""
     import numpy as np
 
-    from repro_torch.configs import get
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      reset_launches)
@@ -1838,7 +1859,7 @@ def phase_engine_compare(dev):
     from repro_torch.serve import (DictCacheEngine, EngineConfig, Request,
                                    ServingEngine)
 
-    cfg = get("gemma3-1b")                     # full width, bf16
+    cfg = gemma_period()                       # full width, bf16
     model = FiniteLogits(build(cfg))
     params = model.model.init(torch.Generator(dev).manual_seed(0))
     warm, timed = 4, 40
@@ -2019,9 +2040,10 @@ E11_PLAN_TOL = 2e-3
 
 
 def phase_serving_loop(dev):
-    """e11's loop stage at full width: 2 served gemma3-1b services (bf16,
-    rung ladder d_model 288/576/864/1152) on 6 chips, bursty load, the
-    fixed split and the RASK agent, each ``E11_SECONDS`` simulated seconds.
+    """e11's loop stage at full width, one local:global period deep: 2
+    served gemma3-1b services (bf16, rung ladder d_model 288/576/864/1152)
+    on 6 chips, bursty load, the fixed split and the RASK agent, each
+    ``E11_SECONDS`` simulated seconds.
     Then the RASK kernels at the shapes the loop gave them, a profile of a
     decode step at the lowest and highest rung that ran, and last, with
     nothing on the card timed, each run's CPU twin: the same loop run by
@@ -2033,14 +2055,13 @@ def phase_serving_loop(dev):
 
     import numpy as np
 
-    from repro_torch.configs import get
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      reset_launches)
     from repro_torch.kernels.rask_objective import (
         rask_objective_backward_cuda, rask_objective_forward_cuda)
 
-    cfg = get("gemma3-1b")                     # full width, bf16
+    cfg = gemma_period()                       # full width, bf16
 
     def counts():
         return {"decode_attention": decode_attention_cuda.launches,
@@ -4347,10 +4368,11 @@ MIXED_ROWS, MIXED_MAX_SEQ = 2, 2048
 
 
 def phase_mixed_cache(dev):
-    """gemma3-1b at full width with ``mixed_cache=True``, float32: 2 rows
-    decode W + 16 = 528 steps from token 0 (as in ``repro``, a mixed cache
-    has no prefill), so each local layer's 512-slot ring wraps; in
-    lockstep, the full-cache decode fed the same seeded tokens. Launch
+    """gemma3-1b at full width, one local:global period deep, with
+    ``mixed_cache=True``, float32: 2 rows decode W + 16 = 528 steps from
+    token 0 (as in ``repro``, a mixed cache has no prefill), so each local
+    layer's 512-slot ring wraps; in lockstep, the full-cache decode fed
+    the same seeded tokens. Launch
     counters are zeroed just before and read just after: the decode kernel
     once a layer a step on each path. Reports the largest logit gap (bar
     1e-3: float32 on both paths; the ring hands the kernel the window's
@@ -4358,13 +4380,11 @@ def phase_mixed_cache(dev):
     ms on each path, and the cache bytes of each at max_seq 2048."""
     import numpy as np
 
-    from repro_torch.configs import get
     from repro_torch.models import build
 
     tol = 1e-3
     resident = _free_card()
-    cfg = dataclasses.replace(get("gemma3-1b"), mixed_cache=True,
-                              dtype="float32")
+    cfg = gemma_period(mixed_cache=True, dtype="float32")
     mixed, full = build(cfg), build(dataclasses.replace(cfg,
                                                         mixed_cache=False))
     params = mixed.init(torch.Generator(dev).manual_seed(0))
@@ -4906,14 +4926,15 @@ def phase_train_crosscheck(dev):
 
 
 def phase_train(dev, steps=TRAIN_STEPS):
-    """The slice: gemma3-1b, all 26 layers at full width, float32, seeded
-    weights, trained by the port's ``Trainer`` through ``make_train_step``
-    on ``TokenPipeline(vocab=262144, batch=4, seq=1024)`` with
+    """The slice: gemma3-1b at full width, one local:global period deep
+    (``PERIOD_LAYERS``), float32, seeded weights, trained by the port's
+    ``Trainer`` through ``make_train_step`` on
+    ``TokenPipeline(vocab=262144, batch=4, seq=1024)`` with
     ``AdamWConfig(lr=TRAIN_LR, warmup_steps=10, total_steps=steps)`` as
     ``launch/train.py`` builds it (``--lr 1e-3``: ``TRAIN_LR``),
     checkpointing into a temporary directory
     at the end. Checks: every loss and grad norm finite, the last loss
-    below the first, the flash forward and backward kernels 26 times a
+    below the first, the flash forward and backward kernels once a layer a
     step, peak memory under 80 GB; the final checkpoint restored by a
     resumed ``Trainer`` into fresh tensors, bitwise equal, at the saved
     step. Reports step ms, tokens/s against the step's bound (6 N tokens
@@ -4933,7 +4954,8 @@ def phase_train(dev, steps=TRAIN_STEPS):
     from repro_torch.train.tree import leaves
 
     resident = _free_card()
-    cfg = dataclasses.replace(get(TRAIN_ARCH), dtype="float32")
+    cfg = dataclasses.replace(get(TRAIN_ARCH), n_layers=PERIOD_LAYERS,
+                              dtype="float32")
     model = build(cfg)
     params = model.init(torch.Generator(dev).manual_seed(0))
     n_params = sum(p.numel() for p in leaves(params))
@@ -5034,9 +5056,10 @@ SSM_TRAIN_ARCH = "mamba2-370m"
 SSD_BWD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan_backward.cu"
 # the SSD backward's CUDA kernels and the forward's, by names no other
 # kernel's holds
-SSD_BWD_KERNELS = ("chunk_dstate_kernel", "state_backward_kernel",
-                   "chunk_local_kernel", "chunk_diag_kernel",
-                   "reduce_heads_kernel")
+SSD_BWD_KERNELS = ("ssd_bwd_chunk_kernel", "state_backward_kernel",
+                   "ssd_bwd_local_kernel", "ssd_bwd_sum_kernel")
+# other partitions timed at mamba2's shape: (heads a CTA, CTAs a cluster)
+SSD_BWD_PARTITIONS = ((4, 8), (4, 2), (8, 4), (8, 1), (2, 2), (1, 8))
 SSD_FWD_KERNELS = ("chunk_state_kernel", "state_passing_kernel",
                    "chunk_scan_kernel")
 GRAD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dinitial")
@@ -5075,14 +5098,18 @@ def ssd_backward_cases(dev, dtype):
 
 
 def phase_ssd_backward_kernels(dev):
-    """The SSD scan's backward kernel (``csrc/ssd_scan_backward.cu``: five
+    """The SSD scan's backward kernel (``csrc/ssd_scan_backward.cu``: four
     CUDA kernels a call, counted with the profiler) against its plain
     version (``ref.ssd_backward_reference``) on ``ssd_backward_cases``, in
     float32 (1e-4 of each gradient's largest entry) and bf16 (5e-2), the
     forward's cs and prev from the forward kernel; two calls bitwise equal.
+    Each row names its partition (``backward_plan`` on this card's
+    capacity: heads a CTA, CTAs a cluster, clusters a (row, chunk), CTAs).
     Times: the backward (device and call ms), its plain version, the
     forward kernel at the same shapes (with its plain version and bound),
-    and, on mamba2's case, each of the five kernels' device ms; the bound
+    and, on mamba2's case, each of the four kernels' device ms (the later
+    three start behind the one before and wait for it, so theirs include
+    some waiting) and the device ms of ``SSD_BWD_PARTITIONS``; the bound
     from ``ssd_scan.backward_work``, the function's own bytes (inputs, the
     forward's cs and prev, gradients) over 3.35 TB/s against its flops
     over 67 or 989 TFLOP/s; the bytes of the kernel's float32 dB/dC
@@ -5090,8 +5117,11 @@ def phase_ssd_backward_kernels(dev):
     PyTorch call computes this function: ``library_ms`` is null. float32
     runs three TF32 tensor-core products for each product, so its rows
     also carry that bound (3 x flops over 494.7 TFLOP/s, or the bytes)."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.ssd_scan import (backward_partials_bytes,
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.ssd_scan import (BackwardPlan, _capacity,
+                                              backward_partials_bytes,
+                                              backward_plan,
+                                              backward_with_plan,
                                               backward_work,
                                               ssd_backward_cuda, ssd_cuda)
 
@@ -5131,15 +5161,22 @@ def phase_ssd_backward_kernels(dev):
             nbytes, flops = backward_work(b, l, h, p, n, ck,
                                           x.element_size(),
                                           dfinal=dfin is not None)
+            capacity = _capacity(dev.index, ck, n, p,
+                                 _build.DTYPE_CODES[dtype])
+            plan = backward_plan(b, l, h, ck, capacity)
+            precision = "tf32x3" if dtype == torch.float32 else "tf32"
             row = {"kernel": "ssd_scan_backward", "case": name,
                    "dtype": dname, "shape": [b, l, h, p, n, chunk],
                    "max_abs_err": max(errs.values()), "errors": errs,
                    "max_rel_err": max(rel.values()), "rel_errors": rel,
                    "tolerance_rel": BWD_TOL[dname],
                    "bitwise_repeatable": True, "bytes": nbytes,
-                   "partials_bytes": backward_partials_bytes(b, l, h, n),
+                   "plan": dataclasses.astuple(plan),
+                   "partials_bytes": backward_partials_bytes(
+                       b, l, n, plan.clusters),
                    "flops": flops, "bound": bound_ms(nbytes, flops, dname),
-                   "variant": "tf32x3" if dtype == torch.float32 else "tf32",
+                   "variant": f"{precision}, {plan.group} heads a CTA, "
+                              f"clusters of {plan.cluster}",
                    "library_ms": None}
             if dtype == torch.float32:
                 row["bound_tf32x3"] = (1e3 * max(
@@ -5156,6 +5193,14 @@ def phase_ssd_backward_kernels(dev):
                 row["device_ms_of"] = profile_window(
                     f"ssd_backward_{name}_{dname}", call, 3,
                     share_of=SSD_BWD_KERNELS)["device_ms_of"]
+                row["capacity"] = capacity
+                row["partitions"] = {}
+                for g, cl in SSD_BWD_PARTITIONS:
+                    other = BackwardPlan.of(b * (l // ck), h, g, cl)
+                    row["partitions"][f"g{g}_cl{cl}"] = time_ms([
+                        lambda plan=other: backward_with_plan(
+                            *args, dy, cs, prev, dfin, chunk=chunk,
+                            plan=plan)], 10)[0]
             row["plain_ms"], row["plain_call_ms"] = time_ms([
                 lambda: ref.ssd_backward_reference(
                     *args, dy, dfin, chunk=ck, initial_state=init)], 3)
@@ -5500,7 +5545,8 @@ def ssd_backward_entry(rows, launches):
     entry["max_rel_err"] = max(r["max_rel_err"] for r in rows
                                if r["dtype"] == "float32")
     for key in ("kernels_per_call", "device_ms_of", "fwd_ms",
-                "fwd_plain_ms", "fwd_bound"):
+                "fwd_plain_ms", "fwd_bound", "plan", "variant", "capacity",
+                "partitions", "partials_bytes"):
         entry[key] = rep[key]
     entry["bound_tf32x3_ms"], entry["bound_tf32x3_by"] = rep["bound_tf32x3"]
     for r in rows:
@@ -5508,7 +5554,7 @@ def ssd_backward_entry(rows, launches):
             entry[f"{r['case']}_{r['dtype']}"] = {
                 k: r[k] for k in ("ms", "call_ms", "plain_ms", "library_ms",
                                   "max_abs_err", "max_rel_err", "fwd_ms",
-                                  "kernels_per_call")} | {
+                                  "kernels_per_call", "plan")} | {
                 "bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
     return entry
 

@@ -28,63 +28,74 @@
 // B and C are one group that every head shares, so dB and dC sum over the
 // heads, and dA over the rows and positions. Every rounding of the bf16
 // forward other than cs's is taken as the identity (as autograd takes a
-// cast); exp is only ever taken of cs_i - cs_j with i >= j and of cs_last -
-// cs_j (cs falls), so nothing overflows.
+// cast); exp is only ever taken of cs_i - cs_j with i >= j, of cs_last -
+// cs_j and of cs_i (cs falls), so nothing overflows.
 //
 // What bounds it on the H100: at mamba2-370m's training shape (4 rows of
 // 1,024 tokens, 32 heads of 64, state 128, chunk 128) the products above
-// come to ~15 GFLOP (the triangles' pairs on and below the diagonal; C B^T
-// once a row and chunk, as B and C are shared by every head), 0.23 ms at
-// 67 TFLOP/s of float32 FMA, against ~0.15 GB that the function moves
-// (inputs, the forward's states, gradients), 0.04 ms at 3.35 TB/s. On the
-// tensor cores the same products take 0.09 ms in float32 (three TF32
-// products each, below) and 0.015 ms in bf16 (one), where the bytes bound
-// the work (0.02 ms). The design adds the float32 per-head partials of dB
-// and dC, ~0.27 GB written and read (0.08 ms); what holds the kernel back
-// is latency: a CTA's phases (loads, products, the partials' read and
-// write) run one after the other at one CTA an SM.
+// come to ~11 GFLOP (the triangles' pairs on and below the diagonal; C B^T,
+// M B and M^T C once a row and chunk: B and C do not depend on the head, so
+// sum_h M_h^T C = (sum_h M_h)^T C), 0.16 ms at 67 TFLOP/s of float32 FMA,
+// against ~0.15 GB that the function moves (inputs, the forward's states,
+// gradients), 0.04 ms at 3.35 TB/s. On the tensor cores the same products
+// take 0.07 ms in float32 (three TF32 products each, below) and 0.01 ms in
+// bf16 (one), where the bytes bound the work (0.02 ms).
 //
-// What the design does: five launches, every product on the tensor cores
-// (mma.sync m16n8k8, TF32 with float32 accumulation; float32 splits each
-// operand into two TF32 halves, three products, within float32's 1e-4 bar;
-// bf16 inputs are exact in TF32 and take one), operands widened to float32
-// as they load:
-//  (a) chunk_dstate, one CTA per (chunk, head, row): pass 1 (C, dy scaled
-//      by exp(cs) and prev in shared memory). dprev into a float32 scratch
-//      (b, chunks, H, P, N), dC into the float32 per-head partials
-//      (b, l, H, N), dcs into a float32 scratch (b, H, l).
+// What the design does: four launches, one CTA per (row, chunk, group of
+// g heads) in the two chunk kernels, the heads looped inside the CTA, and
+// the CTAs of one (row, chunk) a thread-block cluster (at most 8) that
+// sums dB and dC through distributed shared memory:
+//  (a) ssd_bwd_chunk: what needs no dS. C B^T on the 32 x 32 blocks on and
+//      below the diagonal once, kept in shared memory (G); then for each
+//      head (pass 4) P^T dy with P = G o L formed as the fragments load,
+//      into a float32 dxd scratch (b, l, H, P), and dy xd^T on the warp's
+//      triangle blocks: P o dy xd^T's row and column sums into the head's
+//      dcs, and M_h = dy xd^T o L summed over the CTA's heads in registers.
+//      Then M B and M^T C once on the summed M, both kept in registers;
+//      then for each head (pass 1) dprev into a float32 scratch (b, chunks,
+//      H, P, N) and exp(cs) dy prev added to M B (dC), its row dot with C
+//      into dcs. Last dC and M^T C are summed over the cluster's CTAs in
+//      rank order: dC is written (or, with more than one cluster a (row,
+//      chunk), its float32 cluster partial), M^T C goes to a float32 (b, l,
+//      clusters, N) scratch for (c).
 //  (b) state_backward, one thread per (row, head, p, n): walks the chunks
 //      from the last (the loads of 8 chunks in flight together),
 //      overwrites each chunk's dprev with dS_c, writes dinitial; each CTA
 //      (256 elements of one (row, head)) sums its share of <dS_c, prev_c>
 //      in a fixed order into a partial per chunk.
-//  (c) chunk_local, one CTA per (chunk, head, row): pass 3 (dS_c, B and xd
-//      in shared memory). dxd into a float32 scratch (b, l, H, P), dB into
-//      its partials, wdw out of dcs and into dcs_last with the partials
-//      of (b).
-//  (d) chunk_diag, one CTA per (chunk, head, row): pass 4 and 5. C B^T on
-//      the 32 x 32 blocks on and below the diagonal in registers, masked
-//      and scaled by L into shared memory (in B's place); then P^T dy plus
-//      (c)'s dxd gives dx and ddt's sum over p; dy xd^T on the same blocks
-//      gives P o dy xd^T's row and column sums and M, which takes P's
-//      place; M^T C is added to dB's partials, then B is loaded again in
-//      C's place and M B is added to dC's. Last the chunk's reverse
-//      cumulative sum, ddt, and the chunk's share of dA.
-//  (e) reduce_heads: dB and dC summed over the heads and dA over rows and
-//      chunks, each in one fixed order (no atomics anywhere, so two calls
-//      are bitwise equal).
-// Products are dealt out by 32 x 32 output tile, one warp's (4 x 2 tiles
-// of the m16n8 accumulator layout, 32 accumulators a lane): each k-step
-// loads an A fragment that feeds four products and a B fragment that feeds
-// two. Tiles load 16 bytes (8 in bf16) at a time, several loads in flight;
-// the epilogues store pairs. A tile's row and column sums go through
-// shuffles and a small array per column or row block, summed in order.
-// Shared memory, float32 rows padded by 16 bytes: (d) holds C, B (or P, M),
-// dy and xd, 211,456 bytes at chunk 128, state 128 and head dim 64 (one CTA
-// an SM); (a) and (c) ~139 KB. The wrapper checks the largest against the
-// card's limit. Ragged chunks (ck not a multiple of 32), ragged P and N are
-// zero-padded to 32; ck <= 128, N <= 128.
+//  (c) ssd_bwd_local: pass 3 and 5. For each head dS B^T, added to (a)'s
+//      dxd, gives dx and ddt's sum over p; w dt x^T dS added over the
+//      CTA's heads in registers (dB's local share). Then one warp a head:
+//      dcs, its reverse cumulative sum, ddt and dA's share a (row, chunk).
+//      dB = the cluster's sum plus (a)'s share, written (or its cluster
+//      partial).
+//  (d) ssd_bwd_sum: dA over rows and chunks and, with more than one
+//      cluster a (row, chunk), dB and dC over the clusters, each in one
+//      fixed order (no atomics anywhere, so two calls are bitwise equal).
+// (b), (c) and (d) launch as programmatic dependents: each may start while
+// the kernel before it finishes, and waits for it before reading its
+// results. The partition (g, the cluster size, the CTAs' order) comes from
+// kernels/ssd_scan.py::backward_plan, which fits the CTAs into as few waves
+// as the card runs at once (clusters of 4 or 8 reach 120 of the H100's 132
+// SMs, clusters of 2 all of them): CTA x of a (row, chunk) is rank
+// x % cluster of cluster x / cluster and holds heads [x g, x g + g); a
+// cluster's sum runs over its ranks in order, (d)'s over the clusters.
+// The next head's tiles load with cp.async into the other of two stages
+// while the current head's products run. Every product is a warp's 32 x 32
+// tile on the tensor cores (mma.sync m16n8k8, TF32 with float32
+// accumulation; float32 splits each operand into two TF32 halves, three
+// products, within float32's 1e-4 bar; bf16 inputs are exact in TF32 and
+// take one), its fragments loaded two or four elements at a time (the
+// layout at Acc). Input tiles stay in their own type in shared memory
+// (rows padded by 16 bytes) and widen as the fragments load; G and M are
+// float32. Shared memory at chunk 128, state 128, head dim 64 and g = 8:
+// (a) 229,376 bytes in float32 (G and two stages of dy and x; later C and
+// two of dy and prev), (c) 227,392 (B and two stages of dS and x); one CTA
+// an SM. The wrapper checks the largest against the card's limit. Ragged
+// chunks (ck not a multiple of 32), ragged P and N are zero-padded to 32;
+// ck <= 128, N <= 128.
 
+#include <cooperative_groups.h>
 #include <stdint.h>
 
 #include "common.cuh"
@@ -92,8 +103,12 @@
 namespace repro_torch {
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxGroup = 8;    // heads a CTA
+constexpr int kMaxCluster = 8;  // CTAs a cluster (portable)
 
 // state_backward's CTAs for one (row, head): each writes one <dS_c, prev_c>
 // partial a chunk to the dot scratch (ssd_scan_backward_dot_partials).
@@ -109,157 +124,175 @@ constexpr int MT = 2, NT = 4, kTile = 32;
 // share
 constexpr int kMaxTriBlocks =
     ((kMaxCk / kTile) * (kMaxCk / kTile + 1) / 2 + kWarps - 1) / kWarps;
+// output tiles of 32 x 32 of a (ck x N) product, a warp's share
+constexpr int kMaxRowTiles =
+    ((kMaxCk / kTile) * (kMaxN / kTile) + kWarps - 1) / kWarps;
+
 
 __host__ __device__ inline int pad32(int x) { return (x + 31) / 32 * 32; }
 __host__ __device__ inline size_t align16(size_t x) {
   return (x + 15) / 16 * 16;
 }
 
-// Padded sizes and float row strides (16 bytes past the padded width)
+// Padded sizes; row strides in elements of a tile of element size es
+// (16 bytes past the padded width)
 struct Dims {
-  int ckp, np, pp, ldn, ldp, ldg;
+  int ckp, np, pp, S;
 };
-
 __host__ __device__ inline Dims make_dims(int ck, int N, int P) {
   Dims d;
   d.ckp = pad32(ck);
   d.np = pad32(N);
   d.pp = pad32(P);
-  d.ldn = d.np + 4;
-  d.ldp = d.pp + 4;
-  d.ldg = d.ckp + 4;
+  d.S = d.ckp / kTile;
   return d;
 }
-
-// Shared-memory offsets (bytes) of each kernel's arrays.
-struct DstateLayout {
-  size_t c, dy, s, part, ecs, total;
-};
-__host__ __device__ inline DstateLayout dstate_layout(const Dims& d) {
-  DstateLayout L;
-  size_t o = 0;
-  L.c = o;
-  o += align16((size_t)d.ckp * d.ldn * 4);
-  L.dy = o;
-  o += align16((size_t)d.ckp * d.ldp * 4);
-  L.s = o;
-  o += align16((size_t)d.pp * d.ldn * 4);
-  L.part = o;  // (np / 32) x ckp: dcs's partial a column block
-  o += align16((size_t)(d.np / kTile) * d.ckp * 4);
-  L.ecs = o;
-  o += align16((size_t)d.ckp * 4);
-  L.total = o;
-  return L;
+__host__ __device__ inline int row_ld(int cols_pad, int es) {
+  return cols_pad + 16 / es;
+}
+// bytes of a rows_pad x cols_pad tile of element size es
+__host__ __device__ inline size_t tile_bytes(int rows_pad, int cols_pad,
+                                             int es) {
+  return align16((size_t)rows_pad * row_ld(cols_pad, es) * es);
+}
+__host__ __device__ inline size_t max2(size_t a, size_t b) {
+  return a > b ? a : b;
 }
 
-struct LocalLayout {
-  size_t g, b, xd, part, w, wdw, total;
+// (a)'s shared memory (bytes). A pool reused phase by phase: at the start B
+// at 0 and C at `c`, with the first diagonal stage at `sd`; G at 0 and two
+// stages of dy, x at `sd`; then M at 0, B at `bl`, C at `c`; then C at `c`
+// with two stages of dy, prev at 0 and `so`; last the stagings of dC at 0
+// and of M^T C at `staging`.
+// Then the small float arrays: per head cs, exp(cs), dt and dcs; the row
+// and column sums of P o dy xd^T by block; dcs's partials by column block.
+struct ChunkLayout {
+  size_t sizeG, sizeCB, stage_d, stage_o, staging;
+  size_t sd, so, bl, c, pool;
+  size_t cs, ecs, dt, dcs, row_q, col_q, part, total;
 };
-__host__ __device__ inline LocalLayout local_layout(const Dims& d) {
-  LocalLayout L;
-  size_t o = 0;
-  L.g = o;
-  o += align16((size_t)d.pp * d.ldn * 4);
-  L.b = o;
-  o += align16((size_t)d.ckp * d.ldn * 4);
-  L.xd = o;
-  o += align16((size_t)d.ckp * d.ldp * 4);
-  L.part = o;  // (pp / 32) x ckp: xd . (dS B)'s partial a column block
-  o += align16((size_t)(d.pp / kTile) * d.ckp * 4);
-  L.w = o;
-  o += align16((size_t)d.ckp * 4);
-  L.wdw = o;
-  o += align16((size_t)d.ckp * 4);
-  L.total = o;
-  return L;
-}
-
-struct DiagLayout {
-  size_t c, bp, dy, xd, cs, dt, row_q, col_q, ddt, dcs, total;
-};
-__host__ __device__ inline DiagLayout diag_layout(const Dims& d) {
-  DiagLayout L;
-  size_t o = 0;
-  L.c = o;  // C, later B
-  o += align16((size_t)d.ckp * d.ldn * 4);
-  L.bp = o;  // B, then P, then M
-  size_t bp = (size_t)d.ckp * d.ldn * 4;
-  if ((size_t)d.ckp * d.ldg * 4 > bp) bp = (size_t)d.ckp * d.ldg * 4;
-  o += align16(bp);
-  L.dy = o;
-  o += align16((size_t)d.ckp * d.ldp * 4);
-  L.xd = o;
-  o += align16((size_t)d.ckp * d.ldp * 4);
+__host__ __device__ inline ChunkLayout chunk_layout(const Dims& d, int es,
+                                                    int g) {
+  ChunkLayout L;
+  L.sizeG = tile_bytes(d.ckp, d.ckp, 4);
+  L.sizeCB = tile_bytes(d.ckp, d.np, es);
+  L.stage_d = 2 * tile_bytes(d.ckp, d.pp, es);
+  L.stage_o = tile_bytes(d.ckp, d.pp, es) + tile_bytes(d.pp, d.np, es);
+  L.staging = tile_bytes(d.ckp, d.np, 4);
+  // the first diagonal stage loads beside B, so it starts past both B and G
+  L.sd = max2(L.sizeG, L.sizeCB);
+  size_t pool = L.sd + 2 * L.stage_d;
+  pool = max2(pool, L.sd + L.stage_d + L.sizeCB);
+  pool = max2(pool, 2 * L.stage_o + L.sizeCB);
+  pool = max2(pool, L.sizeG + 2 * L.sizeCB);
+  pool = max2(pool, 2 * L.staging);
+  L.pool = pool;
+  L.so = L.stage_o;
+  L.bl = L.sizeG;
+  L.c = pool - L.sizeCB;
+  size_t o = pool;
+  const size_t per_head = align16((size_t)g * d.ckp * 4);
   L.cs = o;
-  o += align16((size_t)d.ckp * 4);
+  o += per_head;
+  L.ecs = o;
+  o += per_head;
   L.dt = o;
-  o += align16((size_t)d.ckp * 4);
-  L.row_q = o;  // (ckp / 32) x ckp: row sums of P o dy xd^T a column block
-  o += align16((size_t)(d.ckp / kTile) * d.ckp * 4);
-  L.col_q = o;  // (ckp / 32) x ckp: column sums a row block
-  o += align16((size_t)(d.ckp / kTile) * d.ckp * 4);
-  L.ddt = o;  // (pp / 32) x ckp: dxd . x's partial a column block
-  o += align16((size_t)(d.pp / kTile) * d.ckp * 4);
+  o += per_head;
   L.dcs = o;
-  o += align16((size_t)d.ckp * 4);
+  o += per_head;
+  L.row_q = o;  // S x ckp: row sums of P o dy xd^T a column block
+  o += align16((size_t)d.S * d.ckp * 4);
+  L.col_q = o;  // S x ckp: column sums a row block
+  o += align16((size_t)d.S * d.ckp * 4);
+  L.part = o;  // (np / 32) x ckp: C . dC's partial a column block
+  o += align16((size_t)(d.np / kTile) * d.ckp * 4);
   L.total = o;
   return L;
 }
 
-// Four elements of E as one load, and widened to float32.
-template <typename E>
-struct Vec4;
-template <>
-struct Vec4<float> {
-  using type = float4;
+// (c)'s shared memory: B at 0, two stages of dS (float32) and x at `st`;
+// dB's staging at 0 at the end. Then per head dt, w, (a)'s dcs, wdw and
+// dxd . x; the row sums of x . (dS B) and dxd . x by column block; per
+// head E <dS, prev> and A.
+struct LocalLayout {
+  size_t sizeB, stage, st, pool;
+  size_t dt, w, dcs, wdw, ddt, wd_part, dd_part, head, total;
 };
-template <>
-struct Vec4<__nv_bfloat16> {
-  using type = uint2;
-};
-__device__ __forceinline__ float4 widen(float4 v) { return v; }
-__device__ __forceinline__ float4 widen(uint2 v) {
-  const float2 a = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v.y));
-  return make_float4(a.x, a.y, b.x, b.y);
+__host__ __device__ inline LocalLayout local_layout(const Dims& d, int es,
+                                                    int g) {
+  LocalLayout L;
+  L.sizeB = tile_bytes(d.ckp, d.np, es);
+  L.stage = tile_bytes(d.pp, d.np, 4) + tile_bytes(d.ckp, d.pp, es);
+  L.st = L.sizeB;
+  L.pool = max2(L.sizeB + 2 * L.stage, tile_bytes(d.ckp, d.np, 4));
+  size_t o = L.pool;
+  const size_t per_head = align16((size_t)g * d.ckp * 4);
+  L.dt = o;
+  o += per_head;
+  L.w = o;
+  o += per_head;
+  L.dcs = o;  // (a)'s dcs, loaded at the start
+  o += per_head;
+  L.wdw = o;
+  o += per_head;
+  L.ddt = o;
+  o += per_head;
+  L.wd_part = o;
+  o += align16((size_t)(d.pp / kTile) * d.ckp * 4);
+  L.dd_part = o;
+  o += align16((size_t)(d.pp / kTile) * d.ckp * 4);
+  L.head = o;  // per head E <dS, prev> (cs_last's share) and A
+  o += align16((size_t)2 * g * 4);
+  L.total = o;
+  return L;
 }
 
-// rows x cols of src (row stride src_ld, element type E) into the float
-// tile dst (row stride ld, a multiple of 4), times scale[r] where scale is
-// given; zero up to rows_pad x cols_pad (cols_pad a multiple of 4). Four
-// elements a load where the rows allow it, several loads in flight. Call
-// __syncthreads() after.
 template <typename E>
-__device__ void load_rows(float* dst, int ld, const E* __restrict__ src,
-                          size_t src_ld, int rows, int cols, int rows_pad,
-                          int cols_pad, const float* scale = nullptr) {
-  using V = typename Vec4<E>::type;
-  if (cols % 4 == 0 && src_ld % 4 == 0 &&
-      reinterpret_cast<uintptr_t>(src) % sizeof(V) == 0) {
-    const int cq = cols_pad / 4;
-#pragma unroll 4
+__device__ __forceinline__ E zero_of();
+template <>
+__device__ __forceinline__ float zero_of<float>() {
+  return 0.f;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
+  return __float2bfloat16(0.f);
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// rows x cols of src (row stride src_ld, element type E) into the tile dst
+// of the same type (row stride row_ld(cols_pad)), zeros up to rows_pad x
+// cols_pad (a multiple of 32). 16 bytes a cp.async where the rows allow
+// it (the caller commits, waits and syncs), else element by element.
+template <typename E>
+__device__ void load_tile(E* dst, const E* __restrict__ src, size_t src_ld,
+                          int rows, int cols, int rows_pad, int cols_pad) {
+  constexpr int V = 16 / sizeof(E);
+  const int ld = row_ld(cols_pad, sizeof(E));
+  if (cols % V == 0 && src_ld % V == 0 &&
+      reinterpret_cast<uintptr_t>(src) % 16 == 0) {
+    const int cq = cols_pad / V;
     for (int e = threadIdx.x; e < rows_pad * cq; e += kThreads) {
-      const int r = e / cq, c = 4 * (e % cq);
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r < rows && c < cols) {
-        v = widen(*reinterpret_cast<const V*>(src + r * src_ld + c));
-        if (scale != nullptr) {
-          const float s = scale[r];
-          v = make_float4(v.x * s, v.y * s, v.z * s, v.w * s);
-        }
-      }
-      *reinterpret_cast<float4*>(dst + (size_t)r * ld + c) = v;
+      const int r = e / cq, c = V * (e % cq);
+      E* to = dst + (size_t)r * ld + c;
+      if (r < rows && c < cols)
+        cp_async16(to, src + r * src_ld + c);
+      else
+        *reinterpret_cast<uint4*>(to) = make_uint4(0u, 0u, 0u, 0u);
     }
     return;
   }
   for (int e = threadIdx.x; e < rows_pad * cols_pad; e += kThreads) {
     const int r = e / cols_pad, c = e % cols_pad;
-    float v = 0.f;
-    if (r < rows && c < cols) {
-      v = to_float(src[r * src_ld + c]);
-      if (scale != nullptr) v *= scale[r];
-    }
-    dst[(size_t)r * ld + c] = v;
+    dst[(size_t)r * ld + c] =
+        (r < rows && c < cols) ? src[r * src_ld + c] : zero_of<E>();
   }
 }
 
@@ -282,49 +315,76 @@ __device__ __forceinline__ void store_pair(E* p, int col, int W, float v0,
     if (col + 1 < W) store_as(p + 1, v1);
   }
 }
-// p[0], p[1] += v0, v1 (float32), as store_pair
-__device__ __forceinline__ void add_pair(float* p, int col, int W, float v0,
-                                         float v1) {
-  if (col + 1 < W && W % 2 == 0) {
-    float2 o = *reinterpret_cast<float2*>(p);
-    *reinterpret_cast<float2*>(p) = make_float2(o.x + v0, o.y + v1);
-  } else {
-    if (col < W) p[0] += v0;
-    if (col + 1 < W) p[1] += v1;
-  }
-}
 // (p[0], p[1]) widened, zeros past W, as store_pair
 template <typename E>
 __device__ __forceinline__ float2 load_pair(const E* p, int col, int W) {
+  if (col + 1 < W && W % 2 == 0) {
+    if constexpr (sizeof(E) == 4) {
+      return *reinterpret_cast<const float2*>(p);
+    } else {
+      return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    }
+  }
   return make_float2(col < W ? to_float(p[0]) : 0.f,
                      col + 1 < W ? to_float(p[1]) : 0.f);
 }
 
 // A warp's 32 x 32 output tile, as MT x NT tiles of 16 x 8 in the m16n8
-// accumulator layout: lane (g, t) = (lane / 4, lane % 4) holds, of tile
-// (mt, nt), rows 16 mt + g and + 8, columns 8 nt + 2 t and + 1, as
-// c[mt][nt][0] (g, 2t), [1] (g, 2t+1), [2] (g+8, 2t), [3] (g+8, 2t+1).
+// accumulator layout, with its rows and columns dealt so that the operands
+// load in pairs and fours. Lane (g, t) = (lane / 4, lane % 4) takes, of
+// each k-step of 8, the k pair 2t, 2t + 1 (the mma's k slots t and t + 4:
+// the product sums over k, so their order is free) and, of each 16 rows,
+// rows 2g and 2g + 1 (the mma's rows g and g + 8): an operand adjacent in k
+// (K-major) or in m loads a pair at once. B's n-tile nt gives the lane
+// column 8 nt + g where B is K-major (its k pair adjacent) and, where it is
+// not, column 4 g + nt: the lane's four columns adjacent, one load of four
+// (the "wide" layout, W). c[mt][nt][e] is then row 16 mt + 2 g + e / 2 and
+// column 8 nt + 2 t + e % 2, or 8 t + 4 (e % 2) + nt where W.
 using Acc = float[MT][NT][4];
 
 __device__ __forceinline__ int acc_row(int mt, int e) {
-  return 16 * mt + (threadIdx.x % 32) / 4 + 8 * (e / 2);
+  return 16 * mt + 2 * ((threadIdx.x % 32) / 4) + e / 2;
 }
+template <bool W>
 __device__ __forceinline__ int acc_col(int nt, int e) {
-  return 8 * nt + 2 * (threadIdx.x % 4) + (e % 2);
+  const int t = threadIdx.x % 4;
+  return W ? 8 * t + 4 * (e % 2) + nt : 8 * nt + 2 * t + e % 2;
 }
 
 // f(row, col, c0, c1) for each pair of accumulators at columns col and
-// col + 1 (col even) of row `row` of the warp tile
-template <typename F>
+// col + 1 (col even) of one row of the warp tile
+template <bool W, typename F>
 __device__ __forceinline__ void for_pairs(Acc& c, F&& f) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      if (W) {
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2)
+#pragma unroll
+          for (int nt = 0; nt < NT; nt += 2)
+            f(acc_row(mt, 2 * hf), acc_col<true>(nt, e2),
+              c[mt][nt][2 * hf + e2], c[mt][nt + 1][2 * hf + e2]);
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          f(acc_row(mt, 2 * hf), acc_col<false>(nt, 0), c[mt][nt][2 * hf],
+            c[mt][nt][2 * hf + 1]);
+      }
+    }
+}
+
+// f(row, col, c) for each accumulator of the warp tile
+template <bool W, typename F>
+__device__ __forceinline__ void for_each(Acc& c, F&& f) {
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf)
-        f(acc_row(mt, 2 * hf), acc_col(nt, 0), c[mt][nt][2 * hf],
-          c[mt][nt][2 * hf + 1]);
+      for (int e = 0; e < 4; ++e)
+        f(acc_row(mt, e), acc_col<W>(nt, e), c[mt][nt][e]);
 }
 
 __device__ __forceinline__ void zero(Acc& c) {
@@ -336,13 +396,33 @@ __device__ __forceinline__ void zero(Acc& c) {
       for (int e = 0; e < 4; ++e) c[mt][nt][e] = 0.f;
 }
 
-// c += A (32 x K) B (K x 32) on the tensor cores: A(m, k) is A[m * lda + k]
-// when A_K, else A[k * lda + m]; B(k, n) is B[n * ldb + k] when B_K, else
-// B[k * ldb + n]. K is a multiple of 8; operands are zero past their data.
-// mma.sync m16n8k8 in TF32 with float32 accumulation, each operand's
-// fragment loaded from shared memory once a k-step and fed to MT or NT
-// products. SPLIT = 3: each operand x = hi + lo (hi = x truncated to TF32,
-// lo = x - hi, exact in float32) and lo hi' + hi lo' + hi hi' summed, within
+// Two and four adjacent elements of shared memory, widened
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// c += A (32 x K) B (K x 32) on the tensor cores. A(m, k) is A[m lda + k]
+// when A_K, else A[k lda + m]; B(k, n) is B[n ldb + k] when B_K, else
+// B[k ldb + n] (the wide layout: c's layout is W = !B_K). sa(m, k, v) and
+// sb(k, n, v) scale an element v as it loads (m, n < 32 within the tile,
+// k < K). K is a multiple of 8; operands are zero past their data; the
+// pointers and strides keep the pairs (and B's fours where not B_K)
+// aligned. mma.sync m16n8k8 in TF32 with float32 accumulation, each
+// operand's fragment loaded once a k-step and fed to MT or NT products.
+// SPLIT = 3: each operand x = hi + lo (hi = x truncated to TF32, lo = x -
+// hi, exact in float32) and lo hi' + hi lo' + hi hi' summed, within
 // float32's bar; SPLIT = 1: one TF32 product (bf16 inputs are exact in
 // TF32; the float32 intermediates lose their last 13 bits, far inside
 // bf16's bar).
@@ -366,33 +446,58 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
   }
 }
 
-template <bool K_MAJOR>
-__device__ __forceinline__ float at_k(const float* M, int ld, int row, int k) {
-  return K_MAJOR ? M[row * ld + k] : M[k * ld + row];
-}
+struct NoScale {
+  __device__ __forceinline__ float operator()(int, int, float v) const {
+    return v;
+  }
+};
 
-template <bool A_K, bool B_K, int SPLIT>
-__device__ __forceinline__ void warp_tile(Acc& c, const float* A, int lda,
-                                          const float* B, int ldb, int K) {
+template <int SPLIT, bool A_K, bool B_K, typename EA, typename EB,
+          typename SA = NoScale, typename SB = NoScale>
+__device__ __forceinline__ void warp_mma(Acc& c, const EA* A, int lda,
+                                         const EB* B, int ldb, int K,
+                                         SA sa = {}, SB sb = {}) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   for (int k0 = 0; k0 < K; k0 += 8) {
+    const int k = k0 + 2 * t;
     uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
-      // rows g, g + 8 at k t; the same at k t + 4
+      const int m = 16 * mt + 2 * g;
+      float a[4];  // (m, k), (m + 1, k), (m, k + 1), (m + 1, k + 1)
+      if (A_K) {
+        const float2 r0 = ld2(A + m * lda + k), r1 = ld2(A + (m + 1) * lda + k);
+        a[0] = r0.x, a[2] = r0.y, a[1] = r1.x, a[3] = r1.y;
+      } else {
+        const float2 q0 = ld2(A + k * lda + m), q1 = ld2(A + (k + 1) * lda + m);
+        a[0] = q0.x, a[1] = q0.y, a[2] = q1.x, a[3] = q1.y;
+      }
 #pragma unroll
       for (int q = 0; q < 4; ++q)
-        split_tf32<SPLIT>(
-            at_k<A_K>(A, lda, 16 * mt + g + 8 * (q % 2), k0 + t + 4 * (q / 2)),
-            ah[mt][q], al[mt][q]);
+        split_tf32<SPLIT>(sa(m + (q & 1), k + (q >> 1), a[q]), ah[mt][q],
+                          al[mt][q]);
+    }
+    float bv[NT][2];
+    if (B_K) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float2 v = ld2(B + (8 * nt + g) * ldb + k);
+        bv[nt][0] = v.x, bv[nt][1] = v.y;
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const float4 v = ld4(B + (k + q) * ldb + 4 * g);
+        bv[0][q] = v.x, bv[1][q] = v.y, bv[2][q] = v.z, bv[3][q] = v.w;
+      }
     }
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
-      uint32_t bh[2], bl[2];  // column g at k t and t + 4
+      const int n = B_K ? 8 * nt + g : 4 * g + nt;
+      uint32_t bh[2], bl[2];
 #pragma unroll
       for (int q = 0; q < 2; ++q)
-        split_tf32<SPLIT>(at_k<B_K>(B, ldb, 8 * nt + g, k0 + t + 4 * q),
-                          bh[q], bl[q]);
+        split_tf32<SPLIT>(sb(k + q, n, bv[nt][q]), bh[q], bl[q]);
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         if (SPLIT == 3) {
@@ -406,7 +511,7 @@ __device__ __forceinline__ void warp_tile(Acc& c, const float* A, int lda,
 }
 
 // out[r] = the sum of row r of a warp tile's 32 columns, r < 32, by the
-// lanes with t == 0 (nt, then the pair, then over t). The whole warp must
+// lanes with t == 0 (nt and the pair, then over t). The whole warp must
 // call it.
 __device__ __forceinline__ void store_row_sums(const Acc& v, float* out) {
   const int lane = threadIdx.x % 32;
@@ -420,13 +525,14 @@ __device__ __forceinline__ void store_row_sums(const Acc& v, float* out) {
         s += v[mt][nt][2 * hf] + v[mt][nt][2 * hf + 1];
       s += __shfl_xor_sync(0xffffffffu, s, 1);
       s += __shfl_xor_sync(0xffffffffu, s, 2);
-      if (lane % 4 == 0) out[16 * mt + lane / 4 + 8 * hf] = s;
+      if (lane % 4 == 0) out[16 * mt + 2 * (lane / 4) + hf] = s;
     }
 }
 
 // out[c] = the sum of column c of a warp tile's 32 rows, c < 32, by the
-// lanes with g == 0 (mt, then the pair, then over g). The whole warp must
+// lanes with g == 0 (mt and the pair, then over g). The whole warp must
 // call it.
+template <bool W>
 __device__ __forceinline__ void store_col_sums(const Acc& v, float* out) {
   const int lane = threadIdx.x % 32;
 #pragma unroll
@@ -439,7 +545,7 @@ __device__ __forceinline__ void store_col_sums(const Acc& v, float* out) {
       s += __shfl_xor_sync(0xffffffffu, s, 4);
       s += __shfl_xor_sync(0xffffffffu, s, 8);
       s += __shfl_xor_sync(0xffffffffu, s, 16);
-      if (lane < 4) out[8 * nt + 2 * lane + cc] = s;
+      if (lane < 4) out[acc_col<W>(nt, cc)] = s;
     }
 }
 
@@ -450,80 +556,433 @@ __device__ __forceinline__ void tri_block(int b, int& I, int& J) {
   while ((I + 1) * (I + 2) / 2 <= b) ++I;
   J = b - I * (I + 1) / 2;
 }
+// The triangle block of slot u of this warp: dealt from the last warp
+// backwards, so that the warps with the deepest P^T dy tiles (the first)
+// hold the fewest blocks.
+__device__ __forceinline__ int tri_of(int u) {
+  return (kWarps - 1 - (int)threadIdx.x / 32) + u * kWarps;
+}
 
-// (a) chunk_dstate: grid (chunks, H, b)
+// The cluster's sum of a rows x cols float32 tile that every CTA staged at
+// `stg` (row stride ld, a multiple of 4), over the ranks in order: each
+// CTA sums an equal share of the elements and hands each sum to
+// out(row, col, sum). The caller syncs the cluster before (the stagings
+// are complete) and after (no CTA reuses or leaves its staging while
+// another reads it).
+template <typename F>
+__device__ void cluster_reduce(cg::cluster_group& cluster, float* stg, int ld,
+                               int rows, int cols, F&& out) {
+  const int n_cta = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const float* src[kMaxCluster];
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r)
+    src[r] = r < n_cta ? cluster.map_shared_rank(stg, r) : stg;
+  const int V = cols % 4 == 0 ? 4 : 1;
+  const int per_row = cols / V, total = rows * per_row;
+  const int share = (total + n_cta - 1) / n_cta;
+  const int hi = min(total, (rank + 1) * share);
+  for (int e = rank * share + (int)threadIdx.x; e < hi; e += kThreads) {
+    const int i = e / per_row, n = V * (e % per_row);
+    const size_t at = (size_t)i * ld + n;
+    if (V == 4) {
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int r = 0; r < n_cta; ++r) {
+        const float4 v = *reinterpret_cast<const float4*>(src[r] + at);
+        s = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
+      }
+      out(i, n, s.x);
+      out(i, n + 1, s.y);
+      out(i, n + 2, s.z);
+      out(i, n + 3, s.w);
+    } else {
+      float s = 0.f;
+      for (int r = 0; r < n_cta; ++r) s += src[r][at];
+      out(i, n, s);
+    }
+  }
+}
+
+template <typename F>
+__device__ void cluster_sum(cg::cluster_group& cluster, float* stg, int ld,
+                            int rows, int cols, F&& out) {
+  cluster.sync();
+  cluster_reduce(cluster, stg, ld, rows, cols, out);
+  cluster.sync();
+}
+
+// Programmatic dependent launch: the kernels after the first may start
+// while the one before finishes its last CTAs' work (the chunk kernels
+// allow that near their end, the state passing at its start); each does
+// what reads only the call's inputs, then waits for the one before (which
+// waited for its own: so every earlier kernel has finished and its stores
+// are visible).
+__device__ __forceinline__ void wait_prior_grid() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+__device__ __forceinline__ void allow_next_grid() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+// Write a warp's accumulator tile at (r0, c0) of the float staging (row
+// stride ld)
+template <bool W>
+__device__ __forceinline__ void stage_tile(Acc& c, float* stg, int ld,
+                                           int r0, int c0) {
+  for_pairs<W>(c, [&](int r, int cc, float& v0, float& v1) {
+    store2(stg + (size_t)(r0 + r) * ld + c0 + cc, v0, v1);
+  });
+}
+
+// (a) ssd_bwd_chunk: grid (clusters x cluster, chunks, b), a cluster of
+// `cluster` CTAs along x; CTA x holds heads [x g, x g + g) of H
 template <typename T>
-__global__ void __launch_bounds__(kThreads) chunk_dstate_kernel(
-    const T* __restrict__ Cm, const T* __restrict__ dy,
-    const T* __restrict__ prev, const float* __restrict__ cs_g,
-    float* __restrict__ ds_g, float* __restrict__ dcp_g,
-    float* __restrict__ dcs_g, int l, int H, int P, int N, int ck) {
+__global__ void __launch_bounds__(kThreads, 1) ssd_bwd_chunk_kernel(
+    const T* __restrict__ x, const T* __restrict__ dt,
+    const T* __restrict__ Bm, const T* __restrict__ Cm,
+    const T* __restrict__ dy, const T* __restrict__ prev,
+    const float* __restrict__ cs_g, float* __restrict__ ds_g,
+    float* __restrict__ dxd_g, float* __restrict__ dcs_g,
+    float* __restrict__ dbd_g, float* __restrict__ dcp_g, T* __restrict__ dC,
+    int l, int H, int P, int N, int ck, int g) {
   extern __shared__ __align__(16) uint8_t smem[];
   constexpr int kSplit = sizeof(T) == 4 ? 3 : 1;
+  constexpr int es = sizeof(T);
+  cg::cluster_group cluster = cg::this_cluster();
   const Dims d = make_dims(ck, N, P);
-  const DstateLayout L = dstate_layout(d);
-  float* C_s = reinterpret_cast<float*>(smem + L.c);
-  float* dy_s = reinterpret_cast<float*>(smem + L.dy);
-  float* S_s = reinterpret_cast<float*>(smem + L.s);
-  float* part = reinterpret_cast<float*>(smem + L.part);
-  float* ecs = reinterpret_cast<float*>(smem + L.ecs);
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int nc = gridDim.x, tid = threadIdx.x, warp = tid / 32;
+  const ChunkLayout L = chunk_layout(d, es, g);
+  const int q = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int nc = gridDim.y, ncl = gridDim.x / (int)cluster.num_blocks();
+  const int k_cl = q / (int)cluster.num_blocks();
+  const int h0 = q * g, nh = max(0, min(g, H - h0));
+  const int tid = threadIdx.x, warp = tid / 32;
   const size_t t0 = (size_t)b * l + (size_t)c * ck;
-  const size_t state = (((size_t)b * nc + c) * H + h) * P * N;
+  const int S = d.S, ntri = S * (S + 1) / 2;
+  const int npb = d.pp / kTile, nnb = d.np / kTile;
+  const int ldn = row_ld(d.np, es), ldp = row_ld(d.pp, es);
+  const int ldg = row_ld(d.ckp, 4), ldf = row_ld(d.np, 4);
+  float* cs_s = reinterpret_cast<float*>(smem + L.cs);
+  float* ecs_s = reinterpret_cast<float*>(smem + L.ecs);
+  float* dt_s = reinterpret_cast<float*>(smem + L.dt);
+  float* dcs_s = reinterpret_cast<float*>(smem + L.dcs);
+  float* row_q = reinterpret_cast<float*>(smem + L.row_q);
+  float* col_q = reinterpret_cast<float*>(smem + L.col_q);
+  float* part = reinterpret_cast<float*>(smem + L.part);
+  float* G_s = reinterpret_cast<float*>(smem);  // G, then M
+  const T* C_s = reinterpret_cast<const T*>(smem + L.c);
+  auto head_x = [&](const T* base, int u) {
+    return base + t0 * H * P + (size_t)(h0 + u) * P;
+  };
+  auto stage_d = [&](int s) { return reinterpret_cast<T*>(smem + L.sd + s * L.stage_d); };
+  auto stage_o = [&](int s) { return reinterpret_cast<T*>(smem + s * L.so); };
+  const size_t dy_bytes = tile_bytes(d.ckp, d.pp, es);
+  auto load_diag = [&](int u) {  // dy_u, x_u
+    T* s = stage_d(u & 1);
+    load_tile(s, head_x(dy, u), (size_t)H * P, ck, P, d.ckp, d.pp);
+    load_tile(reinterpret_cast<T*>(reinterpret_cast<uint8_t*>(s) + dy_bytes),
+              head_x(x, u), (size_t)H * P, ck, P, d.ckp, d.pp);
+  };
+  auto load_off = [&](int u) {  // dy_u, prev_u
+    T* s = stage_o(u & 1);
+    load_tile(s, head_x(dy, u), (size_t)H * P, ck, P, d.ckp, d.pp);
+    load_tile(reinterpret_cast<T*>(reinterpret_cast<uint8_t*>(s) + dy_bytes),
+              prev + (((size_t)b * nc + c) * H + h0 + u) * P * N, N, P, N,
+              d.pp, d.np);
+  };
 
-  for (int i = tid; i < d.ckp; i += kThreads)
-    ecs[i] = i < ck ? expf(cs_g[((size_t)b * H + h) * l + (size_t)c * ck + i])
-                    : 0.f;
-  __syncthreads();
-  load_rows(C_s, d.ldn, Cm + t0 * N, N, ck, N, d.ckp, d.np);
-  load_rows(dy_s, d.ldp, dy + t0 * H * P + (size_t)h * P, (size_t)H * P, ck,
-            P, d.ckp, d.pp, ecs);  // exp(cs_i) dy_i
-  load_rows(S_s, d.ldn, prev + state, N, P, N, d.pp, d.np);
+  // B at 0, C at L.c, the first head's dy and x; per head cs, exp(cs), dt
+  load_tile(reinterpret_cast<T*>(smem), Bm + t0 * N, N, ck, N, d.ckp, d.np);
+  load_tile(const_cast<T*>(C_s), Cm + t0 * N, N, ck, N, d.ckp, d.np);
+  cp_async_commit();
+  if (nh > 0) load_diag(0);
+  cp_async_commit();
+  for (int e = tid; e < g * d.ckp; e += kThreads) {
+    const int u = e / d.ckp, i = e % d.ckp;
+    const bool in = u < nh && i < ck;
+    const float v =
+        in ? cs_g[((size_t)b * H + h0 + u) * l + (size_t)c * ck + i] : 0.f;
+    cs_s[e] = v;
+    ecs_s[e] = in ? expf(v) : 0.f;
+    dt_s[e] = in ? to_float(dt[(t0 + i) * H + h0 + u]) : 0.f;
+    dcs_s[e] = 0.f;
+  }
+  // the row and column sums of blocks above the diagonal stay 0
+  for (int e = tid; e < S * d.ckp; e += kThreads) row_q[e] = col_q[e] = 0.f;
+  cp_async_wait<1>();
   __syncthreads();
 
-  // dprev (P x N) = (exp(cs) dy)^T C
-  const int nnb = d.np / kTile;
-  for (int t = warp; t < (d.pp / kTile) * nnb; t += kWarps) {
-    const int p0 = kTile * (t / nnb), n0 = kTile * (t % nnb);
-    Acc acc;
-    zero(acc);
-    warp_tile<false, false, kSplit>(acc, dy_s + p0, d.ldp, C_s + n0, d.ldn,
-                                    d.ckp);
-    for_pairs(acc, [&](int r, int cc, float& v0, float& v1) {
-      const int p = p0 + r, n = n0 + cc;
-      if (p < P) store_pair(ds_g + state + (size_t)p * N + n, n, N, v0, v1);
-    });
+  // G = C B^T on the blocks on and below the diagonal, in registers, then
+  // in B's place (row stride ldg); a later product reads no block above
+  // the diagonal
+  Acc r[kMaxTriBlocks];
+  {
+    const T* B_s = reinterpret_cast<const T*>(smem);
+#pragma unroll
+    for (int u = 0; u < kMaxTriBlocks; ++u) {
+      const int blk = tri_of(u);
+      zero(r[u]);
+      if (blk < ntri && nh > 0) {
+        int I, J;
+        tri_block(blk, I, J);
+        warp_mma<kSplit, true, true>(r[u], C_s + (size_t)kTile * I * ldn,
+                                     ldn, B_s + (size_t)kTile * J * ldn, ldn,
+                                     d.np);
+      }
+    }
   }
-  // dC (ck x N) = (exp(cs) dy) prev, and its row dot with C
-  for (int t = warp; t < (d.ckp / kTile) * nnb; t += kWarps) {
-    const int i0 = kTile * (t / nnb), nb = t % nnb, n0 = kTile * nb;
-    Acc acc, v;
-    zero(acc);
-    warp_tile<true, false, kSplit>(acc, dy_s + (size_t)i0 * d.ldp, d.ldp,
-                                   S_s + n0, d.ldn, d.pp);
+  __syncthreads();  // B and C are consumed
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          v[mt][nt][e] = acc[mt][nt][e] *
-                         C_s[(size_t)(i0 + acc_row(mt, e)) * d.ldn + n0 +
-                             acc_col(nt, e)];
-    for_pairs(acc, [&](int r, int cc, float& v0, float& v1) {
-      const int i = i0 + r, n = n0 + cc;
-      if (i < ck)
-        store_pair(dcp_g + ((t0 + i) * H + h) * N + n, n, N, v0, v1);
-    });
-    store_row_sums(v, part + nb * d.ckp + i0);
+  for (int u = 0; u < kMaxTriBlocks; ++u) {
+    const int blk = tri_of(u);
+    if (blk < ntri) {
+      int I, J;
+      tri_block(blk, I, J);
+      for_each<false>(r[u], [&](int i, int j, float& v) {
+        G_s[(size_t)(kTile * I + i) * ldg + kTile * J + j] = v;
+        v = 0.f;  // M's sum over the heads from here
+      });
+    }
   }
+
+  // pass 4, head by head: P^T dy into dxd, P o dy xd^T's sums into dcs,
+  // M = dy xd^T o L summed over the heads in r
+  for (int u = 0; u < nh; ++u) {
+    if (u + 1 < nh) load_diag(u + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int h = h0 + u;
+    const T* dy_s = stage_d(u & 1);
+    const T* x_s = reinterpret_cast<const T*>(
+        reinterpret_cast<const uint8_t*>(dy_s) + dy_bytes);
+    const float* cs = cs_s + u * d.ckp;
+    const float* dtu = dt_s + u * d.ckp;
+    // L_ij = exp(cs_i - cs_j) for j <= i < ck, else 0
+    auto decay = [&](int i, int j) {
+      return (j > i || i >= ck) ? 0.f : __expf(cs[i] - cs[j]);
+    };
+    // dxd_j = sum_i P_ij dy_i (rows j, k = i from j's block on). On the
+    // diagonal block L_ij as it is; below it L_ij = exp(cs_i - cs_r)
+    // exp(cs_r - cs_j) with r the block's last row: both factors <= 1, one
+    // on A's row and one on B's
+    for (int t = warp; t < S * npb; t += kWarps) {
+      const int j0 = kTile * (t / npb), p0 = kTile * (t % npb);
+      const float* Gj = G_s + (size_t)j0 * ldg + j0;
+      const T* dyj = dy_s + (size_t)j0 * ldp + p0;
+      const float cr = cs[j0 + kTile - 1];
+      Acc acc;
+      zero(acc);
+      warp_mma<kSplit, false, false>(
+          acc, Gj, ldg, dyj, ldp, kTile,
+          [&](int m, int k, float v) { return v * decay(j0 + k, j0 + m); });
+      if (j0 + kTile < d.ckp)
+        warp_mma<kSplit, false, false>(
+            acc, Gj + (size_t)kTile * ldg, ldg, dyj + (size_t)kTile * ldp,
+            ldp, d.ckp - j0 - kTile,
+            [&](int m, int, float v) {
+              return v * __expf(cr - cs[j0 + m]);
+            },
+            [&](int k, int, float v) {
+              const int i = j0 + kTile + k;
+              return i < ck ? v * __expf(cs[i] - cr) : 0.f;
+            });
+      for_pairs<true>(acc, [&](int rr, int cc, float& v0, float& v1) {
+        const int j = j0 + rr, p = p0 + cc;
+        if (j < ck)
+          store_pair(dxd_g + ((t0 + j) * H + h) * P + p, p, P, v0, v1);
+      });
+    }
+    // dy xd^T on the warp's triangle blocks
+#pragma unroll
+    for (int v = 0; v < kMaxTriBlocks; ++v) {
+      const int blk = tri_of(v);
+      if (blk < ntri) {
+        int I, J;
+        tri_block(blk, I, J);
+        Acc acc;
+        zero(acc);
+        warp_mma<kSplit, true, true>(acc, dy_s + (size_t)kTile * I * ldp, ldp,
+                                     x_s + (size_t)kTile * J * ldp, ldp, d.pp);
+        // the lane's rows' and columns' cs, and its columns' dt
+        float csi[MT][2], csj[NT][2], dtj[NT][2];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+            csi[mt][hf] = cs[kTile * I + acc_row(mt, 2 * hf)];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e2 = 0; e2 < 2; ++e2) {
+            const int j = kTile * J + acc_col<false>(nt, e2);
+            csj[nt][e2] = cs[j];
+            dtj[nt][e2] = dtu[j];
+          }
+        float(&mv)[MT][NT][4] = r[v];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = kTile * I + acc_row(mt, e);
+              const int j = kTile * J + acc_col<false>(nt, e);
+              const float L = (j > i || i >= ck)
+                                  ? 0.f
+                                  : __expf(csi[mt][e / 2] - csj[nt][e % 2]);
+              const float m = acc[mt][nt][e] * dtj[nt][e % 2] * L;
+              mv[mt][nt][e] += m;
+              acc[mt][nt][e] = m * G_s[(size_t)i * ldg + j];  // P o dy xd^T
+            }
+        store_row_sums(acc, row_q + J * d.ckp + kTile * I);
+        store_col_sums<false>(acc, col_q + I * d.ckp + kTile * J);
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < ck; i += kThreads) {
+      float s = 0.f;
+      for (int jb = 0; jb < S; ++jb) s += row_q[jb * d.ckp + i];
+      for (int ib = 0; ib < S; ++ib) s -= col_q[ib * d.ckp + i];
+      dcs_s[u * d.ckp + i] += s;
+    }
+  }
+
+  // M into G's place, C and B again: dC = M B (kept in registers for pass
+  // 1), M^T C (dB's diagonal share)
   __syncthreads();
-  for (int i = tid; i < ck; i += kThreads) {
-    float s = 0.f;
-    for (int nb = 0; nb < nnb; ++nb) s += part[nb * d.ckp + i];
-    dcs_g[((size_t)b * H + h) * l + (size_t)c * ck + i] = s;
+  T* Bl_s = reinterpret_cast<T*>(smem + L.bl);
+  load_tile(Bl_s, Bm + t0 * N, N, ck, N, d.ckp, d.np);
+  load_tile(const_cast<T*>(C_s), Cm + t0 * N, N, ck, N, d.ckp, d.np);
+  cp_async_commit();
+#pragma unroll
+  for (int u = 0; u < kMaxTriBlocks; ++u) {
+    const int blk = tri_of(u);
+    if (blk < ntri) {
+      int I, J;
+      tri_block(blk, I, J);
+      for_each<false>(r[u], [&](int i, int j, float& v) {
+        G_s[(size_t)(kTile * I + i) * ldg + kTile * J + j] = v;
+      });
+    }
   }
+  cp_async_wait<0>();
+  __syncthreads();
+  const int nrt = S * nnb;  // 32 x 32 tiles of a (ck x N) product
+  Acc dc[kMaxRowTiles], db[kMaxRowTiles];
+#pragma unroll
+  for (int u = 0; u < kMaxRowTiles; ++u) {
+    const int t = warp + u * kWarps;
+    zero(dc[u]);
+    zero(db[u]);
+    if (t < nrt) {
+      const int I = t / nnb, n0 = kTile * (t % nnb);
+      // dC_i = sum_j M_ij B_j (k = j up to the end of i's block)
+      warp_mma<kSplit, true, false>(dc[u], G_s + (size_t)kTile * I * ldg, ldg,
+                                    Bl_s + n0, ldn, kTile * (I + 1));
+      // dB_j = sum_i M_ij C_i (rows j of block I, k = i from it on)
+      const int j0 = kTile * I;
+      warp_mma<kSplit, false, false>(db[u], G_s + (size_t)j0 * ldg + j0, ldg,
+                                     C_s + (size_t)j0 * ldn + n0, ldn,
+                                     d.ckp - j0);
+    }
+  }
+  __syncthreads();  // M and B are consumed
+  if (nh > 0) load_off(0);
+  cp_async_commit();
+
+  // pass 1, head by head: dprev; exp(cs) dy prev into dC's registers and
+  // its row dot with C into dcs
+  for (int u = 0; u < nh; ++u) {
+    if (u + 1 < nh) load_off(u + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int h = h0 + u;
+    const T* dy_s = stage_o(u & 1);
+    const T* pv_s = reinterpret_cast<const T*>(
+        reinterpret_cast<const uint8_t*>(dy_s) + dy_bytes);
+    const float* ecs = ecs_s + u * d.ckp;
+    const size_t state = (((size_t)b * nc + c) * H + h) * P * N;
+    // dprev (P x N) = (exp(cs) dy)^T C
+    for (int t = warp; t < npb * nnb; t += kWarps) {
+      const int p0 = kTile * (t / nnb), n0 = kTile * (t % nnb);
+      Acc acc;
+      zero(acc);
+      warp_mma<kSplit, false, false>(
+          acc, dy_s + p0, ldp, C_s + n0, ldn, d.ckp,
+          [&](int, int k, float v) { return v * ecs[k]; });
+      for_pairs<true>(acc, [&](int rr, int cc, float& v0, float& v1) {
+        const int p = p0 + rr, n = n0 + cc;
+        if (p < P) store_pair(ds_g + state + (size_t)p * N + n, n, N, v0, v1);
+      });
+    }
+    // exp(cs) dy prev (ck x N)
+#pragma unroll
+    for (int v = 0; v < kMaxRowTiles; ++v) {
+      const int t = warp + v * kWarps;
+      if (t < nrt) {
+        const int i0 = kTile * (t / nnb), nb = t % nnb, n0 = kTile * nb;
+        Acc acc;
+        zero(acc);
+        warp_mma<kSplit, true, false>(acc, dy_s + (size_t)i0 * ldp, ldp,
+                                      pv_s + n0, ldn, d.pp);
+        float(&cv)[MT][NT][4] = dc[v];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = i0 + acc_row(mt, e);
+              const int n = n0 + acc_col<true>(nt, e);
+              const float o = acc[mt][nt][e] * ecs[i];
+              cv[mt][nt][e] += o;
+              acc[mt][nt][e] = o * to_float(C_s[(size_t)i * ldn + n]);
+            }
+        store_row_sums(acc, part + nb * d.ckp + i0);
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < ck; i += kThreads) {
+      float s = 0.f;
+      for (int nb = 0; nb < nnb; ++nb) s += part[nb * d.ckp + i];
+      dcs_s[u * d.ckp + i] += s;
+    }
+  }
+  allow_next_grid();
+  __syncthreads();
+  for (int e = tid; e < nh * d.ckp; e += kThreads) {
+    const int u = e / d.ckp, i = e % d.ckp;
+    if (i < ck)
+      dcs_g[((size_t)b * H + h0 + u) * l + (size_t)c * ck + i] = dcs_s[e];
+  }
+  // dC summed over the cluster: written, or its cluster partial
+  float* stg_c = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int u = 0; u < kMaxRowTiles; ++u) {
+    const int t = warp + u * kWarps;
+    if (t < nrt)
+      stage_tile<true>(dc[u], stg_c, ldf, kTile * (t / nnb),
+                       kTile * (t % nnb));
+  }
+  float* stg_b = reinterpret_cast<float*>(smem + L.staging);
+#pragma unroll
+  for (int u = 0; u < kMaxRowTiles; ++u) {
+    const int t = warp + u * kWarps;
+    if (t < nrt)
+      stage_tile<true>(db[u], stg_b, ldf, kTile * (t / nnb),
+                       kTile * (t % nnb));
+  }
+  cluster.sync();
+  cluster_reduce(cluster, stg_c, ldf, ck, N, [&](int i, int n, float s) {
+    if (ncl == 1)
+      store_as(&dC[(t0 + i) * N + n], s);
+    else
+      dcp_g[((t0 + i) * ncl + k_cl) * N + n] = s;
+  });
+  cluster_reduce(cluster, stg_b, ldf, ck, N, [&](int i, int n, float s) {
+    dbd_g[((t0 + i) * ncl + k_cl) * N + n] = s;
+  });
+  cluster.sync();
 }
 
 // (b) state_backward: grid (ceil(P N / 256), H, b); one thread an element
@@ -544,6 +1003,8 @@ __global__ void __launch_bounds__(kThreads) state_backward_kernel(
   const size_t bh = (size_t)b * H + h;
   auto at = [&](int c) { return (((size_t)b * nc + c) * H + h) * PN + e; };
   float g = in && dfinal != nullptr ? to_float(dfinal[bh * PN + e]) : 0.f;
+  allow_next_grid();  // (c)'s CTAs need whole SMs: they start as these end
+  wait_prior_grid();
   for (int c1 = nc - 1; c1 >= 0; c1 -= U) {  // chunks c1, c1 - 1, ...
     float dprev[U], pv[U], E[U], dot[U];
 #pragma unroll
@@ -579,359 +1040,256 @@ __global__ void __launch_bounds__(kThreads) state_backward_kernel(
   if (in) store_as(&dinit[bh * PN + e], g);
 }
 
-// (c) chunk_local: grid (chunks, H, b)
+// (c) ssd_bwd_local: the grid and clusters of (a)
 template <typename T>
-__global__ void __launch_bounds__(kThreads) chunk_local_kernel(
-    const T* __restrict__ x, const T* __restrict__ dt,
-    const T* __restrict__ Bm, const float* __restrict__ cs_g,
-    const float* __restrict__ ds_g, const float* __restrict__ dot_g,
-    float* __restrict__ dxd_g, float* __restrict__ dbp_g,
-    float* __restrict__ dcs_g, int nblk, int l, int H, int P, int N,
-    int ck) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  constexpr int kSplit = sizeof(T) == 4 ? 3 : 1;
-  const Dims d = make_dims(ck, N, P);
-  const LocalLayout L = local_layout(d);
-  float* G_s = reinterpret_cast<float*>(smem + L.g);
-  float* B_s = reinterpret_cast<float*>(smem + L.b);
-  float* xd_s = reinterpret_cast<float*>(smem + L.xd);
-  float* part = reinterpret_cast<float*>(smem + L.part);
-  float* w_s = reinterpret_cast<float*>(smem + L.w);
-  float* wdw = reinterpret_cast<float*>(smem + L.wdw);
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int nc = gridDim.x, tid = threadIdx.x, warp = tid / 32;
-  const size_t t0 = (size_t)b * l + (size_t)c * ck;
-  const size_t bh = (size_t)b * H + h;
-  const float* cs = cs_g + bh * l + (size_t)c * ck;
-  const float last = cs[ck - 1];
-
-  // w_s: dt here, then w = exp(cs_last - cs) once xd is formed
-  for (int i = tid; i < d.ckp; i += kThreads)
-    w_s[i] = i < ck ? to_float(dt[(t0 + i) * H + h]) : 0.f;
-  __syncthreads();
-  load_rows(G_s, d.ldn, ds_g + (((size_t)b * nc + c) * H + h) * P * N, N, P,
-            N, d.pp, d.np);
-  load_rows(B_s, d.ldn, Bm + t0 * N, N, ck, N, d.ckp, d.np);
-  load_rows(xd_s, d.ldp, x + t0 * H * P + (size_t)h * P, (size_t)H * P, ck,
-            P, d.ckp, d.pp, w_s);  // x dt
-  __syncthreads();
-  for (int i = tid; i < d.ckp; i += kThreads)
-    w_s[i] = i < ck ? expf(last - cs[i]) : 0.f;
-  __syncthreads();
-
-  // dS_c B_j (ck x P): dxd_j = w_j (dS_c B_j), and xd_j . (dS_c B_j)
-  const int npb = d.pp / kTile, nnb = d.np / kTile;
-  for (int t = warp; t < (d.ckp / kTile) * npb; t += kWarps) {
-    const int j0 = kTile * (t / npb), pb = t % npb, p0 = kTile * pb;
-    Acc acc, v;
-    zero(acc);
-    warp_tile<true, true, kSplit>(acc, B_s + (size_t)j0 * d.ldn, d.ldn,
-                                  G_s + (size_t)p0 * d.ldn, d.ldn, d.np);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          v[mt][nt][e] = acc[mt][nt][e] *
-                         xd_s[(size_t)(j0 + acc_row(mt, e)) * d.ldp + p0 +
-                              acc_col(nt, e)];
-    for_pairs(acc, [&](int r, int cc, float& v0, float& v1) {
-      const int j = j0 + r, p = p0 + cc;
-      if (j < ck)
-        store_pair(dxd_g + ((t0 + j) * H + h) * P + p, p, P, w_s[j] * v0,
-                   w_s[j] * v1);
-    });
-    store_row_sums(v, part + pb * d.ckp + j0);
-  }
-  // dB_j = w_j xd_j^T dS_c (ck x N), the first share of dB's partials
-  for (int t = warp; t < (d.ckp / kTile) * nnb; t += kWarps) {
-    const int j0 = kTile * (t / nnb), n0 = kTile * (t % nnb);
-    Acc acc;
-    zero(acc);
-    warp_tile<true, false, kSplit>(acc, xd_s + (size_t)j0 * d.ldp, d.ldp,
-                                   G_s + n0, d.ldn, d.pp);
-    for_pairs(acc, [&](int r, int cc, float& v0, float& v1) {
-      const int j = j0 + r, n = n0 + cc;
-      if (j < ck)
-        store_pair(dbp_g + ((t0 + j) * H + h) * N + n, n, N, w_s[j] * v0,
-                   w_s[j] * v1);
-    });
-  }
-  __syncthreads();
-  float* dcs = dcs_g + bh * l + (size_t)c * ck;
-  for (int j = tid; j < ck; j += kThreads) {
-    float s = 0.f;
-    for (int pb = 0; pb < npb; ++pb) s += part[pb * d.ckp + j];
-    wdw[j] = w_s[j] * s;
-    dcs[j] -= wdw[j];
-  }
-  __syncthreads();
-  if (tid == 0) {  // cs_last's share, in a fixed order
-    float s = 0.f;
-    for (int j = 0; j < ck; ++j) s += wdw[j];
-    float dot = 0.f;
-    for (int k = 0; k < nblk; ++k) dot += dot_g[(bh * nc + c) * nblk + k];
-    dcs[ck - 1] += s + expf(last) * dot;
-  }
-}
-
-// (d) chunk_diag: grid (chunks, H, b)
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1) chunk_diag_kernel(
+__global__ void __launch_bounds__(kThreads, 1) ssd_bwd_local_kernel(
     const T* __restrict__ x, const T* __restrict__ dt,
     const T* __restrict__ A, const T* __restrict__ Bm,
-    const T* __restrict__ Cm, const T* __restrict__ dy,
-    const float* __restrict__ cs_g, const float* __restrict__ dxd_g,
-    const float* __restrict__ dcs_g, float* __restrict__ dbp_g,
-    float* __restrict__ dcp_g, float* __restrict__ da_g, T* __restrict__ dx,
-    T* __restrict__ ddt, int l, int H, int P, int N, int ck) {
+    const float* __restrict__ cs_g, const float* __restrict__ ds_g,
+    const float* __restrict__ dot_g, const float* __restrict__ dxd_g,
+    const float* __restrict__ dcs_g, float* __restrict__ dbd_g,
+    float* __restrict__ dap_g, T* __restrict__ dB, T* __restrict__ dx,
+    T* __restrict__ ddt, int nblk, int l, int H, int P, int N, int ck,
+    int g) {
   extern __shared__ __align__(16) uint8_t smem[];
   constexpr int kSplit = sizeof(T) == 4 ? 3 : 1;
+  constexpr int es = sizeof(T);
+  cg::cluster_group cluster = cg::this_cluster();
   const Dims d = make_dims(ck, N, P);
-  const DiagLayout L = diag_layout(d);
-  float* C_s = reinterpret_cast<float*>(smem + L.c);
-  float* BP_s = reinterpret_cast<float*>(smem + L.bp);
-  float* dy_s = reinterpret_cast<float*>(smem + L.dy);
-  float* xd_s = reinterpret_cast<float*>(smem + L.xd);
-  float* cs_s = reinterpret_cast<float*>(smem + L.cs);
-  float* dt_s = reinterpret_cast<float*>(smem + L.dt);
-  float* row_q = reinterpret_cast<float*>(smem + L.row_q);
-  float* col_q = reinterpret_cast<float*>(smem + L.col_q);
-  float* ddt_p = reinterpret_cast<float*>(smem + L.ddt);
-  float* dcs_s = reinterpret_cast<float*>(smem + L.dcs);
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32;
+  const LocalLayout L = local_layout(d, es, g);
+  const int q = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int nc = gridDim.y, ncl = gridDim.x / (int)cluster.num_blocks();
+  const int k_cl = q / (int)cluster.num_blocks();
+  const int h0 = q * g, nh = max(0, min(g, H - h0));
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const size_t t0 = (size_t)b * l + (size_t)c * ck;
-  const size_t bh = (size_t)b * H + h;
-  const int S = d.ckp / kTile, ntri = S * (S + 1) / 2;
   const int npb = d.pp / kTile, nnb = d.np / kTile;
-
-  for (int i = tid; i < d.ckp; i += kThreads) {
-    const bool in = i < ck;
-    cs_s[i] = in ? cs_g[bh * l + (size_t)c * ck + i] : 0.f;
-    dt_s[i] = in ? to_float(dt[(t0 + i) * H + h]) : 0.f;
-  }
-  // the row and column sums of blocks above the diagonal stay 0
-  for (int e = tid; e < S * d.ckp; e += kThreads) row_q[e] = col_q[e] = 0.f;
-  __syncthreads();
-  load_rows(C_s, d.ldn, Cm + t0 * N, N, ck, N, d.ckp, d.np);
-  load_rows(BP_s, d.ldn, Bm + t0 * N, N, ck, N, d.ckp, d.np);
-  load_rows(dy_s, d.ldp, dy + t0 * H * P + (size_t)h * P, (size_t)H * P, ck,
-            P, d.ckp, d.pp);
-  load_rows(xd_s, d.ldp, x + t0 * H * P + (size_t)h * P, (size_t)H * P, ck,
-            P, d.ckp, d.pp, dt_s);  // x dt
-  __syncthreads();
-
-  // L_ij = exp(cs_i - cs_j) for j <= i < ck, else 0
-  auto decay = [&](int i, int j) {
-    return (j > i || i >= ck) ? 0.f : expf(cs_s[i] - cs_s[j]);
+  const int ldn = row_ld(d.np, es), ldp = row_ld(d.pp, es);
+  const int lds = row_ld(d.np, 4);
+  const T* B_s = reinterpret_cast<const T*>(smem);
+  float* dt_s = reinterpret_cast<float*>(smem + L.dt);
+  float* w_s = reinterpret_cast<float*>(smem + L.w);
+  float* dcs_s = reinterpret_cast<float*>(smem + L.dcs);
+  float* head_s = reinterpret_cast<float*>(smem + L.head);
+  float* wdw_s = reinterpret_cast<float*>(smem + L.wdw);
+  float* ddt_s = reinterpret_cast<float*>(smem + L.ddt);
+  float* wd_part = reinterpret_cast<float*>(smem + L.wd_part);
+  float* dd_part = reinterpret_cast<float*>(smem + L.dd_part);
+  const size_t ds_bytes = tile_bytes(d.pp, d.np, 4);
+  auto stage = [&](int s) { return smem + L.st + s * L.stage; };
+  auto load_dS = [&](int u) {  // float32
+    load_tile(reinterpret_cast<float*>(stage(u & 1)),
+              ds_g + (((size_t)b * nc + c) * H + h0 + u) * P * N, N, P, N,
+              d.pp, d.np);
+  };
+  auto load_x = [&](int u) {
+    load_tile(reinterpret_cast<T*>(stage(u & 1) + ds_bytes),
+              x + t0 * H * P + (size_t)(h0 + u) * P, (size_t)H * P, ck, P,
+              d.ckp, d.pp);
   };
 
-  // P = (C B^T) o L on the blocks on and below the diagonal, in registers,
-  // then in B's place (row stride ldg); a later product reads no block
-  // above the diagonal
-  Acc r[kMaxTriBlocks];
-#pragma unroll
-  for (int u = 0; u < kMaxTriBlocks; ++u) {
-    const int blk = warp + u * kWarps;
-    zero(r[u]);
-    if (blk < ntri) {
-      int I, J;
-      tri_block(blk, I, J);
-      warp_tile<true, true, kSplit>(
-          r[u], C_s + (size_t)kTile * I * d.ldn, d.ldn,
-          BP_s + (size_t)kTile * J * d.ldn, d.ldn, d.np);
+  // B, the first head's x and per head dt and w (the call's inputs), then,
+  // once the kernels before have finished, the first head's dS, (a)'s dcs,
+  // and E <dS, prev> summed over the state passing's CTAs (one warp a
+  // head, in a fixed order) and A
+  load_tile(const_cast<T*>(B_s), Bm + t0 * N, N, ck, N, d.ckp, d.np);
+  if (nh > 0) load_x(0);
+  for (int e = tid; e < g * d.ckp; e += kThreads) {
+    const int u = e / d.ckp, i = e % d.ckp;
+    const bool in = u < nh && i < ck;
+    const size_t at = ((size_t)b * H + h0 + u) * l + (size_t)c * ck;
+    dt_s[e] = in ? to_float(dt[(t0 + i) * H + h0 + u]) : 0.f;
+    w_s[e] = in ? expf(cs_g[at + ck - 1] - cs_g[at + i]) : 0.f;
+  }
+  wait_prior_grid();
+  if (nh > 0) load_dS(0);
+  cp_async_commit();
+  for (int e = tid; e < g * d.ckp; e += kThreads) {
+    const int u = e / d.ckp, i = e % d.ckp;
+    const size_t at = ((size_t)b * H + h0 + u) * l + (size_t)c * ck;
+    dcs_s[e] = u < nh && i < ck ? dcs_g[at + i] : 0.f;
+  }
+  for (int u = warp; u < nh; u += kWarps) {
+    const size_t bh = (size_t)b * H + h0 + u;
+    float dot = 0.f;
+    for (int k = lane; k < nblk; k += 32)
+      dot += dot_g[(bh * nc + c) * nblk + k];
+    dot = warp_sum(dot);
+    if (lane == 0) {
+      head_s[2 * u] = expf(cs_g[bh * l + (size_t)c * ck + ck - 1]) * dot;
+      head_s[2 * u + 1] = to_float(A[h0 + u]);
     }
   }
-  __syncthreads();  // B is consumed
+
+  // pass 3, head by head: dS B^T gives dxd (with (a)'s share), dx and ddt's
+  // sum over p; x . (dS B) gives wdw; w dt x^T dS is summed over the heads
+  // in dbl (dB's local share)
+  Acc dbl[kMaxRowTiles];
 #pragma unroll
-  for (int u = 0; u < kMaxTriBlocks; ++u) {
-    const int blk = warp + u * kWarps;
-    if (blk < ntri) {
-      int I, J;
-      tri_block(blk, I, J);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int i = kTile * I + acc_row(mt, e);
-            const int j = kTile * J + acc_col(nt, e);
-            BP_s[(size_t)i * d.ldg + j] = r[u][mt][nt][e] * decay(i, j);
-          }
+  for (int u = 0; u < kMaxRowTiles; ++u) zero(dbl[u]);
+  const int nrt = d.S * nnb;
+  for (int u = 0; u < nh; ++u) {
+    if (u + 1 < nh) {
+      load_dS(u + 1);
+      load_x(u + 1);
     }
-  }
-  __syncthreads();
-
-  // dxd = (c)'s share + P^T dy (rows j, k = i from j's block on): dx, and
-  // dxd . x's partial a column block
-  for (int t = warp; t < S * npb; t += kWarps) {
-    const int j0 = kTile * (t / npb), pb = t % npb, p0 = kTile * pb;
-    Acc acc, xv;
-    for_pairs(acc, [&](int r, int cc, float& v0, float& v1) {
-      const int j = j0 + r, p = p0 + cc;
-      const float2 o = j < ck ? load_pair(dxd_g + ((t0 + j) * H + h) * P + p,
-                                          p, P)
-                              : make_float2(0.f, 0.f);
-      v0 = o.x;
-      v1 = o.y;
-    });
-    for_pairs(xv, [&](int r, int cc, float& v0, float& v1) {
-      const int j = j0 + r, p = p0 + cc;
-      const float2 o = j < ck ? load_pair(x + ((t0 + j) * H + h) * P + p, p,
-                                          P)
-                              : make_float2(0.f, 0.f);
-      v0 = o.x;
-      v1 = o.y;
-    });
-    warp_tile<false, false, kSplit>(
-        acc, BP_s + (size_t)j0 * d.ldg + j0, d.ldg,
-        dy_s + (size_t)j0 * d.ldp + p0, d.ldp, d.ckp - j0);
-    for_pairs(acc, [&](int r, int cc, float& v0, float& v1) {
-      const int j = j0 + r, p = p0 + cc;
-      if (j < ck)
-        store_pair(dx + ((t0 + j) * H + h) * P + p, p, P, v0 * dt_s[j],
-                   v1 * dt_s[j]);
-    });
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) xv[mt][nt][e] *= acc[mt][nt][e];
-    store_row_sums(xv, ddt_p + pb * d.ckp + j0);
-  }
-
-  // dy xd^T on the same blocks: P o dy xd^T's row and column sums, and
-  // M = (dy xd^T) o L in P's registers
-#pragma unroll
-  for (int u = 0; u < kMaxTriBlocks; ++u) {
-    const int blk = warp + u * kWarps;
-    if (blk < ntri) {  // the same blk for the whole warp
-      int I, J;
-      tri_block(blk, I, J);
-      Acc acc;
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int h = h0 + u;
+    const float* dS_s = reinterpret_cast<const float*>(stage(u & 1));
+    const T* x_s = reinterpret_cast<const T*>(stage(u & 1) + ds_bytes);
+    const float* w = w_s + u * d.ckp;
+    const float* dtu = dt_s + u * d.ckp;
+    for (int t = warp; t < d.S * npb; t += kWarps) {
+      const int j0 = kTile * (t / npb), pb = t % npb, p0 = kTile * pb;
+      Acc old, acc;
+      for_pairs<false>(old, [&](int rr, int cc, float& v0, float& v1) {
+        const int j = j0 + rr, p = p0 + cc;
+        const float2 o = j < ck ? load_pair(dxd_g + ((t0 + j) * H + h) * P + p,
+                                            p, P)
+                                : make_float2(0.f, 0.f);
+        v0 = o.x;
+        v1 = o.y;
+      });
       zero(acc);
-      warp_tile<true, true, kSplit>(
-          acc, dy_s + (size_t)kTile * I * d.ldp, d.ldp,
-          xd_s + (size_t)kTile * J * d.ldp, d.ldp, d.pp);
+      warp_mma<kSplit, true, true>(acc, B_s + (size_t)j0 * ldn, ldn,
+                                   dS_s + (size_t)p0 * lds, lds, d.np);
+      // old: dxd . x; acc: x . (dS B)
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int i = kTile * I + acc_row(mt, e);
-            const int j = kTile * J + acc_col(nt, e);
-            r[u][mt][nt][e] = acc[mt][nt][e] * decay(i, j);
-            acc[mt][nt][e] *= BP_s[(size_t)i * d.ldg + j];
+            const int j = j0 + acc_row(mt, e);
+            const int p = p0 + acc_col<false>(nt, e);
+            const float xv = to_float(x_s[(size_t)j * ldp + p]);
+            const float dxd = old[mt][nt][e] + w[j] * acc[mt][nt][e];
+            old[mt][nt][e] = dxd;
+            acc[mt][nt][e] *= xv;
           }
-      store_row_sums(acc, row_q + J * d.ckp + kTile * I);
-      store_col_sums(acc, col_q + I * d.ckp + kTile * J);
+      for_pairs<false>(old, [&](int rr, int cc, float& v0, float& v1) {
+        const int j = j0 + rr, p = p0 + cc;
+        if (j < ck)
+          store_pair(dx + ((t0 + j) * H + h) * P + p, p, P, v0 * dtu[j],
+                     v1 * dtu[j]);
+      });
+      for_each<false>(old, [&](int j, int p, float& v) {
+        v *= to_float(x_s[(size_t)(j0 + j) * ldp + p0 + p]);
+      });
+      store_row_sums(old, dd_part + pb * d.ckp + j0);
+      store_row_sums(acc, wd_part + pb * d.ckp + j0);
+    }
+    // dB_j += w_j dt_j x_j^T dS (ck x N)
+#pragma unroll
+    for (int v = 0; v < kMaxRowTiles; ++v) {
+      const int t = warp + v * kWarps;
+      if (t < nrt) {
+        const int j0 = kTile * (t / nnb), n0 = kTile * (t % nnb);
+        warp_mma<kSplit, true, false>(
+            dbl[v], x_s + (size_t)j0 * ldp, ldp, dS_s + n0, lds, d.pp,
+            [&](int m, int, float v) {
+              return v * w[j0 + m] * dtu[j0 + m];
+            });
+      }
+    }
+    __syncthreads();
+    for (int j = tid; j < d.ckp; j += kThreads) {
+      float s = 0.f, t = 0.f;
+      for (int pb = 0; pb < npb; ++pb) {
+        s += wd_part[pb * d.ckp + j];
+        t += dd_part[pb * d.ckp + j];
+      }
+      wdw_s[u * d.ckp + j] = w[j] * dtu[j] * s;
+      ddt_s[u * d.ckp + j] = t;
     }
   }
-  __syncthreads();  // P is consumed
-#pragma unroll
-  for (int u = 0; u < kMaxTriBlocks; ++u) {
-    const int blk = warp + u * kWarps;
-    if (blk < ntri) {
-      int I, J;
-      tri_block(blk, I, J);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            BP_s[(size_t)(kTile * I + acc_row(mt, e)) * d.ldg + kTile * J +
-                 acc_col(nt, e)] = r[u][mt][nt][e];
-    }
-  }
+  cp_async_wait<0>();  // B's copy, where no head ran
   __syncthreads();
 
-  // dB += M^T C (rows j, k = i from j's block on)
-  for (int t = warp; t < S * nnb; t += kWarps) {
-    const int j0 = kTile * (t / nnb), n0 = kTile * (t % nnb);
-    Acc acc;
-    zero(acc);
-    warp_tile<false, false, kSplit>(
-        acc, BP_s + (size_t)j0 * d.ldg + j0, d.ldg,
-        C_s + (size_t)j0 * d.ldn + n0, d.ldn, d.ckp - j0);
-    for_pairs(acc, [&](int r, int cc, float& v0, float& v1) {
-      const int j = j0 + r, n = n0 + cc;
-      if (j < ck) add_pair(dbp_g + ((t0 + j) * H + h) * N + n, n, N, v0, v1);
-    });
-  }
-  __syncthreads();  // C is consumed: B again in its place
-  load_rows(C_s, d.ldn, Bm + t0 * N, N, ck, N, d.ckp, d.np);
-  __syncthreads();
-  // dC += M B (rows i, k = j up to the end of i's block)
-  for (int t = warp; t < S * nnb; t += kWarps) {
-    const int i0 = kTile * (t / nnb), n0 = kTile * (t % nnb);
-    Acc acc;
-    zero(acc);
-    warp_tile<true, false, kSplit>(acc, BP_s + (size_t)i0 * d.ldg, d.ldg,
-                                   C_s + n0, d.ldn, i0 + kTile);
-    for_pairs(acc, [&](int r, int cc, float& v0, float& v1) {
-      const int i = i0 + r, n = n0 + cc;
-      if (i < ck) add_pair(dcp_g + ((t0 + i) * H + h) * N + n, n, N, v0, v1);
-    });
+  // pass 5, one warp a head: dcs (with (a)'s share, wdw and cs_last's),
+  // its reverse cumulative sum d(dt A), ddt, and dA's share of the chunk
+  for (int u = warp; u < nh; u += kWarps) {
+    const int h = h0 + u;
+    const float* wdw = wdw_s + u * d.ckp;
+    float tw = 0.f;
+    for (int i = lane; i < ck; i += 32) tw += wdw[i];
+    tw = warp_sum(tw);
+    const float dlast = tw + head_s[2 * u];
+    const float a_h = head_s[2 * u + 1];
+    float carry = 0.f, da_sum = 0.f;
+    for (int base = (ck - 1) / 32 * 32; base >= 0; base -= 32) {
+      const int i = base + lane;
+      float s = 0.f;
+      if (i < ck) {
+        s = dcs_s[u * d.ckp + i] - wdw[i];
+        if (i == ck - 1) s += dlast;
+      }
+      // suffix sum within the 32 positions, then the later blocks' total
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float y = __shfl_down_sync(0xffffffffu, s, o);
+        if (lane + o < 32) s += y;
+      }
+      s += carry;
+      carry = __shfl_sync(0xffffffffu, s, 0);
+      if (i < ck) {
+        store_as(&ddt[(t0 + i) * H + h], ddt_s[u * d.ckp + i] + a_h * s);
+        da_sum += dt_s[u * d.ckp + i] * s;
+      }
+    }
+    da_sum = warp_sum(da_sum);
+    if (lane == 0) dap_g[((size_t)b * nc + c) * H + h] = da_sum;
   }
 
-  // dcs, its reverse cumulative sum d(dt A), ddt and the chunk's dA
-  for (int i = tid; i < ck; i += kThreads) {
-    float s = dcs_g[bh * l + (size_t)c * ck + i];
-    for (int jb = 0; jb < S; ++jb) s += row_q[jb * d.ckp + i];
-    for (int ib = 0; ib < S; ++ib) s -= col_q[ib * d.ckp + i];
-    dcs_s[i] = s;
+  allow_next_grid();
+  // dB = the cluster's sum of the local shares plus (a)'s: written, or its
+  // cluster partial in place of (a)'s
+  float* stg = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int u = 0; u < kMaxRowTiles; ++u) {
+    const int t = warp + u * kWarps;
+    if (t < nrt)
+      stage_tile<true>(dbl[u], stg, lds, kTile * (t / nnb),
+                       kTile * (t % nnb));
   }
-  __syncthreads();
-  if (tid == 0) {
-    float acc = 0.f;
-    for (int i = ck - 1; i >= 0; --i) {
-      acc += dcs_s[i];
-      dcs_s[i] = acc;
-    }
-  }
-  __syncthreads();
-  const float a_h = to_float(A[h]);
-  for (int i = tid; i < ck; i += kThreads) {
-    float s = 0.f;
-    for (int pb = 0; pb < npb; ++pb) s += ddt_p[pb * d.ckp + i];
-    store_as(&ddt[(t0 + i) * H + h], s + a_h * dcs_s[i]);
-  }
-  if (tid == 0) {
-    float s = 0.f;
-    for (int i = 0; i < ck; ++i) s += dt_s[i] * dcs_s[i];
-    da_g[((size_t)b * gridDim.x + c) * H + h] = s;
-  }
+  cluster_sum(cluster, stg, lds, ck, N, [&](int i, int n, float s) {
+    float* at = dbd_g + ((t0 + i) * ncl + k_cl) * N + n;
+    const float v = s + *at;
+    if (ncl == 1)
+      store_as(&dB[(t0 + i) * N + n], v);
+    else
+      *at = v;
+  });
 }
 
-// (e) reduce_heads: dB, dC (b, l, N) over the H heads' partials, dA (H,)
-// over the (b, chunks) partials; one thread an output element
+// (d) ssd_bwd_sum: dA (H,) over the (b, chunks) partials and, with
+// `clusters` > 1, dB and dC (b, l, N) over the clusters' partials; one
+// thread an output element
 template <typename T>
-__global__ void __launch_bounds__(kThreads) reduce_heads_kernel(
-    const float* __restrict__ dbp, const float* __restrict__ dcp,
+__global__ void __launch_bounds__(kThreads) ssd_bwd_sum_kernel(
+    const float* __restrict__ dbd, const float* __restrict__ dcp,
     const float* __restrict__ dap, T* __restrict__ dB, T* __restrict__ dC,
-    T* __restrict__ dA, size_t rows, int H, int N, int bc) {
+    T* __restrict__ dA, size_t rows, int clusters, int H, int N, int bc) {
   const size_t idx = (size_t)blockIdx.x * kThreads + threadIdx.x;
-  const size_t per = rows * N;
-  if (idx < 2 * per) {
-    const bool is_c = idx >= per;
-    const size_t e = is_c ? idx - per : idx;
-    const size_t row = e / N, n = e % N;
-    const float* src = (is_c ? dcp : dbp) + row * H * N + n;
+  wait_prior_grid();
+  if (idx < (size_t)H) {
     float s = 0.f;
-    for (int h = 0; h < H; ++h) s += src[(size_t)h * N];
-    store_as(&(is_c ? dC : dB)[e], s);
-  } else if (idx < 2 * per + H) {
-    const int h = (int)(idx - 2 * per);
-    float s = 0.f;
-    for (int k = 0; k < bc; ++k) s += dap[(size_t)k * H + h];
-    store_as(&dA[h], s);
+    for (int k = 0; k < bc; ++k) s += dap[(size_t)k * H + idx];
+    store_as(&dA[idx], s);
+    return;
   }
+  if (clusters == 1) return;
+  const size_t per = rows * N, e0 = idx - H;
+  if (e0 >= 2 * per) return;
+  const bool is_c = e0 >= per;
+  const size_t e = is_c ? e0 - per : e0;
+  const size_t row = e / N, n = e % N;
+  const float* src = (is_c ? dcp : dbd) + row * clusters * N + n;
+  float s = 0.f;
+  for (int k = 0; k < clusters; ++k) s += src[(size_t)k * N];
+  store_as(&(is_c ? dC : dB)[e], s);
 }
 
 template <typename K>
@@ -944,56 +1302,132 @@ cudaError_t raise_smem(K kernel, size_t bytes) {
 struct Args {
   const void *x, *dt, *A, *Bm, *Cm, *dy, *dfinal, *cs, *prev;
   void *dx, *ddt, *dA, *dB, *dC, *dinit;
-  float *ds, *dcp, *dbp, *dxd, *dcs, *dot, *dap;
-  int b, l, H, P, N, ck;
+  float *ds, *dxd, *dcs, *dot, *dap, *dbd, *dcp;
+  int b, l, H, P, N, ck, group, cluster, clusters;
 };
+
+// Launch `kernel` on `grid` of kThreads-thread CTAs: in clusters of
+// `cluster` CTAs along x where cluster > 0, and as a programmatic dependent
+// of the kernel before it in the stream where `after` (see
+// wait_prior_grid).
+template <typename K, typename... Xs>
+cudaError_t launch_ex(K kernel, dim3 grid, int cluster, bool after,
+                      size_t smem, cudaStream_t stream, Xs... xs) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[2];
+  int n = 0;
+  if (cluster > 0) {
+    attr[n].id = cudaLaunchAttributeClusterDimension;
+    attr[n].val.clusterDim.x = cluster;
+    attr[n].val.clusterDim.y = 1;
+    attr[n].val.clusterDim.z = 1;
+    ++n;
+  }
+  if (after) {
+    attr[n].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[n].val.programmaticStreamSerializationAllowed = 1;
+    ++n;
+  }
+  cfg.attrs = attr;
+  cfg.numAttrs = n;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, xs...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
 
 template <typename T>
 int launch(const Args& a, cudaStream_t stream) {
   if (a.b <= 0 || a.l <= 0 || a.H <= 0 || a.P <= 0 || a.N <= 0 ||
-      a.N > kMaxN || a.ck <= 0 || a.ck > kMaxCk || a.l % a.ck != 0)
+      a.N > kMaxN || a.ck <= 0 || a.ck > kMaxCk || a.l % a.ck != 0 ||
+      a.group < 1 || a.group > kMaxGroup || a.cluster < 1 ||
+      a.cluster > kMaxCluster || a.clusters < 1 ||
+      (long)a.clusters * a.cluster * a.group < a.H ||
+      (a.clusters > 1 && a.dcp == nullptr))
     return (int)cudaErrorInvalidValue;
   const int nc = a.l / a.ck;
   const Dims d = make_dims(a.ck, a.N, a.P);
-  const size_t s_a = dstate_layout(d).total, s_c = local_layout(d).total,
-               s_d = diag_layout(d).total;
+  const size_t s_a = chunk_layout(d, sizeof(T), a.group).total;
+  const size_t s_c = local_layout(d, sizeof(T), a.group).total;
   cudaError_t err;
-  if ((err = raise_smem(chunk_dstate_kernel<T>, s_a)) ||
-      (err = raise_smem(chunk_local_kernel<T>, s_c)) ||
-      (err = raise_smem(chunk_diag_kernel<T>, s_d)))
+  if ((err = raise_smem(ssd_bwd_chunk_kernel<T>, s_a)) ||
+      (err = raise_smem(ssd_bwd_local_kernel<T>, s_c)))
     return (int)err;
-  const dim3 grid(nc, a.H, a.b);
+  const dim3 grid(a.clusters * a.cluster, nc, a.b);
   const T* x = static_cast<const T*>(a.x);
   const T* dt = static_cast<const T*>(a.dt);
   const T* Bm = static_cast<const T*>(a.Bm);
-  const T* Cm = static_cast<const T*>(a.Cm);
-  const T* dy = static_cast<const T*>(a.dy);
   const T* prev = static_cast<const T*>(a.prev);
   const float* cs = static_cast<const float*>(a.cs);
-  chunk_dstate_kernel<T><<<grid, kThreads, s_a, stream>>>(
-      Cm, dy, prev, cs, a.ds, a.dcp, a.dcs, a.l, a.H, a.P, a.N, a.ck);
-  if ((err = cudaGetLastError())) return (int)err;
+  err = launch_ex(ssd_bwd_chunk_kernel<T>, grid, a.cluster, false, s_a, stream,
+                  x, dt, Bm, static_cast<const T*>(a.Cm),
+                  static_cast<const T*>(a.dy), prev, cs, a.ds, a.dxd, a.dcs,
+                  a.dbd, a.dcp, static_cast<T*>(a.dC), a.l, a.H, a.P, a.N,
+                  a.ck, a.group);
+  if (err) return (int)err;
   const int nblk = dot_partials(a.P, a.N);
-  state_backward_kernel<T><<<dim3(nblk, a.H, a.b), kThreads, 0, stream>>>(
-      static_cast<const T*>(a.dfinal), prev, cs, a.ds, a.dot,
-      static_cast<T*>(a.dinit), nc, a.l, a.H, a.P, a.N, a.ck);
-  if ((err = cudaGetLastError())) return (int)err;
-  chunk_local_kernel<T><<<grid, kThreads, s_c, stream>>>(
-      x, dt, Bm, cs, a.ds, a.dot, a.dxd, a.dbp, a.dcs, nblk, a.l, a.H, a.P,
-      a.N, a.ck);
-  if ((err = cudaGetLastError())) return (int)err;
-  chunk_diag_kernel<T><<<grid, kThreads, s_d, stream>>>(
-      x, dt, static_cast<const T*>(a.A), Bm, Cm, dy, cs, a.dxd, a.dcs, a.dbp,
-      a.dcp, a.dap, static_cast<T*>(a.dx), static_cast<T*>(a.ddt), a.l, a.H,
-      a.P, a.N, a.ck);
-  if ((err = cudaGetLastError())) return (int)err;
+  err = launch_ex(state_backward_kernel<T>, dim3(nblk, a.H, a.b), 0, true, 0,
+                  stream, static_cast<const T*>(a.dfinal), prev, cs, a.ds,
+                  a.dot, static_cast<T*>(a.dinit), nc, a.l, a.H, a.P, a.N,
+                  a.ck);
+  if (err) return (int)err;
+  err = launch_ex(ssd_bwd_local_kernel<T>, grid, a.cluster, true, s_c, stream,
+                       x, dt, static_cast<const T*>(a.A), Bm, cs,
+                       static_cast<const float*>(a.ds),
+                       static_cast<const float*>(a.dot),
+                       static_cast<const float*>(a.dxd),
+                       static_cast<const float*>(a.dcs), a.dbd, a.dap,
+                       static_cast<T*>(a.dB), static_cast<T*>(a.dx),
+                       static_cast<T*>(a.ddt), nblk, a.l, a.H, a.P, a.N, a.ck,
+                       a.group);
+  if (err) return (int)err;
   const size_t rows = (size_t)a.b * a.l;
-  const size_t total = 2 * rows * a.N + a.H;
-  reduce_heads_kernel<T>
-      <<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-          a.dbp, a.dcp, a.dap, static_cast<T*>(a.dB), static_cast<T*>(a.dC),
-          static_cast<T*>(a.dA), rows, a.H, a.N, a.b * nc);
-  return (int)cudaGetLastError();
+  const size_t total = a.H + (a.clusters > 1 ? 2 * rows * a.N : 0);
+  return (int)launch_ex(
+      ssd_bwd_sum_kernel<T>,
+      dim3((unsigned)((total + kThreads - 1) / kThreads)), 0, true, 0, stream,
+      static_cast<const float*>(a.dbd), static_cast<const float*>(a.dcp),
+      static_cast<const float*>(a.dap), static_cast<T*>(a.dB),
+      static_cast<T*>(a.dC), static_cast<T*>(a.dA), rows, a.clusters, a.H,
+      a.N, a.b * nc);
+}
+
+template <typename K>
+int active_clusters(K kernel, int cluster, size_t smem) {
+  cudaError_t err = raise_smem(kernel, smem);
+  if (err) return -(int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster * kMaxCluster, 1, 1);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  return err ? -(int)err : n;
+}
+
+template <typename T>
+int max_ctas(int cluster, int ck, int N, int P) {
+  if (cluster < 1 || cluster > kMaxCluster || ck <= 0 || ck > kMaxCk ||
+      N <= 0 || N > kMaxN || P <= 0)
+    return -(int)cudaErrorInvalidValue;
+  const Dims d = make_dims(ck, N, P);
+  const int a = active_clusters(ssd_bwd_chunk_kernel<T>, cluster,
+                                chunk_layout(d, sizeof(T), kMaxGroup).total);
+  const int c = active_clusters(ssd_bwd_local_kernel<T>, cluster,
+                                local_layout(d, sizeof(T), kMaxGroup).total);
+  if (a < 0) return a;
+  if (c < 0) return c;
+  return cluster * (a < c ? a : c);
 }
 
 }  // namespace
@@ -1004,60 +1438,55 @@ int launch(const Args& a, cudaStream_t stream) {
 // x, dy (b,l,H,P), dt (b,l,H), A (H,), B, C (b,l,N), dfinal (b,H,P,N) or
 // null for zeros; the forward's float32 cs (b,H,l) and prev (b,l/ck,H,P,N).
 // Outputs dx (b,l,H,P), ddt (b,l,H), dA (H,), dB, dC (b,l,N), dinit
-// (b,H,P,N). Float32 scratch: ds (b,l/ck,H,P,N), dcp and dbp (b,l,H,N),
-// dxd (b,l,H,P), dcs (b,H,l), dot (b,H,l/ck,D) with D from
-// ssd_scan_backward_dot_partials, and dap (b,l/ck,H). Five launches on
-// ``stream``. Returns a cudaError_t code (0 = launched).
+// (b,H,P,N). Float32 scratch: ds (b,l/ck,H,P,N), dxd (b,l,H,P), dcs
+// (b,H,l), dot (b,H,l/ck,D) with D from ssd_scan_backward_dot_partials, dap
+// (b,l/ck,H), dbd (b,l,clusters,N), and dcp (b,l,clusters,N) where
+// clusters > 1, else null. group, cluster, clusters: heads a CTA, CTAs a
+// cluster, clusters a (row, chunk) (kernels/ssd_scan.py::backward_plan).
+// Four launches on ``stream``. Returns a cudaError_t code (0 = launched).
 extern "C" int ssd_scan_backward(
     const void* x, const void* dt, const void* A, const void* Bm,
     const void* Cm, const void* dy, const void* dfinal, const void* cs,
     const void* prev, void* dx, void* ddt, void* dA, void* dB, void* dC,
-    void* dinit, void* ds, void* dcp, void* dbp, void* dxd, void* dcs,
-    void* dot, void* dap, int b, int l, int H, int P, int N, int ck,
-    int dtype, void* stream) {
+    void* dinit, void* ds, void* dxd, void* dcs, void* dot, void* dap,
+    void* dbd, void* dcp, int b, int l, int H, int P, int N, int ck,
+    int group, int cluster, int clusters, int dtype, void* stream) {
   using namespace repro_torch;
-  Args a{x,
-         dt,
-         A,
-         Bm,
-         Cm,
-         dy,
-         dfinal,
-         cs,
-         prev,
-         dx,
-         ddt,
-         dA,
-         dB,
-         dC,
-         dinit,
-         static_cast<float*>(ds),
-         static_cast<float*>(dcp),
-         static_cast<float*>(dbp),
-         static_cast<float*>(dxd),
-         static_cast<float*>(dcs),
-         static_cast<float*>(dot),
-         static_cast<float*>(dap),
-         b,
-         l,
-         H,
-         P,
-         N,
-         ck};
+  Args a{x,      dt,     A,        Bm,       Cm,
+         dy,     dfinal, cs,       prev,     dx,
+         ddt,    dA,     dB,       dC,       dinit,
+         static_cast<float*>(ds),  static_cast<float*>(dxd),
+         static_cast<float*>(dcs), static_cast<float*>(dot),
+         static_cast<float*>(dap), static_cast<float*>(dbd),
+         static_cast<float*>(dcp), b,        l,
+         H,      P,      N,        ck,       group,
+         cluster, clusters};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32) return launch<float>(a, s);
   if (dtype == kBFloat16) return launch<__nv_bfloat16>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// Shared memory bytes the largest of the three tiled kernels needs.
-extern "C" int ssd_scan_backward_smem_bytes(int ck, int N, int P) {
+// Shared memory bytes the larger of the two chunk kernels needs at g heads
+// a CTA.
+extern "C" int ssd_scan_backward_smem_bytes(int ck, int N, int P, int group,
+                                            int dtype) {
   using namespace repro_torch;
   const Dims d = make_dims(ck, N, P);
-  size_t m = dstate_layout(d).total;
-  if (local_layout(d).total > m) m = local_layout(d).total;
-  if (diag_layout(d).total > m) m = diag_layout(d).total;
-  return (int)m;
+  const int es = dtype == kBFloat16 ? 2 : 4;
+  return (int)max2(chunk_layout(d, es, group).total,
+                   local_layout(d, es, group).total);
+}
+
+// The CTAs of the two chunk kernels the card runs at once in clusters of
+// `cluster` (the smaller of the two, at the widest head group), or a
+// negative cudaError_t code.
+extern "C" int ssd_scan_backward_max_ctas(int cluster, int ck, int N, int P,
+                                          int dtype) {
+  using namespace repro_torch;
+  if (dtype == kFloat32) return max_ctas<float>(cluster, ck, N, P);
+  if (dtype == kBFloat16) return max_ctas<__nv_bfloat16>(cluster, ck, N, P);
+  return -(int)cudaErrorInvalidValue;
 }
 
 // The last axis of the dot scratch: state_backward's CTAs a (row, head).

@@ -8,9 +8,11 @@ passed across chunks, and each chunk's output (chunk-parallel). The source
 note in the ``.cu`` file says what bounds the kernel on the H100 and how it
 is split across CTAs. One call counts one launch.
 
-Its backward (``ssd_backward_cuda``, five launches, one count) has no
+Its backward (``ssd_backward_cuda``, four launches, one count) has no
 Pallas counterpart: ``repro`` differentiates ``ssd_reference`` with
-``jax.vjp``. ``SSDScan`` joins the two as one differentiable function.
+``jax.vjp``. ``backward_plan`` splits each (row, chunk)'s heads between
+its CTAs and clusters. ``SSDScan`` joins the two as one differentiable
+function.
 
 Plain versions: ``kernels/ref.py::ssd_reference`` and
 ``ssd_backward_reference``.
@@ -18,6 +20,7 @@ Plain versions: ``kernels/ref.py::ssd_reference`` and
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Optional, Tuple
 
@@ -27,6 +30,12 @@ from . import _build
 
 MAX_CHUNK = 128      # rows of a chunk (8 warps x 16 rows)
 MAX_STATE = 128      # state width N (the shared memory of a chunk of 128)
+MAX_GROUP = 8        # heads a CTA of the backward's chunk kernels loops over
+MAX_CLUSTER = 8      # CTAs a cluster (the portable limit)
+# A chunk CTA's time that does not grow with its heads (C B^T, M B, M^T C,
+# the cluster sums, the loads before the first head), in heads' time: 2.5
+# on the H100 (chip_smoke.py's partitions at 2, 4 and 8 heads; PERF.md)
+FIXED_HEADS = 2.5
 
 
 @functools.cache
@@ -46,11 +55,13 @@ def _lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("ssd_scan_backward")
     lib.ssd_scan_backward.argtypes = [ctypes.c_void_p] * 22 \
-        + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    lib.ssd_scan_backward_smem_bytes.argtypes = [ctypes.c_int] * 3
+        + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    lib.ssd_scan_backward_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.ssd_scan_backward_dot_partials.argtypes = [ctypes.c_int] * 2
+    lib.ssd_scan_backward_max_ctas.argtypes = [ctypes.c_int] * 5
     for fn in (lib.ssd_scan_backward, lib.ssd_scan_backward_smem_bytes,
-               lib.ssd_scan_backward_dot_partials):
+               lib.ssd_scan_backward_dot_partials,
+               lib.ssd_scan_backward_max_ctas):
         fn.restype = ctypes.c_int
     return lib
 
@@ -151,19 +162,94 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, fin
 
 
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+    """How the backward's two chunk kernels share out a (row, chunk)'s
+    heads. CTA x of a (row, chunk), x < clusters * cluster, is rank
+    x % cluster of cluster x // cluster and loops over heads
+    [x group, x group + group) (fewer in the last, none past h). A cluster
+    sums dB and dC over its ranks in rank order; with more than one
+    cluster, the last kernel sums their float32 partials in cluster
+    order."""
+    group: int        # heads a CTA
+    cluster: int      # CTAs a cluster
+    clusters: int     # clusters a (row, chunk): the dB/dC partials left
+    ctas: int         # CTAs of a chunk kernel's grid
+
+    @classmethod
+    def of(cls, pairs: int, h: int, group: int,
+           cluster: int) -> "BackwardPlan":
+        """The plan of ``group`` heads a CTA in clusters of ``cluster``
+        for ``pairs`` (row, chunk) pairs of ``h`` heads."""
+        groups = -(-h // group)
+        clusters = -(-groups // cluster)
+        return cls(group, cluster, clusters, pairs * clusters * cluster)
+
+    def heads(self, x: int, h: int) -> range:
+        """The heads CTA x of a (row, chunk) loops over, in order."""
+        return range(min(x * self.group, h), min(x * self.group + self.group,
+                                                 h))
+
+    def sum_order(self):
+        """(cluster, rank, CTA) in the order the sums of dB and dC run: the
+        ranks of a cluster in order, then the clusters in order."""
+        return [(k, r, k * self.cluster + r) for k in range(self.clusters)
+                for r in range(self.cluster)]
+
+
+def backward_plan(b: int, l: int, h: int, ck: int,
+                  capacity: dict) -> BackwardPlan:
+    """The partition of the backward's chunk kernels at these shapes.
+    ``capacity`` maps a cluster size (1 to ``MAX_CLUSTER``) to the CTAs the
+    card runs at once in clusters of that size (one CTA an SM: the kernels
+    hold ~227 KB of shared memory; on the H100 clusters of 4 or 8 reach
+    only 120 of its 132 SMs). Of every head group g up to ``MAX_GROUP``
+    and cluster size, the plan takes the one whose waves of CTAs, each
+    taking ``FIXED_HEADS`` + g heads' time, end first; then the fewest
+    clusters a (row, chunk) (partials left), the fewest CTAs without a
+    head, the widest group. The groups of a (row, chunk) form clusters of
+    equal size; the last CTAs hold no head where the sizes do not
+    divide."""
+    pairs = b * (l // ck)
+    best = None
+    for g in range(1, min(h, MAX_GROUP) + 1):
+        groups = -(-h // g)
+        for cluster in range(1, min(groups, MAX_CLUSTER) + 1):
+            if capacity.get(cluster, 0) <= 0:
+                continue
+            plan = BackwardPlan.of(pairs, h, g, cluster)
+            waves = -(-plan.ctas // capacity[cluster])
+            key = (waves * (FIXED_HEADS + g), plan.clusters,
+                   plan.clusters * cluster - groups, -g)
+            if best is None or key < best[0]:
+                best = (key, plan)
+    if best is None:
+        raise ValueError(f"ssd_backward: no cluster size fits the card "
+                         f"(capacity {capacity})")
+    return best[1]
+
+
 def backward_scratch(b: int, l: int, h: int, p: int, n: int, ck: int,
-                     dots: int) -> dict:
+                     dots: int, clusters: int) -> dict:
     """The float32 scratch of one backward call, name -> shape, in the
     order the C entry point takes it: dS (each chunk's dprev, then its
-    state gradient), the per-head partials of dC and dB, dxd (x dt's
-    gradient), d cs, the reverse state passing's per-CTA partials of
-    <dS_c, prev_c> (``dots`` a (row, head, chunk): the kernel's
-    ``ssd_scan_backward_dot_partials``) and dA's per (row, chunk)
-    partials. The partials are summed in a fixed order."""
+    state gradient), dxd (x dt's gradient, the diagonal share first), d cs,
+    the reverse state passing's per-CTA partials of <dS_c, prev_c>
+    (``dots`` a (row, head, chunk): the kernel's
+    ``ssd_scan_backward_dot_partials``), dA's per (row, chunk) partials,
+    dB's diagonal share a cluster (then its cluster partial), and, with
+    more than one cluster a (row, chunk), dC's cluster partials. The
+    partials are summed in a fixed order."""
     nc = l // ck
-    return {"ds": (b, nc, h, p, n), "dcp": (b, l, h, n), "dbp": (b, l, h, n),
-            "dxd": (b, l, h, p), "dcs": (b, h, l), "dot": (b, h, nc, dots),
-            "dap": (b, nc, h)}
+    plan = {"ds": (b, nc, h, p, n), "dxd": (b, l, h, p), "dcs": (b, h, l),
+            "dot": (b, h, nc, dots), "dap": (b, nc, h),
+            "dbd": (b, l, clusters, n)}
+    if clusters > 1:
+        plan["dcp"] = (b, l, clusters, n)
+    return plan
+
+
+SCRATCH = ("ds", "dxd", "dcs", "dot", "dap", "dbd", "dcp")
 
 
 def backward_work(b: int, l: int, h: int, p: int, n: int, ck: int, es: int,
@@ -175,13 +261,14 @@ def backward_work(b: int, l: int, h: int, p: int, n: int, ck: int, es: int,
     kernel's own scratch is not counted (``backward_partials_bytes``).
     Flops: per (row, head, chunk) dprev, dC's off-diagonal share, dS B and
     xd^T dS (ck p n each) and the lower triangles (ck (ck + 1) / 2 pairs)
-    of M B, M^T C (n each) and dy xd^T and P^T dy (p each); per (row,
-    chunk) the triangle of C B^T (n), once for all heads, as B and C are
-    one group; two flops a multiply-add."""
+    of dy xd^T and P^T dy (p each); per (row, chunk) the triangles of C B^T,
+    M B and M^T C (n each), once for all heads: B and C are one group, so
+    sum_h M_h^T C = (sum_h M_h)^T C and sum_h M_h B = (sum_h M_h) B; two
+    flops a multiply-add."""
     nc = l // ck
     tri = ck * (ck + 1) // 2
-    per_head = 4 * ck * p * n + tri * (2 * n + 2 * p)
-    flops = 2 * b * nc * (h * per_head + tri * n)
+    per_head = 4 * ck * p * n + tri * 2 * p
+    flops = 2 * b * nc * (h * per_head + 3 * tri * n)
     xs, ss = b * l * h * p, b * h * p * n
     inputs = es * (2 * xs + b * l * h + h + 2 * b * l * n
                    + (ss if dfinal else 0) + b * nc * h * p * n) \
@@ -190,11 +277,37 @@ def backward_work(b: int, l: int, h: int, p: int, n: int, ck: int, es: int,
     return inputs + grads, flops
 
 
-def backward_partials_bytes(b: int, l: int, h: int, n: int) -> int:
-    """The bytes the kernel's design adds to the function's own: the
-    float32 per-head partials of dB and dC, each written once and read
-    once. Reported beside the bound, not in it."""
-    return 2 * 2 * 4 * b * l * h * n
+def backward_partials_bytes(b: int, l: int, n: int, clusters: int) -> int:
+    """The bytes of dB and dC that the kernel's design adds to the
+    function's own, float32: dB's diagonal share a cluster, written by the
+    first chunk kernel and read by the second; with more than one cluster
+    a (row, chunk), also dC's cluster partials (written, read by the sum
+    kernel) and dB's (the share read and written back, then read).
+    Reported beside the bound, not in it."""
+    part = 4 * b * l * clusters * n
+    return 2 * part if clusters == 1 else 6 * part
+
+
+@functools.cache
+def _capacity(index: int, ck: int, n: int, p: int, code: int) -> dict:
+    """Cluster size -> the CTAs of the backward's chunk kernels that card
+    ``index`` runs at once (the occupancy API, through the library)."""
+    lib = _bwd_lib()
+    out = {}
+    with torch.cuda.device(index):
+        for cluster in range(1, MAX_CLUSTER + 1):
+            got = lib.ssd_scan_backward_max_ctas(cluster, ck, n, p, code)
+            if got < 0:
+                _build.check_launch(lib, "ssd_scan_backward", -got)
+            out[cluster] = got
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_of(index: int, b: int, l: int, h: int, ck: int, n: int, p: int,
+             code: int) -> BackwardPlan:
+    """``backward_plan`` on card ``index``'s capacity, once a shape."""
+    return backward_plan(b, l, h, ck, _capacity(index, ck, n, p, code))
 
 
 def ssd_backward_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -205,9 +318,20 @@ def ssd_backward_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """The scan's gradient on the card: the forward's inputs, the
     cotangents dy (b,l,h,p) and dfinal (b,h,p,n) or None for zeros, and
     the forward's cs and prev (``ssd_cuda(..., return_states=True)``) ->
-    (dx, ddt, dA, dB, dC, dinitial) in x's dtype. Five CUDA kernels, one
-    count; no atomics, so two calls are bitwise equal. Raises on anything
-    the kernel does not take; never computes on another path."""
+    (dx, ddt, dA, dB, dC, dinitial) in x's dtype. Four CUDA kernels, one
+    count, split as ``backward_plan`` says; no atomics, so two calls are
+    bitwise equal. Raises on anything the kernel does not take; never
+    computes on another path."""
+    return backward_with_plan(x, dt, A, B, C, dy, cs, prev, dfinal,
+                              chunk=chunk, plan=None)
+
+
+def backward_with_plan(x, dt, A, B, C, dy, cs, prev, dfinal=None, *,
+                       chunk: int = 128,
+                       plan: Optional[BackwardPlan] = None):
+    """``ssd_backward_cuda`` with its partition given (None: the
+    ``backward_plan`` of these shapes on this card), for timing partitions
+    against each other."""
     tensors = [x, dt, A, B, C, dy, prev] + ([] if dfinal is None
                                             else [dfinal])
     more = [("dy", dy, "x")] + ([] if dfinal is None
@@ -223,12 +347,15 @@ def ssd_backward_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"ssd_backward: prev has shape {tuple(prev.shape)},"
                          f" want {(b, nc, h, p, n)}")
     lib = _bwd_lib()
-    _check_smem("ssd_backward", lib.ssd_scan_backward_smem_bytes(ck, n, p),
-                dev, ck, n, p)
+    code_t = _build.DTYPE_CODES[x.dtype]
+    if plan is None:
+        plan = _plan_of(dev.index, b, l, h, ck, n, p, code_t)
+    _check_smem("ssd_backward", lib.ssd_scan_backward_smem_bytes(
+        ck, n, p, plan.group, code_t), dev, ck, n, p)
     dots = lib.ssd_scan_backward_dot_partials(p, n)
-    scratch = [torch.empty(shape, dtype=torch.float32, device=dev)
-               for shape in backward_scratch(b, l, h, p, n, ck,
-                                             dots).values()]
+    scratch = {name: torch.empty(shape, dtype=torch.float32, device=dev)
+               for name, shape in backward_scratch(
+                   b, l, h, p, n, ck, dots, plan.clusters).items()}
     dx, ddt, dA = torch.empty_like(x), torch.empty_like(dt), \
         torch.empty_like(A)
     dB, dC = torch.empty_like(B), torch.empty_like(C)
@@ -239,8 +366,8 @@ def ssd_backward_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         None if dfinal is None else dfinal.data_ptr(), cs.data_ptr(),
         prev.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
         dB.data_ptr(), dC.data_ptr(), dinit.data_ptr(),
-        *(t.data_ptr() for t in scratch),
-        b, l, h, p, n, ck, _build.DTYPE_CODES[x.dtype],
+        *(scratch[k].data_ptr() if k in scratch else None for k in SCRATCH),
+        b, l, h, p, n, ck, plan.group, plan.cluster, plan.clusters, code_t,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(lib, "ssd_scan_backward", code)
     ssd_backward_cuda.launches += 1

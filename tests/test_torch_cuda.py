@@ -1674,6 +1674,8 @@ SSD_BWD_CASES = [
     (2, 256, 32, 64, 128, 128, False),    # mamba2-370m's heads, two chunks
     (2, 384, 32, 64, 128, 128, True),     # a state and a final cotangent
     (1, 256, 256, 64, 128, 128, False),   # jamba: 256 heads of 64
+    (1, 128, 64, 32, 64, 128, True),      # 64 groups: cluster partials
+    (4, 1024, 36, 64, 128, 128, False),   # 36 heads: not a multiple of g
 ]
 
 
@@ -1700,6 +1702,31 @@ def test_ssd_backward_kernel_matches_plain(cuda_device, dtype, b, l, h, p, n,
     assert all(a.dtype == dtype and a.shape == w.shape
                for a, w in zip(got, want))
     assert all(bool(torch.isfinite(a).all()) for a in got)
+    bar = 5e-2 if dtype == torch.bfloat16 else 1e-4
+    assert max(_bwd_rel_errors(got, want)) <= bar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group,cluster", [(1, 1), (5, 2), (3, 4), (8, 1),
+                                           (2, 8)])
+def test_ssd_backward_kernel_takes_any_partition(cuda_device, dtype, group,
+                                                 cluster):
+    """Every head group and cluster size (``BackwardPlan.of``; 12 heads:
+    groups that do not divide them, CTAs without a head, one cluster or
+    several) gives the plain backward's gradients within the bars."""
+    from repro_torch.kernels.ssd_scan import BackwardPlan, backward_with_plan
+    b, l, h, p, n, chunk = 2, 256, 12, 32, 64, 64
+    args, init, dy, dfin = _ssd_bwd_inputs(cuda_device, dtype, b, l, h, p, n,
+                                           True, seed=group + 10 * cluster)
+    _, _, cs, prev = ssd_cuda(*args, chunk=chunk, initial_state=init,
+                              return_states=True)
+    plan = BackwardPlan.of(b * (l // chunk), h, group, cluster)
+    got = backward_with_plan(*args, dy, cs, prev, dfin, chunk=chunk,
+                             plan=plan)
+    want = ref.ssd_backward_reference(*args, dy, dfin, chunk=chunk,
+                                      initial_state=init)
+    torch.cuda.synchronize()
     bar = 5e-2 if dtype == torch.bfloat16 else 1e-4
     assert max(_bwd_rel_errors(got, want)) <= bar
 

@@ -134,43 +134,55 @@ def test_ops_ssd_differentiates_cpu_tensors_the_plain_way(monkeypatch):
 
 
 def test_backward_scratch_plan():
-    """The scratch of one call at mamba2-370m's training shape: float32
-    partials of dB and dC of 64 MiB each (4 x 1024 x 32 x 128), and as
-    many <dS, prev> partials a (row, head, chunk) as the kernel says it
-    has CTAs a (row, head) (32 of 256 threads at 64 x 128)."""
+    """The scratch of one call at mamba2-370m's training shape: no float32
+    per-head partials of dB or dC; dB's diagonal share and dC's partial
+    one a cluster of each (row, chunk) (two on the H100: 4 MiB each), dC's
+    only where there is more than one cluster; as many <dS, prev>
+    partials a (row, head, chunk) as the kernel says it has CTAs a (row,
+    head) (32 of 256 threads at 64 x 128)."""
     b, l, h, p, n, ck = 4, 1024, 32, 64, 128, 128
-    plan = backward_scratch(b, l, h, p, n, ck, 32)
-    assert list(plan) == ["ds", "dcp", "dbp", "dxd", "dcs", "dot", "dap"]
-    assert 4 * np.prod(plan["dbp"]) == 4 * np.prod(plan["dcp"]) == 64 << 20
+    plan = backward_scratch(b, l, h, p, n, ck, 32, 2)
+    assert list(plan) == ["ds", "dxd", "dcs", "dot", "dap", "dbd", "dcp"]
+    assert plan["dbd"] == plan["dcp"] == (b, l, 2, n)
+    assert 4 * np.prod(plan["dbd"]) == 4 << 20
+    assert all(s[-2:] != (h, n) for s in plan.values())
     assert plan["ds"] == (b, l // ck, h, p, n)
+    assert plan["dxd"] == (b, l, h, p)
     assert plan["dot"] == (b, h, l // ck, 32)
     assert plan["dap"] == (b, l // ck, h)
-    assert backward_scratch(1, 20, 2, 24, 16, 20, 2)["dot"] == (1, 2, 1, 2)
+    one = backward_scratch(b, l, h, p, n, ck, 32, 1)
+    assert list(one) == ["ds", "dxd", "dcs", "dot", "dap", "dbd"]
+    assert one["dbd"] == (b, l, 1, n)
+    assert backward_scratch(1, 20, 2, 24, 16, 20, 2, 1)["dot"] == (1, 2, 1, 2)
 
 
 def test_backward_work_counts():
     """Flops: the products the function needs counted pair by pair on a
-    small shape, C B^T once a (row, chunk) for all heads; bytes: inputs
-    and gradients, with and without a final-state cotangent, and the
-    kernel's dB/dC partials apart from them."""
+    small shape, C B^T, M B and M^T C once a (row, chunk) for all heads
+    (M summed over them first: B and C do not depend on the head); bytes:
+    inputs and gradients, with and without a final-state cotangent, and
+    the kernel's dB/dC partials apart from them."""
     b, l, h, p, n, ck = 2, 48, 3, 5, 7, 16
     fma = 0
     for _ in range(b * (l // ck)):
         for i in range(ck):
             for j in range(i + 1):
-                fma += n                            # C B^T, shared
+                fma += 3 * n                        # C B^T, M B, M^T C
         for _ in range(h):
             fma += 4 * ck * p * n                   # the dense products
             for i in range(ck):
                 for j in range(i + 1):
-                    fma += 2 * n + 2 * p            # the triangle's four
+                    fma += 2 * p                    # dy xd^T, P^T dy
     nbytes, flops = backward_work(b, l, h, p, n, ck, 4)
     assert flops == 2 * fma
     xs, ss, nc = b * l * h * p, b * h * p * n, l // ck
     want = 4 * (2 * xs + b * l * h + h + 2 * b * l * n + nc * ss) \
         + 4 * b * h * l + 4 * (xs + b * l * h + h + 2 * b * l * n + ss)
     assert nbytes == want
-    assert backward_partials_bytes(b, l, h, n) == 16 * b * l * h * n
+    # dB's diagonal share written and read; with clusters, dC's partials
+    # written and read and dB's read, written back and read
+    assert backward_partials_bytes(b, l, n, 1) == 8 * b * l * n
+    assert backward_partials_bytes(b, l, n, 4) == 6 * 4 * b * l * 4 * n
     assert backward_work(b, l, h, p, n, ck, 4, dfinal=True)[0] \
         == want + 4 * ss
     assert backward_work(b, l, h, p, n, ck, 2)[1] == flops
