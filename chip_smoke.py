@@ -441,13 +441,16 @@ largest entry), the flash forward and backward kernels once a layer, then
 one AdamW update on each side from the same gradients (1e-6). Phase
 "train" trains gemma3-1b at full width cut to one local:global period (6
 layers: ``PERIOD_LAYERS``), float32 (0.46 B parameters), through
-``make_train_step`` and the ``Trainer`` on ``TokenPipeline(vocab=262144,
-batch=4, seq=1024)`` for 12 steps, the checkpoint in a temporary
-directory: losses and grad norms finite, the loss falling, the forward
-and backward kernels 6 times a step, peak memory under 80 GB; the final
-checkpoint restored by a resumed ``Trainer`` bitwise equal at the saved
-step. It reports step ms, tokens/s against the step's bound (6 N tokens
-over 67 TFLOP/s), peak memory, the checkpoint's save and restore seconds
+``make_train_step(cfg, make_debug_mesh(), ...).fn`` (the ``StepBundle``
+on the 1 x 1 mesh over the card) and the ``Trainer`` on
+``TokenPipeline(vocab=262144, batch=4, seq=1024)`` for 12 steps, the
+checkpoint in a temporary directory: losses and grad norms finite, the
+loss falling, the forward and backward kernels 6 times a step, peak
+memory under 80 GB; the final checkpoint restored by a resumed
+``Trainer`` through ``restore(..., shardings=)`` of the bundle's
+``in_shardings``, on the card and bitwise equal, at the saved step. It
+reports step ms, tokens/s against the step's bound (6 N tokens over 67
+TFLOP/s), peak memory, the checkpoint's save and restore seconds
 and bytes, and a ``profile_window`` over 2 steps with the backward
 kernel's share of device time, and the final weights' loss on the first
 and last batches it trained on. Its optimizer is ``launch/train.py``'s
@@ -481,6 +484,18 @@ kernels 48 times a step, no plain version on the card, peak memory under
 80 GB; it reports step ms, tokens/s against 6 N tokens over 67 TFLOP/s
 and a ``profile_window`` over 2 steps with the SSD kernels' shares of
 device time.
+
+The dry run. Phase "dryrun" reads the two trained states and median
+steps of "train" and "ssm_train" and builds no model: for each, the
+``StepBundle``'s abstract arguments (meta tensors) equal the trained
+parameters and optimizer state leaf for leaf in shape and dtype, their
+per-device bytes under the bundle's shardings on the 1 x 1 mesh equal
+the state's bytes on the card exactly, and ``launch/dryrun.py::run_cell``
+counts the step on meta, the kernels by their own work and the other ops
+as eager PyTorch runs them: its bound, max(counted flops over 67 TFLOP/s,
+the kernels' over 494.7/3 (float32 as three TF32 products), counted bytes
+over 3.35 TB/s), must be at most the measured median step (a bound above
+a measured step is a wrong count). It prints both times and their ratio.
 
 Every phase line carries its wall ``seconds``.
 
@@ -700,7 +715,7 @@ def phase_kernels(dev):
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                     kv_splits)
+                                                     forward_work, kv_splits)
 
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -782,10 +797,7 @@ def phase_kernels(dev):
                 torch.ones((S, T), dtype=torch.bool, device=dev)
             if window:
                 open_ &= qpos - kpos < window
-            pairs = int(open_.sum())
-            es = q.element_size()
-            nbytes = (2 * q.numel() + 2 * k.numel()) * es
-            flops = 4 * B * H * D * pairs
+            nbytes, flops = forward_work(q, k, causal=causal, window=window)
             row = {"kernel": "flash_attention", "case": name, "dtype": dname,
                    "variant": "wgmma" if dtype == torch.bfloat16
                    else "tf32x3", "causal": causal, "max_abs_err": err,
@@ -1589,28 +1601,15 @@ def ssd_cases(dev, dtype):
 
 
 def _ssd_work(args, init, chunk):
-    """(bytes, flops) of one scan on these inputs: every input read once and
-    both outputs written once; the chunked algorithm's flops with C B^T
-    formed once per (row, chunk) (B and C are shared by the heads) and
-    only the lower triangles of C B^T and of its product with x dt."""
+    """(bytes, flops) of one scan on these inputs (``ssd_scan.
+    forward_work``): every input read once and both outputs written once;
+    the chunked algorithm's flops with C B^T formed once per (row, chunk)
+    and only the lower triangles of C B^T and of its product with x dt."""
+    from repro_torch.kernels.ssd_scan import forward_work
     x, dt, A, B, C = args
     b, l, h, p = x.shape
-    n = B.shape[-1]
-    ck = min(chunk, l)
-    nc = l // ck
-    tri = ck * (ck + 1) // 2
-    es = x.element_size()
-    nbytes = es * (2 * x.numel() + dt.numel() + A.numel() + B.numel()
-                   + C.numel() + b * h * p * n * (2 if init is not None
-                                                  else 1))
-    per_head = (2 * tri                  # L = exp(segsum), G = CB o L
-                + 2 * tri * p            # G (x dt)
-                + 2 * ck * p * n         # C S^T
-                + 2 * ck * p * n         # (x dt decay)^T B
-                + 2 * p * n              # S exp(cs_last) + ...
-                + 3 * ck * p + 2 * ck)   # x dt, decay weights, scan
-    flops = nc * b * (2 * tri * n + h * per_head)
-    return nbytes, flops
+    return forward_work(b, l, h, p, B.shape[-1], min(chunk, l),
+                        x.element_size(), initial_state=init is not None)
 
 
 def phase_ssd_kernels(dev):
@@ -4717,7 +4716,8 @@ def phase_train_kernels(dev):
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (
-        flash_attention_backward_cuda, flash_attention_cuda, plan_of)
+        backward_work, flash_attention_backward_cuda, flash_attention_cuda,
+        forward_work, plan_of)
 
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -4750,10 +4750,7 @@ def phase_train_kernels(dev):
             B, H, S, D = q.shape
             KH, T = k.shape[1], k.shape[2]
             plan = plan_of(q, k, causal=causal, window=window)
-            pairs = int(ref.attention_mask(S, T, causal, window, dev).sum())
-            es = q.element_size()
-            nbytes = (4 * q.numel() + 4 * k.numel()) * es + 4 * lse.numel()
-            flops = 10 * B * H * D * pairs          # five products
+            nbytes, flops = backward_work(q, k, causal=causal, window=window)
             chains = {p: (items[:, 4] - items[:, 3]).tolist() for p, items
                       in (("kv", plan.kv_items), ("q", plan.q_items))}
             row = {"kernel": "flash_attention_backward", "case": name,
@@ -4768,8 +4765,8 @@ def phase_train_kernels(dev):
                    "dq_block": plan.dq_block, "ds_tiles": plan.ds_tiles,
                    "chain_max_mean": {
                        p: [max(c), sum(c) / len(c)] for p, c in chains.items()}}
-            fwd_bytes = (2 * q.numel() + 2 * k.numel()) * es
-            fwd_flops = 4 * B * H * D * pairs       # two products
+            fwd_bytes, fwd_flops = forward_work(q, k, causal=causal,
+                                                window=window)
             row["fwd_bound"] = bound_ms(fwd_bytes, fwd_flops, dname)
             if dtype == torch.float32:
                 row["bound_tf32x3"] = (1e3 * max(
@@ -4947,7 +4944,7 @@ def phase_train(dev, steps=TRAIN_STEPS):
     from repro_torch.device import upload
     from repro_torch.kernels.flash_attention import (
         flash_attention_backward_cuda, flash_attention_cuda, reset_launches)
-    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch import make_debug_mesh, make_train_step
     from repro_torch.models import build
     from repro_torch.train.optimizer import AdamWConfig, adamw
     from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -4961,8 +4958,9 @@ def phase_train(dev, steps=TRAIN_STEPS):
     n_params = sum(p.numel() for p in leaves(params))
     opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=10, total_steps=steps)
     init, _ = adamw(opt_cfg)
-    step_fn = make_train_step(cfg, TRAIN_BATCH, TRAIN_SEQ, opt_cfg=opt_cfg,
-                              device=dev)
+    bundle = make_train_step(cfg, make_debug_mesh(), TRAIN_BATCH, TRAIN_SEQ,
+                             opt_cfg=opt_cfg)
+    step_fn = bundle.fn
     pipeline = TokenPipeline(vocab=cfg.vocab, batch=TRAIN_BATCH,
                              seq=TRAIN_SEQ)
 
@@ -4996,10 +4994,10 @@ def phase_train(dev, steps=TRAIN_STEPS):
         resumed = Trainer(step_fn, trainer.params, trainer.opt_state,
                           pipeline, tcfg, to_device=to_device)
         t = time.perf_counter()
-        start = resumed.maybe_restore()
+        start = resumed.maybe_restore(shardings=bundle.in_shardings[:2])
         torch.cuda.synchronize()
         restore_s = time.perf_counter() - t
-        same = all(torch.equal(a, b) for a, b in zip(
+        same = all(torch.equal(a, b) and a.device == dev for a, b in zip(
             leaves((resumed.params, resumed.opt_state)),
             leaves((trainer.params, trainer.opt_state))))
         ckpt_bytes = sum(f.stat().st_size for f in
@@ -5047,7 +5045,18 @@ def phase_train(dev, steps=TRAIN_STEPS):
     check(peak < 80.0, f"train: peak memory {peak} GB")
     check(start == steps, f"train: resumed at {start}, saved at {steps}")
     check(same, "train: the restored checkpoint differs from the state")
-    return res
+    return res, _trained(cfg, trainer.params, trainer.opt_state, med)
+
+
+def _trained(cfg, params, opt_state, step_ms_median):
+    """What phase "dryrun" reads of a trained state: its leaves' shapes,
+    dtypes and devices, their summed bytes, and the median step."""
+    from repro_torch.train.tree import leaves
+    state = leaves((params, opt_state))
+    return {"cfg": cfg, "leaves": [(tuple(t.shape), t.dtype) for t in state],
+            "devices": sorted({str(t.device) for t in state}),
+            "nbytes": sum(t.nbytes for t in state),
+            "step_ms_median": step_ms_median}
 
 
 # -- training the SSD scan: mamba2-370m --------------------------------------------
@@ -5371,7 +5380,7 @@ def phase_ssm_train(dev, steps=TRAIN_STEPS):
     from repro_torch.configs import get
     from repro_torch.data import TokenPipeline
     from repro_torch.device import upload
-    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch import make_debug_mesh, make_train_step
     from repro_torch.models import build
     from repro_torch.train.optimizer import AdamWConfig, adamw
     from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -5384,8 +5393,8 @@ def phase_ssm_train(dev, steps=TRAIN_STEPS):
     n_params = sum(p.numel() for p in leaves(params))
     opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=10, total_steps=steps)
     init, _ = adamw(opt_cfg)
-    step_fn = make_train_step(cfg, TRAIN_BATCH, TRAIN_SEQ, opt_cfg=opt_cfg,
-                              device=dev)
+    step_fn = make_train_step(cfg, make_debug_mesh(), TRAIN_BATCH, TRAIN_SEQ,
+                              opt_cfg=opt_cfg).fn
     pipeline = TokenPipeline(vocab=cfg.vocab, batch=TRAIN_BATCH,
                              seq=TRAIN_SEQ)
 
@@ -5446,6 +5455,83 @@ def phase_ssm_train(dev, steps=TRAIN_STEPS):
     check(not any(plain.calls.values()),
           f"ssm train: plain versions ran on the card: {plain.calls}")
     check(peak < 80.0, f"ssm train: peak memory {peak} GB")
+    return res, _trained(cfg, trainer.params, trainer.opt_state, med)
+
+
+# -- the dry run against the card: its abstract state and its bound ----------
+
+def phase_dryrun(dev, trained):
+    """The dry run (``launch/dryrun.py``) against phases "train" and
+    "ssm_train" (``trained``: their ``_trained`` records), on the 1 x 1
+    mesh over the card. For each: the ``StepBundle``'s abstract arguments
+    (meta) equal the trained parameters and optimizer state leaf for leaf
+    in shape and dtype; ``sharded_size_bytes`` of them under the bundle's
+    ``in_shardings`` equals the state's bytes on the card exactly;
+    ``run_cell`` counts the step on meta (the kernels by their own work,
+    the other ops as eager PyTorch runs them), and its bound
+    max(compute_s, memory_s) against the H100's peaks (``dryrun.
+    PEAK_FLOPS``, ``KERNEL_PEAK_FLOPS``, ``HBM_BW``) is at most the
+    phase's measured median step: a bound above a measured step is a
+    wrong count. Both phases must have run before it. Reports both times,
+    their ratio, the plain versions' counts beside, the counted flops
+    against 6 N D (``model_flops``) and the counting's host seconds."""
+    from repro_torch.configs.registry import Shape
+    from repro_torch.launch import dryrun, make_debug_mesh, make_train_step
+    from repro_torch.launch.sharding import sharded_size_bytes
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.tree import leaves
+
+    missing = sorted({"train", "ssm_train"} - set(trained))
+    check(not missing, f"dryrun: phases {missing} must run before it")
+    mesh = make_debug_mesh()
+    res = {"phase": "dryrun", "mesh": repr(mesh),
+           "peak_flops": dryrun.PEAK_FLOPS,
+           "kernel_peak_flops": dryrun.KERNEL_PEAK_FLOPS,
+           "hbm_bw": dryrun.HBM_BW}
+    for name, rec in trained.items():
+        cfg = rec["cfg"]
+        bundle = make_train_step(cfg, mesh, TRAIN_BATCH, TRAIN_SEQ,
+                                 opt_cfg=AdamWConfig(lr=TRAIN_LR))
+        abstract = leaves(bundle.args[:2])
+        same_leaves = [(tuple(t.shape), t.dtype) for t in abstract] \
+            == rec["leaves"]
+        arg_bytes = sharded_size_bytes(bundle.args[:2],
+                                       bundle.in_shardings[:2])
+        t = time.perf_counter()
+        cell = dryrun.run_cell(cfg, Shape(name, "train", TRAIN_SEQ,
+                                          TRAIN_BATCH), mesh, "1x1")
+        count_s = time.perf_counter() - t
+        bound_ms = 1e3 * max(cell.compute_s, cell.memory_s)
+        step = rec["step_ms_median"]
+        res[name] = {
+            "model": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+            "leaves": len(abstract), "abstract_leaves_equal": same_leaves,
+            "all_meta": all(t.device.type == "meta" for t in abstract),
+            "state_devices": rec["devices"], "arg_bytes": arg_bytes,
+            "state_bytes": rec["nbytes"],
+            "arg_bytes_diff": arg_bytes - rec["nbytes"],
+            "cell_arg_bytes": cell.arg_bytes_per_device,   # with the batch
+            "flops": cell.per_device_flops, "bytes": cell.per_device_bytes,
+            "kernel_flops": cell.memory["kernel_flops_global"],
+            "flops_plain": cell.memory["flops_plain_global"],
+            "bytes_plain": cell.memory["bytes_plain_global"],
+            "model_flops_6nd": cell.model_flops,
+            "flops_over_6nd": cell.per_device_flops / cell.model_flops,
+            "compute_ms": 1e3 * cell.compute_s,
+            "memory_ms": 1e3 * cell.memory_s, "bottleneck": cell.bottleneck,
+            "bound_ms": bound_ms, "step_ms_median": step,
+            "bound_over_step": bound_ms / step, "count_host_s": count_s}
+        log(f"dryrun {name}: bound {bound_ms:.3f} ms ({cell.bottleneck}) "
+            f"vs measured median step {step:.3f} ms, ratio "
+            f"{bound_ms / step:.4f}")
+        check(same_leaves and res[name]["all_meta"],
+              f"dryrun {name}: abstract args differ from the trained state")
+        check(rec["devices"] == [str(dev)],
+              f"dryrun {name}: state on {rec['devices']}, mesh on {dev}")
+        check(arg_bytes == rec["nbytes"], f"dryrun {name}: {arg_bytes} "
+              f"arg bytes vs {rec['nbytes']} on the card")
+        check(bound_ms <= step, f"dryrun {name}: bound {bound_ms} ms above "
+              f"the measured step {step} ms: a wrong count")
     return res
 
 
@@ -5565,7 +5651,8 @@ def main(argv=None):
     ap.add_argument("--phases", help="after the build, run only these of "
                     "the training phases (comma-separated: train_kernels, "
                     "train_crosscheck, train, ssd_backward_kernels, "
-                    "ssm_train_crosscheck, ssm_train) and print no summary")
+                    "ssm_train_crosscheck, ssm_train, dryrun: after train "
+                    "and ssm_train) and print no summary")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -5602,8 +5689,14 @@ def main(argv=None):
                     "ssd_backward_kernels": phase_ssd_backward_kernels,
                     "ssm_train_crosscheck": phase_ssm_train_crosscheck,
                     "ssm_train": phase_ssm_train}
+        trained = {}
         for name in args.phases.split(","):
-            emit(training[name], dev)
+            if name == "dryrun":
+                emit(phase_dryrun, dev, trained)
+                continue
+            out = emit(training[name], dev)
+            if name in ("train", "ssm_train"):
+                trained[name] = out[1]
         return 0
 
     t = time.perf_counter()
@@ -5672,10 +5765,12 @@ def main(argv=None):
 
     train_kernels = emit(phase_train_kernels, dev)
     train_cross = emit(phase_train_crosscheck, dev)
-    train = emit(phase_train, dev)
+    train, trained = emit(phase_train, dev)
     ssd_backward = emit(phase_ssd_backward_kernels, dev)
     ssm_train_cross = emit(phase_ssm_train_crosscheck, dev)
-    ssm_train = emit(phase_ssm_train, dev)
+    ssm_train, ssm_trained = emit(phase_ssm_train, dev)
+    dry = emit(phase_dryrun, dev, {"train": trained,
+                                   "ssm_train": ssm_trained})
     option_launches = {
         "pipeline": {k: sum(pipeline[m]["launches"][k]
                             for m in ("sync", "pipelined"))
@@ -5897,7 +5992,7 @@ def main(argv=None):
              "train_crosscheck": train_cross, "train": train,
              "ssd_backward_kernels": ssd_backward,
              "ssm_train_crosscheck": ssm_train_cross, "ssm_train": ssm_train,
-             "wall_s": time.perf_counter() - t_start, **kernels},
+             "dryrun": dry, "wall_s": time.perf_counter() - t_start, **kernels},
             indent=1))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -57,8 +57,10 @@ Four callers batch rows:
 layout and, for fleets, collapses tiny mixed fleets to one shared layout;
 the thresholds (``_AUTO_BUCKET_MIN_HOSTS``, ``_AUTO_PAD_FACTOR``) are
 ``repro``'s, tuned there for XLA-CPU's dispatch floor and kept so that the
-port's layouts equal ``repro``'s. ``repro``'s ``shard`` option (spreading
-each bucket over devices) is left out: one card takes the whole solve.
+port's layouts equal ``repro``'s. ``resolve_shard`` resolves ``repro``'s
+``shard`` option to a device count; spreading a bucket's rows over several
+cards (``repro``'s ``shard_rows``) is not ported, and one card takes the
+whole solve.
 """
 from __future__ import annotations
 
@@ -71,7 +73,7 @@ import numpy as np
 import scipy.optimize
 import torch
 
-from ..device import upload
+from ..device import device_count, upload
 from ..kernels import ops as kernel_ops
 from .regression import PolynomialModel, StackedModels, pad_capacity, \
     stack_models
@@ -125,6 +127,23 @@ def cached_fn(cache: Dict[tuple, object], key: tuple, build,
             cache.pop(next(iter(cache)))
         cache[key] = fn
     return fn
+
+
+def resolve_shard(shard: Union[bool, int, str, None],
+                  device: torch.device) -> int:
+    """A ``shard=`` spec as a device count, as ``repro`` resolves it:
+    ``"auto"``/``True`` give every device present, ``False``/``None``/
+    ``"off"``/``"0"`` give 1, an integer is capped at the devices present
+    (the cards on ``cuda``, 1 on the CPU). ``True`` and ``1`` are told
+    apart by identity: ``repro``'s ``shard in ("auto", True)`` also takes
+    the integer 1 for every device."""
+    if shard is None or shard is False or (
+            isinstance(shard, str) and shard.lower() in ("off", "false")):
+        return 1
+    ndev = device_count(device)
+    if shard is True or shard == "auto":
+        return max(1, ndev)
+    return max(1, min(int(shard), ndev))
 
 
 def project_capacity(a, lower, upper, mask, capacity,

@@ -44,6 +44,7 @@ import ctypes
 import dataclasses
 import functools
 import heapq
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -433,6 +434,43 @@ class FlashAttention(torch.autograd.Function):
             q, k, v, out, lse, do.contiguous(), causal=ctx.causal,
             window=ctx.window)
         return dq, dk, dv, None, None
+
+
+def mask_pairs(S: int, T: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs that ``ref.attention_mask(S, T, causal,
+    window)`` keeps, counted a row at a time in numpy (no (S, T) mask is
+    made, and no torch op runs under a count)."""
+    qpos = np.arange(S, dtype=np.int64) + (T - S)
+    hi = np.minimum(qpos, T - 1) if causal else np.full_like(qpos, T - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window > 0 \
+        else np.zeros_like(qpos)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def forward_work(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+                 window: int = 0, lse: bool = False) -> Tuple[int, int]:
+    """(bytes, flops) that the forward function itself needs at q's and
+    k's shapes: q, k and v read once, the output written once (with
+    ``lse`` also the float32 row log-sum-exp); q k^T and P v over the
+    pairs the mask keeps, two flops a multiply-add."""
+    B, H, S, D = q.shape
+    pairs = mask_pairs(S, k.shape[2], causal, window)
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() \
+        + (4 * B * H * S if lse else 0)
+    return nbytes, 4 * B * H * D * pairs
+
+
+def backward_work(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+                  window: int = 0) -> Tuple[int, int]:
+    """(bytes, flops) that the backward function itself needs: q, k, v,
+    the output, its gradient and ``lse`` read once, dq, dk and dv written
+    once; five products (q k^T, dO v^T, P^T dO, dS k, dS^T q) over the
+    pairs the mask keeps."""
+    B, H, S, D = q.shape
+    pairs = mask_pairs(S, k.shape[2], causal, window)
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
+        + 4 * B * H * S
+    return nbytes, 10 * B * H * D * pairs
 
 
 def kv_splits(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,

@@ -5,7 +5,11 @@ RASK objective for the solver.
 The tensor's device picks the implementation and nothing else does: a CUDA
 tensor goes to the hand-written kernel (which launches or raises), a CPU
 tensor goes to the plain PyTorch version in ``ref.py``. There is no
-fallback between them.
+fallback between them. A ``meta`` tensor takes the plain version too: it
+holds no data, so nothing computes there, and the dry run reads the
+shapes and counts (``launch/op_cost.py``). There attention and the SSD
+scan run through ``_Priced``, which hands a count the work of the kernel
+that the card runs in the plain version's place.
 
 Gradients: on a CPU tensor every entry point differentiates through its
 plain version under ordinary autograd. On a CUDA tensor attention
@@ -15,22 +19,89 @@ own; the decode kernel has no backward and raises when asked for a graph.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import torch
 
+from . import flash_attention as _flash
 from . import ref
+from . import ssd_scan as _ssd
 from .decode_attention import decode_attention_cuda
 from .flash_attention import FlashAttention, flash_attention_cuda
 from .rask_objective import RaskObjective, rask_objective_backward_cuda
 from .ssd_scan import SSDScan, ssd_cuda
 
+# The counts that ``launch/op_cost.py`` runs, innermost last.
+COUNTS: list = []
+
 
 def _route(t: torch.Tensor, name: str) -> bool:
-    """True for the CUDA kernel, False for the plain CPU version."""
+    """True for the CUDA kernel, False for the plain version (on the CPU,
+    or shapes only on ``meta``)."""
     if t.device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return False
     raise ValueError(f"{name}: no implementation for device {t.device}")
+
+
+@contextlib.contextmanager
+def _priced(work):
+    """Run the enclosed ops as the plain version of a kernel whose own
+    work is ``work`` = (name, bytes, flops), or uncounted where ``work``
+    is None, under the innermost count; outside a count, just run them."""
+    if not COUNTS:
+        yield
+        return
+    count = COUNTS[-1]
+    count.enter(work)
+    try:
+        yield
+    finally:
+        count.leave(work)
+
+
+class _Priced(torch.autograd.Function):
+    """A kernel's plain version on ``meta`` tensors, priced as the kernels
+    that the card runs in its place: the forward runs inside the forward
+    kernel's work ``fwd``, the backward inside the backward kernel's
+    (``bwd(cotangents)``), so a count takes the kernels' own bytes and
+    flops and keeps the plain version's ops apart. The backward is the
+    plain version's own under autograd, on its forward run again
+    uncounted."""
+
+    @staticmethod
+    def forward(ctx, plain, fwd, bwd, *inputs):
+        ctx.plain, ctx.bwd = plain, bwd
+        ctx.save_for_backward(*inputs)
+        ctx.set_materialize_grads(False)
+        with _priced(fwd):
+            return plain(*inputs)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        inputs = [t if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors,
+                                     ctx.needs_input_grad[3:])]
+        wrt = [t for t in inputs if t is not None and t.requires_grad]
+        with torch.enable_grad():
+            with _priced(None):
+                outs = ctx.plain(*inputs)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            live = [(o, c) for o, c in zip(outs, cts) if c is not None]
+            with _priced(ctx.bwd(cts)):
+                grads = iter(torch.autograd.grad(
+                    [o for o, _ in live], wrt, [c for _, c in live],
+                    allow_unused=True))
+        return (None, None, None) + tuple(
+            next(grads) if t is not None and t.requires_grad else None
+            for t in inputs)
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
@@ -43,6 +114,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
                                         or v.requires_grad):
             return FlashAttention.apply(q, k, v, causal, window)
         return flash_attention_cuda(q, k, v, causal=causal, window=window)
+    if q.device.type == "meta":
+        kw = dict(causal=causal, window=window)
+        fwd = ("flash_attention", *_flash.forward_work(
+            q, k, lse=_wants_grad(q, k, v), **kw))
+        bwd = ("flash_attention_backward", *_flash.backward_work(q, k, **kw))
+        return _Priced.apply(
+            functools.partial(ref.flash_attention_reference, **kw), fwd,
+            lambda cts: bwd, q, k, v)
     return ref.flash_attention_reference(q, k, v, causal=causal,
                                          window=window)
 
@@ -70,6 +149,21 @@ def ssd(x, dt, A, B, C, *, chunk: int = 128, initial_state=None):
             return SSDScan.apply(x, dt, A, B, C, initial_state, chunk)
         return ssd_cuda(x, dt, A, B, C, chunk=chunk,
                         initial_state=initial_state)
+    if x.device.type == "meta":
+        b, l, h, p = x.shape
+        shape = (b, l, h, p, B.shape[-1], min(chunk, l), x.element_size())
+        fwd = ("ssd_scan", *_ssd.forward_work(
+            *shape, initial_state=initial_state is not None,
+            states=_wants_grad(x, dt, A, B, C, initial_state)))
+
+        def bwd(cts):
+            return ("ssd_scan_backward",
+                    *_ssd.backward_work(*shape, dfinal=cts[1] is not None))
+
+        def plain(x, dt, A, B, C, initial_state):
+            return ref.ssd_reference(x, dt, A, B, C, chunk=chunk,
+                                     initial_state=initial_state)
+        return _Priced.apply(plain, fwd, bwd, x, dt, A, B, C, initial_state)
     return ref.ssd_reference(x, dt, A, B, C, chunk=chunk,
                              initial_state=initial_state)
 

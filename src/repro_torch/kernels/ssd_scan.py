@@ -252,6 +252,31 @@ def backward_scratch(b: int, l: int, h: int, p: int, n: int, ck: int,
 SCRATCH = ("ds", "dxd", "dcs", "dot", "dap", "dbd", "dcp")
 
 
+def forward_work(b: int, l: int, h: int, p: int, n: int, ck: int, es: int,
+                 *, initial_state: bool = False,
+                 states: bool = False) -> Tuple[int, int]:
+    """(bytes, flops) that the forward function itself needs at these
+    shapes, element size ``es``: every input read once and both outputs
+    written once (with ``states`` also what the backward reads of the
+    forward: cs in float32 and prev in the input type); the chunked
+    algorithm's flops with C B^T formed once per (row, chunk) (B and C
+    are shared by the heads) and only the lower triangles of C B^T and of
+    its product with x dt."""
+    nc = l // ck
+    tri = ck * (ck + 1) // 2
+    nbytes = es * (2 * b * l * h * p + b * l * h + h + 2 * b * l * n
+                   + b * h * p * n * (2 if initial_state else 1))
+    if states:
+        nbytes += 4 * b * h * l + es * b * nc * h * p * n
+    per_head = (2 * tri                  # L = exp(segsum), G = CB o L
+                + 2 * tri * p            # G (x dt)
+                + 2 * ck * p * n         # C S^T
+                + 2 * ck * p * n         # (x dt decay)^T B
+                + 2 * p * n              # S exp(cs_last) + ...
+                + 3 * ck * p + 2 * ck)   # x dt, decay weights, scan
+    return nbytes, nc * b * (2 * tri * n + h * per_head)
+
+
 def backward_work(b: int, l: int, h: int, p: int, n: int, ck: int, es: int,
                   *, dfinal: bool = False) -> Tuple[int, int]:
     """(bytes, flops) that the backward function itself needs at these

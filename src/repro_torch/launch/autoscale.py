@@ -24,10 +24,11 @@ and ``--churn`` scripts mid-run fleet changes (host failure/drain with
 scorer-driven evacuation, capacity degradation, service arrival/departure
 — see ``env.scenarios.parse_churn`` for the grammar).
 
-``--shard`` is kept for ``repro``'s command lines: ``auto``, ``off`` (or
-``1``) all mean the one card, which takes every layout bucket's solve
-(``repro`` documents its results as identical either way). A mesh of
-several cards is ROADMAP item 16; a larger count raises.
+``--shard`` is ``repro``'s: ``auto``, ``off`` or a count, capped at the
+cards present (``core.solver.resolve_shard``). On one card every count
+solves there (``repro`` documents its results as identical whatever the
+count); spreading the solve over several cards is not ported, and a count
+that asks for more than one raises (``launch/mesh.py::MULTI_CARD``).
 
 Each LM's throughput surface is analytic (``env/profiles.py::lm_profile``,
 rated by the H100 data sheet) unless ``benchmarks/artifacts/
@@ -49,8 +50,10 @@ import numpy as np
 
 from ..configs import ARCHS
 from ..core import RASKAgent, RaskConfig, violation_rate
+from ..core.solver import resolve_shard
 from ..device import resolve_device
 from ..env import EdgeEnvironment, bursty, diurnal, lm_profile
+from .mesh import MULTI_CARD
 
 
 def lm_services(max_chips: float = 16.0):
@@ -68,15 +71,17 @@ def lm_services(max_chips: float = 16.0):
     return profiles
 
 
-def one_card(shard: str) -> None:
-    """``--shard``: ``auto``, ``off``/``false``/``0`` and ``1`` run on the
-    one card; a count above 1 asks for a mesh, which the port lacks."""
-    if shard == "auto" or shard.lower() in ("off", "false", "0"):
-        return
-    if int(shard) > 1:
-        raise NotImplementedError(
-            f"--shard {shard}: the port solves on one card; a mesh of "
-            "several is ROADMAP Queue 1, item 16")
+def one_card(shard: str, device) -> int:
+    """``--shard`` as ``repro``'s CLI parses it, resolved on ``device``'s
+    cards: 1 on one card (or the CPU), whatever the count; a count that
+    resolves to several cards raises."""
+    spec = "auto" if shard == "auto" else (
+        False if shard.lower() in ("off", "false", "0") else int(shard))
+    n = resolve_shard(spec, device)
+    if n > 1:
+        raise NotImplementedError(f"--shard {shard} over {n} cards: "
+                                  f"{MULTI_CARD}")
+    return n
 
 
 def main(argv=None):
@@ -120,9 +125,9 @@ def main(argv=None):
                          "latency behind the control interval (plans lag "
                          "observations by one cycle)")
     ap.add_argument("--shard", default="auto",
-                    help="'auto' (default), 'off' or 1: the one card "
-                         "solves every layout bucket; a count above 1 (a "
-                         "mesh) is not ported")
+                    help="'auto' (default), 'off' or a count, capped at "
+                         "the cards present: one card solves every layout "
+                         "bucket; several cards are not ported")
     ap.add_argument("--adapt-budget", action="store_true",
                     help="online solver budget adaptation (shrink PGD "
                          "iters/starts at steady state, restore on load "
@@ -149,7 +154,7 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
-    one_card(args.shard)
+    one_card(args.shard, device)
 
     if args.host_caps:
         caps = [float(c) for c in args.host_caps.split(",")]

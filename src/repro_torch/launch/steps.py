@@ -1,23 +1,95 @@
-"""Step constructors: the train step, the prefill step and the decode step
-for any config, as callables over the port's parameter trees (the
-counterpart of ``repro/launch/steps.py``).
+"""Step builders: the train step, the prefill step and the decode step for
+any config, as ``StepBundle``s over the port's trees (the counterpart of
+``repro/launch/steps.py``).
 
-``repro`` returns a ``StepBundle``: the step with the abstract inputs and
-shardings the dry run lowers. The port's constructors return the step
-callable alone; the abstract shapes and the mesh come with ROADMAP item
-16.
+A bundle holds the step callable, its abstract arguments (meta tensors:
+shapes and dtypes, no data), and the shardings of its inputs and outputs
+under ``launch/sharding.py``'s rules: the one object the dry run runs on
+meta and the trainer runs on the card. The mesh decides the device: a
+production mesh's placeholders put the step on ``meta``, a debug mesh on
+its one device (the card, or the CPU). A mesh of several cards is not
+placed (``mesh.MULTI_CARD``).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+from typing import Any, Dict, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
-from ..device import resolve_device
 from ..models import build
 from ..models.config import ModelConfig
+from ..models.model import ENCDEC_DEC_FRac
 from ..train.optimizer import AdamWConfig, adamw, compressed_adamw
-from ..train.tree import leaves, unflatten
+from ..train.tree import leaves, map_tree, structure, unflatten
+from . import sharding as SH
+
+META = torch.device("meta")
+# the keys of a train step's metrics: the loss's, the optimizer's, "loss"
+TRAIN_METRICS = ("ce", "aux", "grad_norm", "lr", "loss")
+
+
+@dataclasses.dataclass
+class StepBundle:
+    """``fn`` the step callable; ``args`` its abstract arguments (meta
+    tensors); ``in_shardings``/``out_shardings`` trees of
+    ``sharding.NamedSharding`` shaped like the arguments and results.
+    ``donate_argnums`` are ``repro``'s: the arguments whose storage the
+    step takes over. In the port the step writes the new values into
+    them (the train step's parameters and optimizer state, the decode
+    step's cache), so a donated argument is the result afterwards."""
+    fn: Any
+    args: Tuple
+    in_shardings: Tuple
+    out_shardings: Any
+    donate_argnums: Tuple = ()
+
+
+def _meta(t: torch.Tensor) -> torch.Tensor:
+    return torch.empty(tuple(t.shape), dtype=t.dtype, device=META)
+
+
+def abstract_params(cfg: ModelConfig):
+    """The parameter tree of ``cfg`` as meta tensors: ``model.init`` runs
+    under ``FakeTensorMode`` (no memory, no arithmetic), then each leaf
+    becomes a meta tensor of its shape and dtype."""
+    with FakeTensorMode():
+        fake = build(cfg).init(torch.Generator().manual_seed(0))
+    return map_tree(_meta, fake)
+
+
+def input_specs(cfg: ModelConfig, kind: str, batch: int, seq: int
+                ) -> Dict[str, Any]:
+    """Meta stand-ins for the step inputs of ``kind`` (``repro``'s
+    ``models/model.py::input_specs``):
+
+    kind = "train"   -> {tokens, labels [, frames]}
+    kind = "prefill" -> {tokens [, frames]}
+    kind = "decode"  -> {tokens, cache}   (cache sized for a seq-long context)
+    """
+    i32 = torch.int32
+    dt = getattr(torch, cfg.dtype)
+
+    def spec(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=META)
+    if kind == "train":
+        if cfg.family == "encdec":
+            sd = max(seq // ENCDEC_DEC_FRac, 8)
+            return {"frames": spec((batch, seq, cfg.d_model), dt),
+                    "tokens": spec((batch, sd), i32),
+                    "labels": spec((batch, sd), i32)}
+        return {"tokens": spec((batch, seq), i32),
+                "labels": spec((batch, seq), i32)}
+    if kind == "prefill":
+        if cfg.family == "encdec":
+            return {"frames": spec((batch, seq, cfg.d_model), dt),
+                    "tokens": spec((batch, 8), i32)}
+        return {"tokens": spec((batch, seq), i32)}
+    if kind == "decode":
+        return {"tokens": spec((batch, 1), i32),
+                "cache": build(cfg).cache_specs(batch, seq)}
+    raise ValueError(kind)
 
 
 def _on(device: torch.device, batch) -> Dict[str, torch.Tensor]:
@@ -42,10 +114,14 @@ def _value_and_grad(model, params, batch):
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
-def make_train_step(cfg: ModelConfig, batch: int = 256, seq: int = 4096, *,
+def _replicated(tree, mesh):
+    return map_tree(lambda _: SH.NamedSharding(mesh, SH.P()), tree)
+
+
+def make_train_step(cfg: ModelConfig, mesh, batch: int = 256,
+                    seq: int = 4096, *, fsdp: bool = True,
                     compressed_grads: bool = False, microbatches: int = 1,
-                    opt_cfg: AdamWConfig = AdamWConfig(),
-                    device: Optional[torch.device] = None):
+                    opt_cfg: AdamWConfig = AdamWConfig()) -> StepBundle:
     """The full train step ``(params, opt_state, batch) -> (params,
     opt_state, metrics)``: the loss's gradient, microbatched, then AdamW
     (``compressed_grads``: on int8 error-feedback gradients). The update
@@ -56,17 +132,18 @@ def make_train_step(cfg: ModelConfig, batch: int = 256, seq: int = 4096, *,
     (M, batch/M, ...), and the M gradients are summed in float32 and
     divided by M (activation memory scales with batch/M). Then, as in
     ``repro``, ``metrics["ce"]`` is the whole loss, aux included. The
-    inputs (numpy arrays or tensors) go to ``device``."""
-    device = resolve_device(device)
+    inputs (numpy arrays or tensors) go to the mesh's device."""
+    device = mesh.device
     if batch % microbatches:
         raise ValueError(f"batch {batch} is not a multiple of "
                          f"{microbatches} microbatches")
     model = build(cfg)
-    _, opt_update = (compressed_adamw if compressed_grads
-                     else adamw)(opt_cfg)
+    opt_init, opt_update = (compressed_adamw if compressed_grads
+                            else adamw)(opt_cfg)
     rows = (batch,) if microbatches == 1 \
         else (microbatches, batch // microbatches)
-    length = max(seq // 8, 8) if cfg.family == "encdec" else seq
+    length = max(seq // ENCDEC_DEC_FRac, 8) if cfg.family == "encdec" \
+        else seq
 
     def train_step(params, opt_state, batch_in):
         b = _on(device, batch_in)
@@ -93,15 +170,32 @@ def make_train_step(cfg: ModelConfig, batch: int = 256, seq: int = 4096, *,
             unflatten(params, grads), opt_state, params)
         return new_params, new_opt, {**metrics, **opt_metrics, "loss": loss}
 
-    return train_step
+    p_shapes = abstract_params(cfg)
+    o_shapes = opt_init(p_shapes)
+    b_shapes = input_specs(cfg, "train", batch=batch, seq=seq)
+    if microbatches > 1:
+        b_shapes = {k: torch.empty(rows + tuple(s.shape[1:]), dtype=s.dtype,
+                                   device=META)
+                    for k, s in b_shapes.items()}
+    p_shard = SH.params_shardings(p_shapes, mesh, fsdp=fsdp)
+    o_shard = _opt_shardings(o_shapes, p_shapes, p_shard, mesh)
+    b_shard = SH.batch_shardings(b_shapes, mesh,
+                                 dim=1 if microbatches > 1 else 0)
+    m_shard = _replicated(dict.fromkeys(TRAIN_METRICS, 0), mesh)
+    return StepBundle(
+        fn=train_step,
+        args=(p_shapes, o_shapes, b_shapes),
+        in_shardings=(p_shard, o_shard, b_shard),
+        out_shardings=(p_shard, o_shard, m_shard),
+        donate_argnums=(0, 1))
 
 
-def make_prefill_step(cfg: ModelConfig, batch: int, seq: int, *,
-                      device: Optional[torch.device] = None):
+def make_prefill_step(cfg: ModelConfig, mesh, batch: int, seq: int,
+                      fsdp: bool = True) -> StepBundle:
     """``(params, batch_in) -> (next_tok (B,) int32, cache)``: a prompt of
     ``batch`` rows into a cache of ``seq`` positions, and its greedy next
     token."""
-    device = resolve_device(device)
+    device = mesh.device
     model = build(cfg)
 
     @torch.no_grad()
@@ -113,15 +207,23 @@ def make_prefill_step(cfg: ModelConfig, batch: int, seq: int, *,
         logits, cache = model.prefill(params, b, max_seq=seq)
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
-    return prefill_step
+    p_shapes = abstract_params(cfg)
+    b_shapes = input_specs(cfg, "prefill", batch=batch, seq=seq)
+    p_shard = SH.params_shardings(p_shapes, mesh, fsdp=fsdp)
+    b_shard = SH.batch_shardings(b_shapes, mesh)
+    tok_shard = SH.batch_shardings(
+        torch.empty((batch,), dtype=torch.int32, device=META), mesh)
+    cache_shard = SH.cache_shardings(model.cache_specs(batch, seq), mesh)
+    return StepBundle(prefill_step, (p_shapes, b_shapes),
+                      (p_shard, b_shard), (tok_shard, cache_shard))
 
 
-def make_decode_step(cfg: ModelConfig, batch: int, seq: int, *,
-                     device: Optional[torch.device] = None):
+def make_decode_step(cfg: ModelConfig, mesh, batch: int, seq: int,
+                     fsdp: bool = True) -> StepBundle:
     """``(params, tokens (B,1), cache) -> (next_tok (B,1) int32, cache)``:
     one greedy decode step of ``batch`` rows against a cache of ``seq``
     positions (written in place)."""
-    device = resolve_device(device)
+    device = mesh.device
     model = build(cfg)
 
     @torch.no_grad()
@@ -133,4 +235,27 @@ def make_decode_step(cfg: ModelConfig, batch: int, seq: int, *,
         logits, cache = model.decode(params, tokens, cache)
         return torch.argmax(logits, dim=-1)[:, None].to(torch.int32), cache
 
-    return serve_step
+    p_shapes = abstract_params(cfg)
+    specs = input_specs(cfg, "decode", batch=batch, seq=seq)
+    t_shapes, c_shapes = specs["tokens"], specs["cache"]
+    p_shard = SH.params_shardings(p_shapes, mesh, fsdp=fsdp)
+    t_shard = SH.batch_shardings(t_shapes, mesh)
+    c_shard = SH.cache_shardings(c_shapes, mesh)
+    return StepBundle(serve_step, (p_shapes, t_shapes, c_shapes),
+                      (p_shard, t_shard, c_shard),
+                      (t_shard, c_shard), donate_argnums=(2,))
+
+
+def _opt_shardings(opt_shapes, param_shapes, param_shardings, mesh):
+    """Optimizer moments shard exactly like their parameters (ZeRO-style);
+    scalars (step) replicate. Works for AdamWState and CompressedState."""
+    p_struct = structure(param_shapes)
+
+    def rec(node):
+        if hasattr(node, "_fields"):       # NamedTuple states: the fields
+            return type(node)(*[rec(getattr(node, f)) for f in node._fields])
+        if structure(node) == p_struct:    # a params-shaped subtree
+            return param_shardings
+        return _replicated(node, mesh)
+
+    return rec(opt_shapes)

@@ -9,11 +9,13 @@ As in ``repro``, ``--smoke`` is on (the registry config's ``.smoke()``
 cut), and training runs in float32 with the synthetic ``TokenPipeline``,
 AdamW (warmup 10, cosine over ``--steps``), checkpoint/restart and
 straggler monitoring through the ``Trainer``. Weights are random, from a
-seeded ``torch.Generator`` on the device. The device defaults to ``cuda``;
-a missing card is an error. On the card the gradients of attention and of
-the SSD scan are their backward kernels, so mamba2 and jamba train there
-as the decoders do (``--arch mamba2-370m``); whisper raises everywhere
-(the pipeline makes tokens, not audio frames).
+seeded ``torch.Generator`` on the device. The step is the ``StepBundle``
+of ``launch/steps.py`` built on ``make_debug_mesh()`` over the card
+(``--device cpu``: the CPU's mesh); a missing card is an error. On the
+card the gradients of attention and of the SSD scan are their backward
+kernels, so mamba2 and jamba train there as the decoders do (``--arch
+mamba2-370m``); whisper raises everywhere (the pipeline makes tokens, not
+audio frames).
 """
 from __future__ import annotations
 
@@ -26,11 +28,12 @@ import torch
 
 from ..configs import get
 from ..data import TokenPipeline
-from ..device import resolve_device, upload
+from ..device import upload
 from ..kernels import _build
 from ..models import build
 from ..train.optimizer import AdamWConfig, adamw, compressed_adamw
 from ..train.trainer import Trainer, TrainerConfig
+from .mesh import make_debug_mesh
 from .steps import make_train_step
 
 
@@ -49,7 +52,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
+    mesh = make_debug_mesh(device=args.device)
+    device = mesh.device
     cfg = get(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
@@ -64,9 +68,9 @@ def main(argv=None):
                    else adamw)(opt_cfg)
     params = model.init(torch.Generator(device).manual_seed(0))
     opt_state = opt_init(params)
-    step_fn = make_train_step(cfg, args.batch, args.seq,
+    step_fn = make_train_step(cfg, mesh, args.batch, args.seq,
                               compressed_grads=args.compressed_grads,
-                              opt_cfg=opt_cfg, device=device)
+                              opt_cfg=opt_cfg).fn
     if device.type == "cuda":
         _build.build_all()       # compile the kernels before the clock starts
     pipeline = TokenPipeline(vocab=cfg.vocab, batch=args.batch, seq=args.seq)

@@ -6,6 +6,7 @@
   prefill(params, batch, max_seq, length=None) -> (logits, cache)
   decode(params, tokens, cache) -> (logits, cache)
   init_cache(batch, max_seq, device) -> zeroed cache
+  cache_specs(batch, max_seq) -> the cache as meta tensors (the dry run)
 
 The port runs every family of ``repro``: the decoder (dense and MoE, with
 gemma3's mixed ring cache under ``mixed_cache``), the ssm program
@@ -145,6 +146,10 @@ class Model:
             return T.decoder_init_cache_mixed(self.cfg, batch, max_seq,
                                               device)
         return T.decoder_init_cache(self.cfg, batch, max_seq, device)
+
+    def cache_specs(self, batch: int, max_seq: int):
+        """The cache's leaves as meta tensors: shapes and dtypes only."""
+        return self.init_cache(batch, max_seq, torch.device("meta"))
 
 
 def build(cfg: ModelConfig) -> Model:

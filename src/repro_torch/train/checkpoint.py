@@ -15,8 +15,11 @@ counterpart of ``repro/train/checkpoint.py``).
   Leaves are taken in ``train/tree.py``'s fixed order: dicts by sorted
   key, lists, NamedTuple fields.
 * **Restore onto a device**: ``restore(like, step)`` puts each leaf on the
-  device and dtype of its ``like`` leaf (the one-device counterpart of
-  ``repro``'s ``shardings=``; meshes are ROADMAP item 16).
+  device and dtype of its ``like`` leaf; ``restore(like, step,
+  shardings=)`` on the device of each leaf's sharding's mesh (a tree of
+  ``launch/sharding.py::NamedSharding``, as a ``StepBundle``'s
+  ``in_shardings`` holds it). A mesh of several cards raises
+  (``launch/mesh.py::MULTI_CARD``).
 * **Retention**: keeps the newest ``keep`` checkpoints.
 """
 from __future__ import annotations
@@ -115,9 +118,12 @@ class CheckpointManager:
         s = self.steps()
         return s[-1] if s else None
 
-    def restore(self, like: Any, step: Optional[int] = None) -> Any:
-        """Restore into the structure of ``like``; each tensor leaf goes to
-        the device and dtype of its ``like`` leaf."""
+    def restore(self, like: Any, step: Optional[int] = None,
+                shardings: Any = None) -> Any:
+        """Restore into the structure of ``like``; each tensor leaf takes
+        the dtype of its ``like`` leaf, and the device of its ``like``
+        leaf, or with ``shardings`` (a tree with ``like``'s leaves) the
+        device of its sharding's mesh."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -130,6 +136,11 @@ class CheckpointManager:
             raise ValueError(
                 f"checkpoint has {meta['n_leaves']} leaves, expected "
                 f"{len(like_leaves)}: structure changed?")
+        devices = [None] * len(like_leaves) if shardings is None else \
+            [sh.mesh.device for sh in leaves(shardings)]
+        if len(devices) != len(like_leaves):
+            raise ValueError(f"{len(devices)} shardings for "
+                             f"{len(like_leaves)} leaves")
         out = []
         with np.load(path / "leaves.npz") as z:
             for i, ref in enumerate(like_leaves):
@@ -141,6 +152,7 @@ class CheckpointManager:
                         raise ValueError(
                             f"leaf {i}: checkpoint shape {shape}, expected "
                             f"{tuple(ref.shape)}")
-                    t = t.to(device=ref.device, dtype=ref.dtype)
+                    t = t.to(device=devices[i] or ref.device,
+                             dtype=ref.dtype)
                 out.append(t)
         return unflatten(like, out)

@@ -79,11 +79,15 @@ class Trainer:
         self.start_step = 0
 
     # -- fault tolerance -----------------------------------------------------
-    def maybe_restore(self) -> int:
+    def maybe_restore(self, shardings=None) -> int:
+        """Restore the latest checkpoint, if any, onto the devices of the
+        state's leaves, or of ``shardings`` (``CheckpointManager.restore``);
+        returns the step to start from."""
         latest = self.ckpt.latest_step()
         if latest is not None:
             self.params, self.opt_state = self.ckpt.restore(
-                (self.params, self.opt_state), step=latest)
+                (self.params, self.opt_state), step=latest,
+                shardings=shardings)
             self.start_step = latest
         return self.start_step
 

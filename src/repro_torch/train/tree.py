@@ -9,7 +9,7 @@ of ``models/``, the optimizer states of ``optimizer.py`` and the pair
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Iterator, List
+from typing import Any, Callable, Iterator, List, Tuple
 
 
 def _iter(tree) -> Iterator[Any]:
@@ -50,27 +50,34 @@ def unflatten(like, new_leaves) -> Any:
     return out
 
 
-def stack_keys(tree) -> List[tuple]:
-    """For each leaf, its path with the list indices left out: the leaves
-    of one key share a tensor in ``repro``'s layout, which stacks a list's
-    elements (the layers, a hybrid's periods and sublayers) on a leading
-    axis."""
-    out: List[tuple] = []
+def stacked_paths(tree) -> List[Tuple[tuple, Tuple[int, ...]]]:
+    """For each leaf, its path with the list indices left out, and the
+    lengths of the lists it sits in, outermost first. ``repro``'s layout
+    stacks a list's elements (the layers, a hybrid's periods and
+    sublayers) on leading axes of those lengths, so the leaves of one path
+    share a tensor there."""
+    out: List[Tuple[tuple, Tuple[int, ...]]] = []
 
-    def walk(node, path):
+    def walk(node, path, stack):
         if isinstance(node, dict):
             for key in sorted(node):
-                walk(node[key], path + (key,))
+                walk(node[key], path + (key,), stack)
         elif isinstance(node, list):
             for sub in node:
-                walk(sub, path)
+                walk(sub, path, stack + (len(node),))
         elif isinstance(node, tuple):
             for i, sub in enumerate(node):
-                walk(sub, path + (i,))
+                walk(sub, path + (i,), stack)
         elif node is not None:
-            out.append(path)
-    walk(tree, ())
+            out.append((path, stack))
+    walk(tree, (), ())
     return out
+
+
+def stack_keys(tree) -> List[tuple]:
+    """For each leaf, its path with the list indices left out: the leaves
+    of one key share a tensor in ``repro``'s layout (``stacked_paths``)."""
+    return [path for path, _ in stacked_paths(tree)]
 
 
 def map_tree(fn: Callable[[Any], Any], tree) -> Any:

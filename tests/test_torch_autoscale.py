@@ -17,8 +17,10 @@ services.
    solved plans part from ``repro``'s random starts, ``torch.Generator``
    against ``jax.random``);
  * ``--dump-metrics`` writes the metric families ``repro``'s writes;
- * ``--shard auto|off|1`` runs on the one card, a larger count raises
-   naming ROADMAP item 16;
+ * ``--shard`` resolves as ``repro``'s ``resolve_shard`` does on one
+   device: every count runs, and ``--shard 2`` and ``4`` print what
+   ``--shard 1`` prints; a count that resolves to several cards raises
+   naming the ROADMAP item for them;
  * the fleet launchers run on the CPU, and every launcher runs on the
    card unless told otherwise, raising when there is none.
 """
@@ -103,12 +105,38 @@ def test_summary_lines(capsys):
 
 @pytest.mark.parametrize("shard", ["auto", "off", "1"])
 def test_shard_on_one_card_is_accepted(shard):
-    autoscale.one_card(shard)
+    assert autoscale.one_card(shard, torch.device("cpu")) == 1
 
 
-def test_shard_over_several_cards_names_the_mesh_item():
-    with pytest.raises(NotImplementedError, match="item 16"):
-        autoscale.main(["--device", "cpu", "--shard", "2"])
+def test_shard_over_several_cards_names_the_mesh_item(monkeypatch):
+    """Where several cards are present, a count above 1 asks for them:
+    spreading the solve over cards is ROADMAP item 31."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    with pytest.raises(NotImplementedError, match="item 31"):
+        autoscale.one_card("2", torch.device("cuda"))
+    assert autoscale.one_card("1", torch.device("cuda")) == 1
+    assert autoscale.one_card("off", torch.device("cuda")) == 1
+
+
+@pytest.mark.parametrize("shard", [True, False, None, "auto", "off", "0",
+                                   0, 1, 2, 4, "4"])
+def test_resolve_shard_matches_repro_on_one_device(shard):
+    from repro.core.solver import resolve_shard as jax_resolve_shard
+    from repro_torch.core.solver import resolve_shard
+    want = jax_resolve_shard(False if shard == "off" else shard)
+    assert resolve_shard(shard, torch.device("cpu")) == want == 1
+
+
+def test_shard_counts_above_one_print_what_shard_1_prints(capsys):
+    """``repro`` caps the count at the devices present, so on one device
+    ``--shard 2`` and ``--shard 4`` run the same solve as ``--shard 1``."""
+    outs = {}
+    for shard in ("1", "2", "4"):
+        autoscale.main(["--device", "cpu", "--minutes", "2", "--shard",
+                        shard])
+        outs[shard] = capsys.readouterr().out
+    assert "cycles=" in outs["1"]
+    assert outs["2"] == outs["1"] and outs["4"] == outs["1"]
 
 
 def test_lm_services_read_the_ported_registry():

@@ -1800,3 +1800,94 @@ def test_ssd_scan_autograd_goes_through_the_kernels(cuda_device, dtype,
     with torch.no_grad():
         ops.ssd(*leaves[:5], chunk=128)
     assert ssd_cuda.launches == 2 and ssd_backward_cuda.launches == 1
+
+
+# -- the mesh, the step bundles and the checkpoint's shardings -----------------
+
+@pytest.mark.cuda
+def test_debug_mesh_is_over_the_first_card(cuda_device):
+    from repro_torch.launch import make_debug_mesh
+    mesh = make_debug_mesh()
+    assert mesh.devices.shape == (1, 1)
+    assert mesh.device == torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_bundle_step_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """gemma3-1b's smoke cut in float32: one train step of the bundle on
+    the card's 1 x 1 mesh against the CPU mesh's, from one set of weights.
+    The loss and grad norm agree within 1e-4 relative; the gradients, in
+    Adam's first moment (1 - b1) g, within 1e-4 of each leaf's largest
+    entry, its second moment within 2e-4; and the card's update is AdamW's
+    on the card's own moments: each parameter within 1e-2 lr plus 4 ulp of
+    p0 - lr ((m / b1c) / (sqrt(v / b2c) + eps) + wd p0) (a missing or
+    flipped update is off by lr or more). Then the card's state
+    checkpointed and restored through ``restore(..., shardings=)`` of the
+    bundle's ``in_shardings``: on the card, bitwise equal."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.launch import make_debug_mesh, make_train_step
+    from repro_torch.models import build
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.optimizer import AdamWConfig, adamw
+    from repro_torch.train.tree import leaves, map_tree
+    cfg = dataclasses.replace(get("gemma3-1b").smoke(), dtype="float32")
+    ocfg = AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=4)
+    params = build(cfg).init(torch.Generator().manual_seed(0))
+    p0 = [t.clone() for t in leaves(params)]     # the steps update in place
+    rng = np.random.default_rng(0)
+    batch = {k: rng.integers(0, cfg.vocab, (2, 48)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    out = {}
+    for mesh in (make_debug_mesh(), make_debug_mesh(device="cpu")):
+        bundle = make_train_step(cfg, mesh, 2, 48, opt_cfg=ocfg)
+        p = map_tree(lambda t: t.to(mesh.device), params)
+        state = bundle.fn(p, adamw(ocfg)[0](p), batch)
+        out[mesh.device.type] = (bundle, state)
+    (bundle, (pc, oc, mc)), (_, (_, op, mp)) = out["cuda"], out["cpu"]
+    for key in ("loss", "grad_norm"):
+        assert abs(float(mc[key]) - float(mp[key])) \
+            <= 1e-4 * abs(float(mp[key]))
+    lr = float(mc["lr"])
+    assert lr == float(mp["lr"]) and abs(lr - ocfg.lr) <= 1e-6 * ocfg.lr
+    b1c, b2c = 1 - ocfg.b1, 1 - ocfg.b2                  # step 1
+    moved = 0.0
+    for a, m, v, mq, vq, x in zip(leaves(pc), leaves(oc.mu), leaves(oc.nu),
+                                  leaves(op.mu), leaves(op.nu), p0):
+        assert a.device == torch.device("cuda", 0)
+        m, v, a = m.cpu(), v.cpu(), a.cpu()
+        assert float((m - mq).abs().max()) <= 1e-4 * float(mq.abs().max())
+        assert float((v - vq).abs().max()) <= 2e-4 * float(vq.abs().max())
+        want = x - lr * ((m / b1c) / ((v / b2c).sqrt() + ocfg.eps)
+                         + ocfg.weight_decay * x)
+        bar = 1e-2 * lr + 4 * torch.finfo(torch.float32).eps * x.abs()
+        assert bool(((a - want).abs() <= bar).all())
+        moved = max(moved, float((a - x).abs().max()))
+    assert moved >= 0.5 * lr
+
+    ckpt = CheckpointManager(tmp_path)
+    ckpt.save(1, (pc, oc), blocking=True)
+    like = map_tree(torch.zeros_like, (pc, oc))
+    restored = ckpt.restore(like, shardings=bundle.in_shardings[:2])
+    for a, b in zip(leaves(restored), leaves((pc, oc))):
+        assert a.device == torch.device("cuda", 0) and torch.equal(a, b)
+    # onto the CPU's like leaves, the shardings still put them on the card
+    cpu_like = map_tree(lambda t: t.cpu(), (pc, oc))
+    again = ckpt.restore(cpu_like, shardings=bundle.in_shardings[:2])
+    assert all(t.device.type == "cuda" for t in leaves(again))
+
+
+@pytest.mark.cuda
+def test_shard_4_runs_on_the_one_card(cuda_device, capsys):
+    """``--shard 4`` resolves to the one card (``repro`` caps the count at
+    the devices present) and prints what ``--shard 1`` prints."""
+    from repro_torch.launch import autoscale
+    if torch.cuda.device_count() != 1:
+        pytest.skip("the one-card semantics need exactly one card")
+    assert autoscale.one_card("4", cuda_device) == 1
+    outs = []
+    for shard in ("1", "4"):
+        autoscale.main(["--minutes", "2", "--shard", shard])
+        outs.append(capsys.readouterr().out)
+    assert "cycles=" in outs[0] and outs[1] == outs[0]

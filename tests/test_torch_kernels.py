@@ -135,9 +135,18 @@ def test_ops_route_cpu_tensors_to_plain_versions():
 
 
 def test_ops_reject_devices_without_an_implementation():
-    q = torch.empty((1, 2, 8, 16), device="meta")
+    """A device other than the card, the CPU and ``meta`` has no
+    implementation; ``meta`` takes the plain version, shapes only (the dry
+    run counts it), and launches nothing."""
+    class OnOtherDevice:
+        device = torch.device("xla")
     with pytest.raises(ValueError, match="no implementation"):
-        ops.flash_attention(q, q[:, :1], q[:, :1])
+        ops.flash_attention(OnOtherDevice(), None, None)
+    q = torch.empty((1, 2, 8, 16), device="meta")
+    launches = flash_attention_cuda.launches
+    out = ops.flash_attention(q, q[:, :1], q[:, :1])
+    assert out.device.type == "meta" and out.shape == q.shape
+    assert flash_attention_cuda.launches == launches
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

@@ -142,8 +142,11 @@ def test_ops_ssd_routes_cpu_tensors_to_the_plain_version(monkeypatch):
     want = plain(x, dt, A, B, C, chunk=16)
     torch.testing.assert_close(y, want[0], rtol=0, atol=0)
     torch.testing.assert_close(fin, want[1], rtol=0, atol=0)
-    with pytest.raises(ValueError, match="no implementation"):
-        ops.ssd(x.to("meta"), dt, A, B, C, chunk=16)
+    # meta takes the plain version too: shapes only, no launch
+    ym, finm = ops.ssd(*[t.to("meta") for t in (x, dt, A, B, C)], chunk=16)
+    assert calls == [1, 1] and ssd_cuda.launches == launches
+    assert ym.device.type == "meta" and ym.shape == y.shape
+    assert finm.shape == fin.shape
 
 
 def test_ssd_kernel_refuses_cpu_tensors():

@@ -48,6 +48,7 @@ from repro.train.trainer import TrainerConfig as JaxTrainerConfig
 from repro_torch.configs import get
 from repro_torch.data import TokenPipeline
 from repro_torch.launch import train as launch_train
+from repro_torch.launch.mesh import make_debug_mesh as torch_debug_mesh
 from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
                                       make_train_step)
 from repro_torch.models import build
@@ -63,6 +64,7 @@ from repro_torch.train.tree import leaves, map_tree, unflatten
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
+CPU_MESH = torch_debug_mesh(device="cpu")
 
 
 def _cfgs(vocab=64):
@@ -262,10 +264,10 @@ def test_microbatched_step_matches_one_batch_and_repro(start):
     batch = TokenPipeline(vocab=cfg.vocab, batch=4, seq=32).batch_at(1)
     mb = {k: v.reshape(2, 2, 32) for k, v in batch.items()}
 
-    one = make_train_step(cfg, 4, 32, opt_cfg=AdamWConfig(**ocfg),
-                          device=CPU)
-    two = make_train_step(cfg, 4, 32, microbatches=2,
-                          opt_cfg=AdamWConfig(**ocfg), device=CPU)
+    one = make_train_step(cfg, CPU_MESH, 4, 32,
+                          opt_cfg=AdamWConfig(**ocfg)).fn
+    two = make_train_step(cfg, CPU_MESH, 4, 32, microbatches=2,
+                          opt_cfg=AdamWConfig(**ocfg)).fn
     init, _ = adamw(AdamWConfig(**ocfg))
     pa = params_from_numpy(cfg, tree)
     _, sa, ma = one(pa, init(pa), batch)
@@ -295,14 +297,14 @@ def test_microbatched_step_matches_one_batch_and_repro(start):
 
 def test_step_refuses_a_batch_of_another_shape(start):
     _, cfg, tree = start
-    step = make_train_step(cfg, 4, 32, microbatches=2, device=CPU)
+    step = make_train_step(cfg, CPU_MESH, 4, 32, microbatches=2).fn
     params = params_from_numpy(cfg, tree)
     init, _ = adamw(AdamWConfig())
     batch = TokenPipeline(vocab=cfg.vocab, batch=4, seq=32).batch_at(0)
     with pytest.raises(ValueError, match="built for"):
         step(params, init(params), batch)             # not (M, B/M, S)
     with pytest.raises(ValueError, match="multiple"):
-        make_train_step(cfg, 5, 32, microbatches=2, device=CPU)
+        make_train_step(cfg, CPU_MESH, 5, 32, microbatches=2)
 
 
 def test_five_trainer_steps_match_repro(start, tmp_path):
@@ -328,8 +330,8 @@ def test_five_trainer_steps_match_repro(start, tmp_path):
 
     init, _ = adamw(AdamWConfig(**ocfg))
     params = params_from_numpy(cfg, tree)
-    tr = Trainer(make_train_step(cfg, 4, 32, opt_cfg=AdamWConfig(**ocfg),
-                                 device=CPU),
+    tr = Trainer(make_train_step(cfg, CPU_MESH, 4, 32,
+                                 opt_cfg=AdamWConfig(**ocfg)).fn,
                  params, init(params), TokenPipeline(**pipe),
                  TrainerConfig(total_steps=5, ckpt_every=100,
                                ckpt_dir=str(tmp_path / "torch")))
@@ -350,8 +352,8 @@ def test_prefill_and_decode_steps_are_greedy(start):
     model = build(cfg)
     toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 12)).astype(
         np.int32)
-    prefill = make_prefill_step(cfg, 2, 24, device=CPU)
-    decode = make_decode_step(cfg, 2, 24, device=CPU)
+    prefill = make_prefill_step(cfg, CPU_MESH, 2, 24).fn
+    decode = make_decode_step(cfg, CPU_MESH, 2, 24).fn
     nxt, cache = prefill(params, {"tokens": toks})
     logits, _ = model.prefill(params, {"tokens": torch.from_numpy(toks)},
                               max_seq=24)
@@ -369,7 +371,7 @@ def _parts(tmp_path, steps):
     model = build(cfg)
     params = model.init(torch.Generator().manual_seed(0))
     init, _ = adamw(ocfg)
-    step = make_train_step(cfg, 4, 32, opt_cfg=ocfg, device=CPU)
+    step = make_train_step(cfg, CPU_MESH, 4, 32, opt_cfg=ocfg).fn
     pipe = TokenPipeline(vocab=cfg.vocab, batch=4, seq=32, noise=0.05)
     return step, params, init(params), pipe
 
