@@ -497,6 +497,26 @@ the kernels' over 494.7/3 (float32 as three TF32 products), counted bytes
 over 3.35 TB/s), must be at most the measured median step (a bound above
 a measured step is a wrong count). It prints both times and their ratio.
 
+Several devices (ROADMAP item 31). Phase "fleet_shards" runs
+``core/solver.py::shard_rows``: e6's two fleets solved and e8's 1,100
+placement candidates scored with each layout bucket's rows cut into 1, 2
+and 4 chunks, all on the one card: assignments and scores byte-identical
+to one chunk, the RASK kernels' launches the non-empty chunks x 33, no
+plain version on the card, the scores held to the CPU twin's as in
+"fleet_solve"; it reports each count's median ms (with several cards,
+one more count: a chunk on each card). Phase "mesh" runs the
+dense decoder's step bundles on a one-rank ``nccl`` world's (1, 1) mesh,
+every tensor a DTensor placed by the bundle's shardings: gemma3-1b at full
+width cut to ``PERIOD_LAYERS``, a bf16 prefill of 4 x 1,024 tokens and 8
+decode steps (tokens equal to the one-device steps', logits and cache
+within 5e-2), a float32 train step twice on 4 x 1,024 tokens (loss, grad
+norm and Adam's moments within 1e-4 relative), the kernels' launch counts
+zeroed before and read after the mesh run, the placed state's local bytes
+equal to the dry run's per-device bytes, the bf16 weights restored onto
+the mesh bit for bit, and each step's ms beside the one-device step's.
+Whether two ``gloo`` ranks on the one card carry the steps is a probe run
+by hand (``python -m repro_torch.launch.gloo_on_cuda``), not a phase.
+
 Every phase line carries its wall ``seconds``.
 
 Prints the card's name and power limit, one JSON line per phase, a
@@ -5535,6 +5555,381 @@ def phase_dryrun(dev, trained):
     return res
 
 
+# -- several devices: shard_rows and the mesh (ROADMAP item 31) --------------------
+
+FLEET_SHARDS = (1, 2, 4)
+
+
+def phase_fleet_shards(dev):
+    """``shard_rows`` on the card: e6's two fleets (``SOLVE_FLEET``,
+    ``SCALE_FLEET``) solved and e8's placement candidates
+    (``_scale_candidates``) scored with each layout bucket's rows cut into
+    1, 2 and 4 chunks, every chunk on the one card (``devices=[dev] * n``:
+    the machine has one). Checks, for each count: assignments and scores
+    byte-identical to the 1-shard solve; the RASK kernels' launches the
+    buckets' non-empty chunks x (32 + 1) (32 backward, 1 forward a chunk);
+    no plain version on the card; the card's scores held to the CPU twin's
+    (the plain versions, the same uniforms) as "fleet_solve" holds them.
+    Reports each count's median ms of 2 solves after the checked one, and
+    the chunks a bucket. Where the machine has several cards, one more
+    count: ``shard="auto"``, a chunk on each card, each solved with its
+    card current, under the same checks."""
+    import numpy as np
+
+    from repro_torch.core.solver import (FleetSolverProblem,
+                                         PlacementProblem, SolverProblem)
+    from repro_torch.device import shard_devices
+
+    cpu = torch.device("cpu")
+    counts = [(str(n), [dev] * n) for n in FLEET_SHARDS]
+    if torch.cuda.device_count() > 1:
+        every = shard_devices("auto", dev)
+        counts.append((f"{len(every)}_cards", every))
+    res = {"phase": "fleet_shards", "shards": [k for k, _ in counts]}
+
+    def over_counts(name, make, solve, cpu_twin, seed):
+        rows, base = {}, None
+        for n, devices in counts:
+            prob = make(devices)
+            if base is None:     # one draw for every count: alike buckets
+                u = prob.uniforms(torch.Generator(dev).manual_seed(seed), 6)
+                want_cpu = cpu_twin([x.cpu() for x in u])
+            _zero_rask_counts()
+            with PlainOnCard() as plain:
+                out = solve(prob, u)
+                torch.cuda.synchronize()
+                launches = _rask_counts()
+            chunks = sum(len(bk.shards) for bk in prob.buckets)
+            base = out if base is None else base
+            row = {"chunks": [len(bk.shards) for bk in prob.buckets],
+                   "devices": sorted({str(w) for bk in prob.buckets
+                                      for w, *_ in bk.shards}),
+                   "launches": {"rask_objective": launches[0],
+                                "rask_objective_grad": launches[1]},
+                   "expected_launches": [chunks, 32 * chunks],
+                   "plain_calls_on_card": plain.calls,
+                   "byte_identical": all(np.array_equal(a, b)
+                                         for a, b in zip(out, base)),
+                   "score_rel_gap_cpu": _cpu_agreement(out[-1], want_cpu),
+                   "ms": statistics.median(      # after the checked solve
+                       _wall_ms(lambda: solve(prob, u))[0]
+                       for _ in range(2))}
+            rows[n] = row
+            check(launches == (chunks, 32 * chunks),
+                  f"fleet_shards {name} x{n}: launches {launches} for "
+                  f"{chunks} chunks")
+            check(not any(plain.calls.values()),
+                  f"fleet_shards {name} x{n}: plain versions on the card")
+            check(row["byte_identical"],
+                  f"fleet_shards {name} x{n}: differs from 1 shard")
+            _check_cpu_agreement(row["score_rel_gap_cpu"],
+                                 f"fleet_shards {name} x{n}")
+        res[name] = rows
+        log(json.dumps({name: rows}))
+
+    def cpu_models(sm):
+        return type(sm)(sm.w.cpu(), sm.exponents.cpu(), sm.term_mask.cpu(),
+                        sm.x_scale.cpu(), sm.max_degree)
+
+    for name, fleet in (("hetero", SOLVE_FLEET), ("scale", SCALE_FLEET)):
+        problem, host_of, caps, sm, rps, x0 = _solve_fleet(fleet, dev)
+        on_cpu = SolverProblem(problem.specs, device=cpu)
+        over_counts(name, lambda devs: FleetSolverProblem(
+            problem, host_of, caps, devices=devs),
+            lambda fp, u: fp.solve_many(sm, rps, x0, u=u),
+            lambda u: FleetSolverProblem(on_cpu, host_of, caps).solve_many(
+                cpu_models(sm), rps, x0, u=u)[1], seed=7)
+    subsets, caps_list = _scale_candidates(problem, host_of, caps, x0)
+    over_counts("placement", lambda devs: PlacementProblem(
+        problem, subsets, caps_list, devices=devs),
+        lambda pp, u: (pp.scores(sm, rps, x0, u=u),),
+        lambda u: PlacementProblem(on_cpu, subsets, caps_list).scores(
+            cpu_models(sm), rps, x0, u=u), seed=8)
+    return res
+
+
+MESH_ROWS, MESH_PROMPT, MESH_MAX_SEQ, MESH_DECODES = 4, 1024, 2048, 8
+MESH_TRAIN_STEPS = 2
+# bf16 serving: the mesh's one rank runs the one-device step's kernels on
+# the same tensors, so tokens must be equal and logits and caches agree to
+# bf16's rounding (tests/test_kernels.py's 5e-2); float32 training: loss
+# and grad norm within 1e-4 relative, Adam's moments within 1e-4 of each
+# leaf's largest entry (tests/test_torch_cuda.py's card-vs-CPU bars)
+MESH_BF16_TOL, MESH_F32_REL = 5e-2, 1e-4
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _mesh_counts():
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_cuda, flash_attention_cuda)
+    v = flash_attention_cuda.variant_launches
+    return {"decode_attention": decode_attention_cuda.launches,
+            "flash_wgmma": v["wgmma"], "flash_attention_fp32": v["tf32x3"],
+            "flash_attention_backward": flash_attention_backward_cuda.launches}
+
+
+def _zero_mesh_counts():
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import reset_launches
+    decode_attention_cuda.launches = 0
+    reset_launches()
+
+
+def _whole(t):
+    """A DTensor's whole tensor (a plain tensor as it is)."""
+    from repro_torch.models.spmd import is_dtensor
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def _wall_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0), out
+
+
+def _mesh_serve(dev, mesh, one):
+    """gemma3-1b (bf16, full width, ``PERIOD_LAYERS`` deep): a prefill of
+    ``MESH_ROWS`` x ``MESH_PROMPT`` tokens into a ``MESH_MAX_SEQ`` cache
+    and ``MESH_DECODES`` decode steps through the DTensor path, against
+    the one-device bundle steps on the same weights; then the weights
+    saved and restored onto the mesh."""
+    import tempfile
+
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get
+    from repro_torch.kernels import ops as kernel_ops
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.tree import leaves, map_tree
+
+    cfg = dataclasses.replace(get("gemma3-1b"), n_layers=PERIOD_LAYERS)
+    model = build(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    pre1, dec1 = (make_prefill_step(cfg, one, MESH_ROWS, MESH_MAX_SEQ),
+                  make_decode_step(cfg, one, MESH_ROWS, MESH_MAX_SEQ))
+    pre, dec = (make_prefill_step(cfg, mesh, MESH_ROWS, MESH_MAX_SEQ),
+                make_decode_step(cfg, mesh, MESH_ROWS, MESH_MAX_SEQ))
+    placed = SH.place(params, pre.in_shardings[0])
+    prompt = torch.randint(0, cfg.vocab, (MESH_ROWS, MESH_PROMPT),
+                           generator=torch.Generator(dev).manual_seed(1),
+                           device=dev, dtype=torch.int32)
+    res = {"model": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+           "rows": MESH_ROWS, "prompt": MESH_PROMPT,
+           "max_seq": MESH_MAX_SEQ, "decode_steps": MESH_DECODES,
+           "local_bytes": SH.local_bytes(placed),
+           "dryrun_bytes": SH.sharded_size_bytes(pre.args[0],
+                                                 pre.in_shardings[0])}
+
+    def run(step_pre, step_dec, p):
+        ms = {"prefill": [], "decode": []}
+        for _ in range(3):          # the first call fills DTensor's caches
+            t, (tok, cache) = _wall_ms(
+                lambda: step_pre.fn(p, {"tokens": prompt}))
+            ms["prefill"].append(t)
+        toks = [tok[:, None]]
+        for _ in range(MESH_DECODES):
+            t, (nxt, cache) = _wall_ms(lambda: step_dec.fn(p, toks[-1],
+                                                           cache))
+            ms["decode"].append(t)
+            toks.append(nxt)
+        return (torch.cat([_whole(t) for t in toks], dim=1),
+                [_whole(cache["k"]), _whole(cache["v"])], ms)
+
+    _zero_mesh_counts()
+    gathered = kernel_ops.GATHERED_KV_BYTES
+    gathered.update(dict.fromkeys(gathered, 0))
+    with PlainOnCard() as plain:
+        toks, kv, ms = run(pre, dec, placed)
+        torch.cuda.synchronize()
+    launches = _mesh_counts()
+    gathered = dict(gathered)
+    toks1, kv1, ms1 = run(pre1, dec1, params)
+    batch = SH.place({"tokens": prompt}, pre.in_shardings[1])
+    with torch.no_grad():
+        with implicit_replication():
+            logits = model.prefill(placed, batch,
+                                   max_seq=MESH_MAX_SEQ)[0].full_tensor()
+        logits1 = model.prefill(params, {"tokens": prompt},
+                                max_seq=MESH_MAX_SEQ)[0]
+    res.update({
+        "launches": launches, "plain_calls_on_card": plain.calls,
+        "tokens_equal": bool(torch.equal(toks, toks1)),
+        "logits_max_abs_diff": float((logits.float() - logits1.float())
+                                     .abs().max()),
+        "cache_max_abs_diff": max(float((a.float() - b.float()).abs().max())
+                                  for a, b in zip(kv, kv1)),
+        "prefill_ms": ms["prefill"], "prefill_ms_one_device": ms1["prefill"],
+        "prefill_ms_median": statistics.median(ms["prefill"][1:]),
+        "prefill_ms_median_one_device": statistics.median(
+            ms1["prefill"][1:]),
+        "decode_ms_median": statistics.median(ms["decode"][1:]),
+        "decode_ms_median_one_device": statistics.median(ms1["decode"][1:]),
+        "gathered_cache_bytes_a_step":     # counted; 0 where "model" is 1
+            gathered["decode_attention"] / MESH_DECODES,
+        "gathered_kv_bytes": gathered})
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = CheckpointManager(tmp)
+        t = time.perf_counter()
+        ckpt.save(0, placed, blocking=True)
+        back = ckpt.restore(map_tree(torch.zeros_like, placed),
+                            shardings=pre.in_shardings[0])
+        torch.cuda.synchronize()
+        res["restore_roundtrip_s"] = time.perf_counter() - t
+    res["restored_bitwise"] = all(
+        torch.equal(a.to_local(), b.to_local())
+        and list(a.placements) == list(b.placements)
+        and a.to_local().device == dev
+        for a, b in zip(leaves(back), leaves(placed)))
+    check(res["local_bytes"] == res["dryrun_bytes"],
+          f"mesh serve: local bytes {res['local_bytes']} vs the dry run's "
+          f"{res['dryrun_bytes']}")
+    check(launches["flash_wgmma"] == 3 * cfg.n_layers     # 3 prefills
+          and launches["decode_attention"] == cfg.n_layers * MESH_DECODES,
+          f"mesh serve: launches {launches}")
+    check(not any(plain.calls.values()),
+          f"mesh serve: plain versions on the card {plain.calls}")
+    check(res["tokens_equal"], "mesh serve: tokens differ from one device")
+    check(res["logits_max_abs_diff"] <= MESH_BF16_TOL
+          and res["cache_max_abs_diff"] <= MESH_BF16_TOL,
+          f"mesh serve: logits {res['logits_max_abs_diff']}, cache "
+          f"{res['cache_max_abs_diff']}")
+    check(res["restored_bitwise"], "mesh serve: restore is not bitwise")
+    return res
+
+
+def _mesh_train(dev, mesh, one):
+    """gemma3-1b (float32, full width, ``PERIOD_LAYERS`` deep):
+    ``MESH_TRAIN_STEPS`` train steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ``
+    tokens through the DTensor path against the one-device bundle step
+    from the same weights and batches."""
+    from repro_torch.configs import get
+    from repro_torch.data import TokenPipeline
+    from repro_torch.device import upload
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build
+    from repro_torch.train.optimizer import AdamWConfig, adamw
+    from repro_torch.train.tree import leaves, map_tree
+
+    cfg = dataclasses.replace(get(TRAIN_ARCH), n_layers=PERIOD_LAYERS,
+                              dtype="float32")
+    params = build(cfg).init(torch.Generator(dev).manual_seed(0))
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=10,
+                          total_steps=TRAIN_STEPS)
+    init, _ = adamw(opt_cfg)
+    tr1 = make_train_step(cfg, one, TRAIN_BATCH, TRAIN_SEQ, opt_cfg=opt_cfg)
+    tr = make_train_step(cfg, mesh, TRAIN_BATCH, TRAIN_SEQ, opt_cfg=opt_cfg)
+    pipe = TokenPipeline(vocab=cfg.vocab, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    batches = [{k: upload(v, dev) for k, v in pipe.batch_at(i).items()}
+               for i in range(MESH_TRAIN_STEPS)]
+    placed = [SH.place(map_tree(torch.clone, params), tr.in_shardings[0])]
+    placed.append(SH.place(init(placed[0]), tr.in_shardings[1]))
+    placed_batch = SH.place(batches[0], tr.in_shardings[2])
+    res = {"model": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": MESH_TRAIN_STEPS,
+           "local_bytes": SH.local_bytes((*placed, placed_batch)),
+           "dryrun_bytes": SH.sharded_size_bytes(tr.args, tr.in_shardings)}
+    del placed_batch
+
+    def run(step, state):
+        metrics, ms = [], []
+        for b in batches:
+            t, (p, o, m) = _wall_ms(lambda: step.fn(*state, b))
+            state = [p, o]
+            ms.append(t)
+            metrics.append({k: float(_whole(v)) for k, v in m.items()})
+        return state, metrics, ms
+
+    _zero_mesh_counts()
+    with PlainOnCard() as plain:
+        state, metrics, ms = run(tr, placed)
+        torch.cuda.synchronize()
+    launches = _mesh_counts()
+    mu = [t.full_tensor() for t in leaves(state[1].mu)]
+    nu = [t.full_tensor() for t in leaves(state[1].nu)]
+    del state, placed
+    state1, metrics1, ms1 = run(tr1, [params, init(params)])
+
+    def worst(got, want):
+        return max(float((g - w).abs().max())
+                   / max(float(w.abs().max()), 1e-9)
+                   for g, w in zip(got, want))
+    rel = {k: max(abs(m[k] - w[k]) / max(abs(w[k]), 1e-12)
+                  for m, w in zip(metrics, metrics1))
+           for k in ("loss", "grad_norm")}
+    res.update({"launches": launches, "plain_calls_on_card": plain.calls,
+                "loss": [m["loss"] for m in metrics],
+                "loss_one_device": [m["loss"] for m in metrics1],
+                "grad_norm": [m["grad_norm"] for m in metrics],
+                "grad_norm_one_device": [m["grad_norm"] for m in metrics1],
+                "metric_rel_diff": rel,
+                "mu_rel_diff": worst(mu, leaves(state1[1].mu)),
+                "nu_rel_diff": worst(nu, leaves(state1[1].nu)),
+                "step_ms": ms, "step_ms_one_device": ms1})
+    n = cfg.n_layers * MESH_TRAIN_STEPS
+    check(res["local_bytes"] == res["dryrun_bytes"],
+          f"mesh train: local bytes {res['local_bytes']} vs the dry run's "
+          f"{res['dryrun_bytes']}")
+    check(launches["flash_attention_fp32"] == n
+          and launches["flash_attention_backward"] == n,
+          f"mesh train: launches {launches}, {n} expected")
+    check(not any(plain.calls.values()),
+          f"mesh train: plain versions on the card {plain.calls}")
+    check(max(rel.values()) <= MESH_F32_REL
+          and res["mu_rel_diff"] <= MESH_F32_REL
+          and res["nu_rel_diff"] <= MESH_F32_REL,
+          f"mesh train: {rel}, mu {res['mu_rel_diff']}, nu "
+          f"{res['nu_rel_diff']}")
+    return res
+
+
+def phase_mesh(dev):
+    """The dense decoder's step bundles on a real ``torch.distributed``
+    mesh: a one-rank ``nccl`` world on the card (``tcp://localhost``, a
+    free port), ``make_debug_mesh()`` its (1, 1) mesh, every step's
+    tensors DTensors placed by the bundle's shardings. "serve": the bf16
+    decode and prefill steps (``_mesh_serve``), "train": the float32
+    train step (``_mesh_train``), each held to the one-device bundle step
+    on the same inputs, its launch counts (zeroed just before the mesh run
+    and read just after) those of the kernels, the placed state's local
+    bytes the dry run's per-device bytes, and the serving weights restored
+    onto the mesh bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import Mesh, make_debug_mesh
+
+    _free_card()
+    dist.init_process_group("nccl", init_method="tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_debug_mesh()
+        one = Mesh((1, 1), ("data", "model"), [dev])
+        check(mesh.distributed and mesh.device == dev,
+              f"mesh: {mesh!r} on {mesh.device}")
+        res = {"phase": "mesh", "backend": dist.get_backend(),
+               "mesh": repr(mesh), "serve": _mesh_serve(dev, mesh, one)}
+        _free_card()
+        res["train"] = _mesh_train(dev, mesh, one)
+    finally:
+        dist.destroy_process_group()
+    _free_card()
+    log(json.dumps(res))
+    return res
+
+
 # -- the summary ------------------------------------------------------------------
 
 def emit(phase, *args, **kw):
@@ -5652,7 +6047,8 @@ def main(argv=None):
                     "the training phases (comma-separated: train_kernels, "
                     "train_crosscheck, train, ssd_backward_kernels, "
                     "ssm_train_crosscheck, ssm_train, dryrun: after train "
-                    "and ssm_train) and print no summary")
+                    "and ssm_train; fleet_shards, mesh) and print no "
+                    "summary")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -5693,6 +6089,10 @@ def main(argv=None):
         for name in args.phases.split(","):
             if name == "dryrun":
                 emit(phase_dryrun, dev, trained)
+                continue
+            if name in ("fleet_shards", "mesh"):
+                emit({"fleet_shards": phase_fleet_shards,
+                      "mesh": phase_mesh}[name], dev)
                 continue
             out = emit(training[name], dev)
             if name in ("train", "ssm_train"):
@@ -5771,6 +6171,13 @@ def main(argv=None):
     ssm_train, ssm_trained = emit(phase_ssm_train, dev)
     dry = emit(phase_dryrun, dev, {"train": trained,
                                    "ssm_train": ssm_trained})
+    del trained, ssm_trained
+    fleet_shards = emit(phase_fleet_shards, dev)
+    mesh = emit(phase_mesh, dev)
+    shard_launches = {k: sum(fleet_shards[p][n]["launches"][k]
+                             for p in ("hetero", "scale", "placement")
+                             for n in fleet_shards[p])
+                      for k in ("rask_objective", "rask_objective_grad")}
     option_launches = {
         "pipeline": {k: sum(pipeline[m]["launches"][k]
                             for m in ("sync", "pipelined"))
@@ -5837,7 +6244,9 @@ def main(argv=None):
                              "hybrid_serve":
                                  hybrid_serve["launches"]["decode_attention"],
                              "hybrid_crosscheck":
-                                 hybrid_cross["decode_launches"]},
+                                 hybrid_cross["decode_launches"],
+                             "mesh": mesh["serve"]["launches"][
+                                 "decode_attention"]},
         "flash_attention": {"serve": serve["flash_variant_launches"]["wgmma"],
                             "engine_compare": sum(c["wgmma"]
                                                   for c in compare),
@@ -5847,7 +6256,8 @@ def main(argv=None):
                             "encdec_serve":
                                 encdec_serve["launches"]["flash_wgmma"],
                             "hybrid_serve":
-                                hybrid_serve["launches"]["flash_wgmma"]},
+                                hybrid_serve["launches"]["flash_wgmma"],
+                            "mesh": mesh["serve"]["launches"]["flash_wgmma"]},
         "flash_attention_fp32": {
             "crosscheck": cross["flash_launches"]["tf32x3"],
             "moe_crosscheck": moe_cross["flash_launches"]["tf32x3"],
@@ -5855,9 +6265,11 @@ def main(argv=None):
             "hybrid_crosscheck": hybrid_cross["flash_launches"]["tf32x3"],
             "train": train["launches"]["flash_attention_fp32"],
             "train_crosscheck":
-                train_cross["launches"]["flash_attention_fp32"]},
+                train_cross["launches"]["flash_attention_fp32"],
+            "mesh": mesh["train"]["launches"]["flash_attention_fp32"]},
         "flash_attention_backward": {
             "train": train["launches"]["flash_attention_backward"],
+            "mesh": mesh["train"]["launches"]["flash_attention_backward"],
             "train_crosscheck":
                 train_cross["launches"]["flash_attention_backward"],
             "ssm_train_crosscheck": ssm_train_cross["jamba"]["launches"][
@@ -5879,6 +6291,7 @@ def main(argv=None):
                            "fleet_solve": fleet_launches["rask_objective"],
                            "failover":
                                failover["launches"]["rask_objective"],
+                           "fleet_shards": shard_launches["rask_objective"],
                            **{p: v["rask_objective"]
                               for p, v in option_launches.items()}},
         "rask_objective_grad": {
@@ -5886,6 +6299,7 @@ def main(argv=None):
             "serving_loop": loop_launches["rask_objective_grad"],
             "fleet_solve": fleet_launches["rask_objective_grad"],
             "failover": failover["launches"]["rask_objective_grad"],
+            "fleet_shards": shard_launches["rask_objective_grad"],
             **{p: v["rask_objective_grad"]
                for p, v in option_launches.items()}}}
     # and their times at e11's shapes, qwen2-moe's, whisper's, the mixed
@@ -5992,7 +6406,8 @@ def main(argv=None):
              "train_crosscheck": train_cross, "train": train,
              "ssd_backward_kernels": ssd_backward,
              "ssm_train_crosscheck": ssm_train_cross, "ssm_train": ssm_train,
-             "dryrun": dry, "wall_s": time.perf_counter() - t_start, **kernels},
+             "dryrun": dry, "fleet_shards": fleet_shards, "mesh": mesh,
+             "wall_s": time.perf_counter() - t_start, **kernels},
             indent=1))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": device}), flush=True)

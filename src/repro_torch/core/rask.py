@@ -101,10 +101,12 @@ service's degree is chosen by ``select_degree``'s test-split MSE (six fits
 a relation on the agent's device); a pass that changes no degree keeps the
 streaming fit's device window.
 
-``repro``'s ``aot``, ``shard`` and ``objective_impl`` fields are left out:
-they choose how JAX compiles, shards and which implementation scores; here
-nothing compiles, one card takes the whole solve, and the tensors' device
-picks the implementation.
+``shard`` is ``repro``'s: the fleet and placement solves spread each
+layout bucket's rows over the devices it resolves to
+(``solver.shard_rows``), byte for byte the one-device results. ``repro``'s
+``aot`` and ``objective_impl`` fields are left out: they choose how JAX
+compiles and which implementation scores; here nothing compiles and the
+tensors' device picks the implementation.
 """
 from __future__ import annotations
 
@@ -112,7 +114,8 @@ import contextlib
 import dataclasses
 import functools
 import time
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, \
+    Union
 
 import numpy as np
 import torch
@@ -164,6 +167,11 @@ class RaskConfig:
     # two so the host window and the device ring evict in lockstep; None
     # keeps an unbounded table
     table_retention: Optional[int] = 1024
+    # the fleet/placement solves' rows over devices (solver.shard_rows,
+    # device.shard_devices): "auto" every card (1 on the CPU), False/None
+    # one device, an int N the first N cards (at most the cards present;
+    # N entries of the CPU on the CPU); results are byte-identical
+    shard: Union[bool, int, str, None] = "auto"
     # pipelined decide (dispatch-then-collect): each decide queues this
     # cycle's fit+solve and returns the plan collected from the PREVIOUS
     # cycle's dispatch, so the device runs the solve while the environment
@@ -374,7 +382,7 @@ class RASKAgent(PlanningAgent):
                 self.problem,
                 {sid: platform.host_of(sid).host for sid in self.services},
                 {h.host: h.capacity[self.cfg.resource]
-                 for h in platform.hosts()})
+                 for h in platform.hosts()}, shard=self.cfg.shard)
 
     def _build_rel_static(self) -> None:
         """Static per-relation fit metadata (feature names + scales), in the
@@ -1277,7 +1285,8 @@ class RASKAgent(PlanningAgent):
         key = tuple((h, residents[h], float(caps[h])) for h in hosts)
         pp = cached_fn(self._placement_cache, key,
                        lambda: PlacementProblem(self.problem, subsets,
-                                                capacities), size=4)
+                                                capacities,
+                                                shard=self.cfg.shard), size=4)
         return pp, plan
 
     def _score_uniforms(self, pp: PlacementProblem):

@@ -57,10 +57,13 @@ Four callers batch rows:
 layout and, for fleets, collapses tiny mixed fleets to one shared layout;
 the thresholds (``_AUTO_BUCKET_MIN_HOSTS``, ``_AUTO_PAD_FACTOR``) are
 ``repro``'s, tuned there for XLA-CPU's dispatch floor and kept so that the
-port's layouts equal ``repro``'s. ``resolve_shard`` resolves ``repro``'s
-``shard`` option to a device count; spreading a bucket's rows over several
-cards (``repro``'s ``shard_rows``) is not ported, and one card takes the
-whole solve.
+port's layouts equal ``repro``'s. ``shard`` is ``repro``'s option too:
+``shard_rows`` cuts a bucket's rows into contiguous chunks, one a device
+(``device.shard_devices``: every card for ``"auto"``, N entries of the CPU
+on the CPU), and each chunk's batched ``pgd_solve`` runs on its device,
+that device current (``device.device_guard``), queued without waiting;
+the results come back in row order on the problem's device, byte for byte
+those of the unsharded solve (every row's arithmetic is its own).
 """
 from __future__ import annotations
 
@@ -73,7 +76,7 @@ import numpy as np
 import scipy.optimize
 import torch
 
-from ..device import device_count, upload
+from ..device import device_guard, shard_devices, upload
 from ..kernels import ops as kernel_ops
 from .regression import PolynomialModel, StackedModels, pad_capacity, \
     stack_models
@@ -129,21 +132,16 @@ def cached_fn(cache: Dict[tuple, object], key: tuple, build,
     return fn
 
 
-def resolve_shard(shard: Union[bool, int, str, None],
-                  device: torch.device) -> int:
-    """A ``shard=`` spec as a device count, as ``repro`` resolves it:
-    ``"auto"``/``True`` give every device present, ``False``/``None``/
-    ``"off"``/``"0"`` give 1, an integer is capped at the devices present
-    (the cards on ``cuda``, 1 on the CPU). ``True`` and ``1`` are told
-    apart by identity: ``repro``'s ``shard in ("auto", True)`` also takes
-    the integer 1 for every device."""
-    if shard is None or shard is False or (
-            isinstance(shard, str) and shard.lower() in ("off", "false")):
-        return 1
-    ndev = device_count(device)
-    if shard is True or shard == "auto":
-        return max(1, ndev)
-    return max(1, min(int(shard), ndev))
+def shard_rows(n_rows: int, devices: Sequence[torch.device]
+               ) -> List[Tuple[torch.device, slice]]:
+    """``repro``'s ``shard_rows`` as row chunks: B rows over n devices in
+    contiguous chunks of ceil(B / n), the rows each device runs under
+    ``repro``'s padded ``shard_map`` (whose padding re-runs real rows).
+    Chunks left empty (B < n, or a short tail) are dropped: they launch
+    nothing."""
+    per = -(-n_rows // max(len(devices), 1))
+    return [(dev, slice(i * per, min((i + 1) * per, n_rows)))
+            for i, dev in enumerate(devices) if i * per < n_rows]
 
 
 def project_capacity(a, lower, upper, mask, capacity,
@@ -735,7 +733,8 @@ class FleetBucket:
 
     def __init__(self, problem: "SolverProblem", hosts: Sequence[str],
                  host_idx: Sequence[int], svc_of_host: Sequence[Sequence[int]],
-                 capacities: Sequence[float]):
+                 capacities: Sequence[float],
+                 devices: Optional[Sequence[torch.device]] = None):
         self.hosts: Tuple[str, ...] = tuple(hosts)
         self.host_idx = np.asarray(host_idx, np.int64)  # rows in fleet order
         B = len(self.hosts)
@@ -839,6 +838,13 @@ class FleetBucket:
         self.loc_b = on(loc_b, dev)
         self.loc_d = on(loc_d, dev)
         self.caps = on(self.capacities, dev)
+        # the row chunks (``shard_rows``): each chunk's tables and budgets
+        # on its device, once for the layout
+        self.shards = [
+            (where, rows, ProblemTables(*(
+                t[rows].to(where) for t in self.tables)),
+             self.caps[rows].to(where))
+            for where, rows in shard_rows(B, devices or [dev])]
         # the exploration draw is projected on the CPU (the plan goes
         # straight back to the host): what that needs, on the CPU
         cpu = torch.device("cpu")
@@ -885,11 +891,31 @@ class FleetBucket:
     def solve(self, x0g, u, sm: StackedModels, rps, *, n_starts: int,
               iters: int, lr: float):
         """Every row of the bucket from the global warm start ``x0g``, the
-        global models and load, as one batch: (A (B, D_max), scores (B,))."""
-        return pgd_solve(self.split(x0g), u, self.tables,
-                         self.gather_models(sm), rps[self.svc_take],
-                         self.caps, n_starts=n_starts, iters=iters, lr=lr,
-                         n_services=self.n_services_max)
+        global models and load: one batch a row chunk, each on its device
+        (its warm starts, models, load and uniforms sent there once a
+        call, without waiting), gathered back in row order on ``x0g``'s
+        device: (A (B, D_max), scores (B,))."""
+        x0, smb, load = self.split(x0g), self.gather_models(sm), \
+            rps[self.svc_take]
+        parts = []
+        for where, rows, tables, caps in self.shards:
+            def on(t):
+                return t[rows].to(where, non_blocking=True)
+            with device_guard(where):   # kernels launch on the current card
+                parts.append(pgd_solve(
+                    on(x0), on(u), tables,
+                    StackedModels(on(smb.w), on(smb.exponents),
+                                  on(smb.term_mask), on(smb.x_scale),
+                                  smb.max_degree, ()),
+                    on(load), caps, n_starts=n_starts, iters=iters, lr=lr,
+                    n_services=self.n_services_max))
+        home = x0g.device
+        if len(parts) == 1 and parts[0][0].device == home:
+            return parts[0]
+        # a copy to the host is read at once, so only a card's is queued
+        wait = home.type != "cuda"
+        return tuple(torch.cat([p[i].to(home, non_blocking=not wait)
+                                for p in parts]) for i in range(2))
 
     def solve_row(self, j: int, x0g, u, sm: StackedModels, rps, *,
                   n_starts: int, iters: int, lr: float):
@@ -938,9 +964,10 @@ class FleetSolverProblem(_BucketedRows):
     per host, so the problem decomposes exactly into independent per-host
     subproblems. Hosts are grouped into **layout buckets** (power-of-two
     service/relation ceilings, ``bucket_key``), each padded only to its
-    member maxima; a solve runs one batched ``pgd_solve`` per bucket with
-    that bucket's **per-host capacity vector** — one backward launch per
-    bucket and ascent step, one forward launch per bucket — and scatters
+    member maxima; a solve runs one batched ``pgd_solve`` per bucket (per
+    row chunk of a bucket with ``shard``) with that bucket's **per-host
+    capacity vector** — one backward launch per chunk and ascent step, one
+    forward launch per chunk — and scatters
     the solved vectors back into the global plan (a precomputed
     permutation, ``join``). ``bucketed=False`` pads every host to one
     shared layout (``repro``'s e6 baseline). Plans are per-host feasible by
@@ -949,7 +976,9 @@ class FleetSolverProblem(_BucketedRows):
 
     def __init__(self, problem: "SolverProblem", host_of: Mapping[str, str],
                  capacities: Mapping[str, float],
-                 bucketed: Union[bool, str] = "auto"):
+                 bucketed: Union[bool, str] = "auto",
+                 shard: Union[bool, int, str, None] = "auto",
+                 devices: Optional[Sequence[torch.device]] = None):
         """``host_of``: service name (spec.name) -> host name;
         ``capacities``: host name -> resource budget C_h;
         ``bucketed=True`` keeps one bucket per power-of-two layout key;
@@ -958,8 +987,16 @@ class FleetSolverProblem(_BucketedRows):
         merges single-member buckets into a neighboring layout and
         collapses tiny fleets (every bucket below
         ``_AUTO_BUCKET_MIN_HOSTS`` hosts, little padding to save) to the
-        single shared layout."""
+        single shared layout.
+
+        ``shard`` spreads each bucket's rows over devices (``shard_rows``;
+        ``device.shard_devices`` resolves it on the problem's device):
+        ``"auto"`` (default) every card, 1 on the CPU; results are
+        byte-identical whatever the count. ``devices`` names them instead
+        (several shards may sit on one device)."""
         self.problem = problem
+        self.devices = list(devices or shard_devices(shard, problem.device))
+        self.n_shards = len(self.devices)
         self.hosts: Tuple[str, ...] = tuple(sorted(
             {host_of[s.name] for s in problem.specs}))
         hidx = {h: b for b, h in enumerate(self.hosts)}
@@ -995,12 +1032,13 @@ class FleetSolverProblem(_BucketedRows):
         self.buckets: List[FleetBucket] = [
             FleetBucket(problem, [self.hosts[b] for b in groups[k]],
                         groups[k], [svc_of_host[b] for b in groups[k]],
-                        self.capacities[groups[k]])
+                        self.capacities[groups[k]], self.devices)
             for k in keys]
 
-        # topology fingerprint: the resolved bucket structure and the
-        # per-host residents and capacities
+        # topology fingerprint: the shard count, the resolved bucket
+        # structure and the per-host residents and capacities
         self.layout_key: tuple = (
+            ("shards", self.n_shards),
             tuple(tuple(bk.hosts) for bk in self.buckets),
             tuple((h, tuple(svc_of_host[b]), float(self.capacities[b]))
                   for b, h in enumerate(self.hosts)))
@@ -1101,8 +1139,13 @@ class PlacementProblem(_BucketedRows):
     def __init__(self, problem: "SolverProblem",
                  subsets: Sequence[Sequence[int]],
                  capacities: Sequence[float],
-                 bucketed: Union[bool, str] = "auto"):
+                 bucketed: Union[bool, str] = "auto",
+                 shard: Union[bool, int, str, None] = "auto",
+                 devices: Optional[Sequence[torch.device]] = None):
+        """``shard`` and ``devices`` as ``FleetSolverProblem``'s."""
         self.problem = problem
+        self.devices = list(devices or shard_devices(shard, problem.device))
+        self.n_shards = len(self.devices)
         self.subsets: List[Tuple[int, ...]] = [
             tuple(int(i) for i in s) for s in subsets]
         self.capacities = np.asarray(capacities, np.float32)
@@ -1126,7 +1169,7 @@ class PlacementProblem(_BucketedRows):
             FleetBucket(problem, [f"cand{k}" for k in groups[key]],
                         groups[key],
                         [list(self.subsets[k]) for k in groups[key]],
-                        self.capacities[groups[key]])
+                        self.capacities[groups[key]], self.devices)
             for key in keys]
         self._order = np.concatenate(
             [bk.host_idx for bk in self.buckets]) if self.buckets \

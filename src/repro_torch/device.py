@@ -6,7 +6,8 @@ shapes and no data, so a step run on them computes nothing and counts
 its operations and bytes (``launch/op_cost.py``, the dry run)."""
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+from typing import List, Optional, Union
 
 import numpy as np
 import torch
@@ -30,6 +31,33 @@ def device_count(device: torch.device) -> int:
     """The devices present of ``device``'s kind: the cards on ``cuda``,
     one otherwise."""
     return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
+def shard_devices(shard: Union[bool, int, str, None], device: torch.device
+                  ) -> List[torch.device]:
+    """The devices a ``shard=`` spec spreads rows over: ``"auto"``/``True``
+    every card, an integer N (or its string) the first N cards, capped at
+    the cards present; ``False``/``None``/``"off"``/``"0"`` the one
+    ``device``. On the CPU, N gives N entries of ``cpu`` (``repro``'s forced
+    host devices are N CPU devices) and ``"auto"`` one."""
+    if shard is None or shard is False or (
+            isinstance(shard, str) and shard.lower() in ("off", "false")):
+        return [device]
+    auto = shard is True or shard == "auto"
+    if device.type != "cuda":
+        return [device] * (1 if auto else max(1, int(shard)))
+    n = torch.cuda.device_count()
+    n = n if auto else max(1, min(int(shard), n))
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def device_guard(device: torch.device):
+    """The context in which ``device`` is the current device: its card's
+    on ``cuda`` (a kernel launches on the current card and checks that its
+    tensors are there), nothing elsewhere."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def upload(array: np.ndarray, device: torch.device) -> torch.Tensor:

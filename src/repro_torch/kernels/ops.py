@@ -11,6 +11,17 @@ shapes and counts (``launch/op_cost.py``). There attention and the SSD
 scan run through ``_Priced``, which hands a count the work of the kernel
 that the card runs in the plain version's place.
 
+DTensors (the decoder on a mesh, ``launch/steps.py``): attention's two
+entry points run their kernel on each rank's local shards through
+``torch.distributed.tensor.experimental.local_map``, with declared
+placements (``_local_attention``): rows over every mesh dim but "model",
+whole query heads over "model", kv heads over "model" where they split
+with the query heads (else replicated, as gemma3's one kv head is), and
+the decode cache's sequence gathered over "model" (the bytes each rank
+receives for it are counted in ``GATHERED_KV_BYTES``). ``_route`` then
+picks the kernel by the local tensor's device, and under autograd the
+backward kernel runs on the local shards.
+
 Gradients: on a CPU tensor every entry point differentiates through its
 plain version under ordinary autograd. On a CUDA tensor attention
 differentiates through its backward kernel (``FlashAttention``), the SSD
@@ -21,6 +32,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import math
 
 import torch
 
@@ -34,6 +46,10 @@ from .ssd_scan import SSDScan, ssd_cuda
 
 # The counts that ``launch/op_cost.py`` runs, innermost last.
 COUNTS: list = []
+# Bytes each rank has received to gather attention's kv inputs into the
+# placements its kernel takes (``_local_attention``), by entry point: the
+# decode cache's sequence gathered over "model". Callers zero and read it.
+GATHERED_KV_BYTES = {"flash_attention": 0, "decode_attention": 0}
 
 
 def _route(t: torch.Tensor, name: str) -> bool:
@@ -104,11 +120,76 @@ def _wants_grad(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _local_attention(fn, q, kv, extra=()):
+    """``fn(q, *kv, *extra)`` on each rank's local shards of DTensor ``q``
+    (rows dim 0, heads dim 1), ``kv`` (flash's (B, KH, T, D) beside a
+    4-d ``q``, caches (B, S, KH, D) beside a 3-d one) and ``extra``
+    (per-row (B,) tensors). Rows shard over every mesh dim but "model"
+    where they split evenly; query heads over "model" where they split
+    and the kv heads split with them, or there is one kv head (then
+    replicated); the rest is replicated (a cache's sequence gathered)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    names = mesh.mesh_dim_names
+    size = dict(zip(names, mesh.shape))
+    kv_dim = 1 if q.dim() == 4 else 2
+    H, KH, m = q.shape[1], kv[0].shape[kv_dim], size.get("model", 1)
+    q_heads = H % m == 0 and (KH % m == 0 or KH == 1)
+    kv_heads = q_heads and KH % m == 0
+    rows = q.shape[0] % math.prod(
+        s for n, s in size.items() if n != "model") == 0
+
+    def pl(split, head_dim):
+        return tuple((Shard(head_dim) if split else Replicate())
+                     if n == "model" else
+                     (Shard(0) if rows else Replicate()) for n in names)
+    qp, kp, rp = pl(q_heads, 1), pl(kv_heads, kv_dim), pl(False, None)
+    # kv replicated over "model" beside split query heads: each rank's
+    # gradient of kv is its heads' part
+    kg = tuple(Partial() if n == "model" and q_heads and not kv_heads
+               else p for n, p in zip(names, kp))
+    extra = tuple(t if _is_dtensor(t) else DTensor.from_local(
+        t, mesh, [Replicate()] * mesh.ndim, run_check=False) for t in extra)
+    entry = "flash_attention" if q.dim() == 4 else "decode_attention"
+    GATHERED_KV_BYTES[entry] += sum(_gathered_bytes(t, kp) for t in kv)
+    return local_map(fn, out_placements=list(qp),
+                     in_placements=(qp,) + (kp,) * len(kv)
+                     + (rp,) * len(extra),
+                     in_grad_placements=(qp,) + (kg,) * len(kv)
+                     + (rp,) * len(extra),
+                     redistribute_inputs=True, device_mesh=mesh)(
+                         q, *kv, *extra)
+
+
+def _gathered_bytes(t, placements) -> int:
+    """What ``t``'s local shard grows by, in bytes, when it is
+    redistributed to ``placements``: what this rank receives to gather it
+    (0 for a plain tensor, or one that stays or shrinks)."""
+    if not _is_dtensor(t):
+        return 0
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    shape, _ = compute_local_shape_and_global_offset(
+        t.shape, t.device_mesh, placements)
+    return max(0, math.prod(shape) - t.to_local().numel()) \
+        * t.element_size()
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q: (B,H,S,D); k,v: (B,KH,T,D). Tiled online-softmax attention.
     Where grad mode is on and an input requires grad, a CUDA call goes
     through ``FlashAttention`` (forward kernel with ``lse``, backward
-    kernel); otherwise through the forward kernel alone."""
+    kernel); otherwise through the forward kernel alone. DTensors run on
+    their local shards (``_local_attention``)."""
+    if _is_dtensor(q):
+        return _local_attention(functools.partial(
+            flash_attention, causal=causal, window=window), q, (k, v))
     if _route(q, "flash_attention"):
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
@@ -128,7 +209,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
 
 def decode_attention(q, k_cache, v_cache, length, start):
     """q: (B,H,D) one new token per row; caches: (B,S,KH,D); attend to
-    [start, length) of each row (``length``/``start``: (B,) int32)."""
+    [start, length) of each row (``length``/``start``: (B,) int32).
+    DTensors run on their local shards, each cache gathered over "model"
+    where its sequence is sharded (``_local_attention``)."""
+    if _is_dtensor(q):
+        return _local_attention(decode_attention, q, (k_cache, v_cache),
+                                (length, start))
     if _route(q, "decode_attention"):
         return decode_attention_cuda(q, k_cache, v_cache, length, start)
     return ref.decode_attention_reference(q, k_cache, v_cache, length,

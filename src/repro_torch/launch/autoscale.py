@@ -24,11 +24,12 @@ and ``--churn`` scripts mid-run fleet changes (host failure/drain with
 scorer-driven evacuation, capacity degradation, service arrival/departure
 — see ``env.scenarios.parse_churn`` for the grammar).
 
-``--shard`` is ``repro``'s: ``auto``, ``off`` or a count, capped at the
-cards present (``core.solver.resolve_shard``). On one card every count
-solves there (``repro`` documents its results as identical whatever the
-count); spreading the solve over several cards is not ported, and a count
-that asks for more than one raises (``launch/mesh.py::MULTI_CARD``).
+``--shard`` is ``repro``'s: ``auto``, ``off`` or a count. Each layout
+bucket's rows are spread over the devices it names
+(``device.shard_devices``: every card for ``auto``, the first N cards for
+N, at most the cards present; N entries of the CPU on the CPU;
+``core.solver.shard_rows``), and the plans are the same whatever the
+count.
 
 Each LM's throughput surface is analytic (``env/profiles.py::lm_profile``,
 rated by the H100 data sheet) unless ``benchmarks/artifacts/
@@ -50,10 +51,8 @@ import numpy as np
 
 from ..configs import ARCHS
 from ..core import RASKAgent, RaskConfig, violation_rate
-from ..core.solver import resolve_shard
 from ..device import resolve_device
 from ..env import EdgeEnvironment, bursty, diurnal, lm_profile
-from .mesh import MULTI_CARD
 
 
 def lm_services(max_chips: float = 16.0):
@@ -71,17 +70,12 @@ def lm_services(max_chips: float = 16.0):
     return profiles
 
 
-def one_card(shard: str, device) -> int:
-    """``--shard`` as ``repro``'s CLI parses it, resolved on ``device``'s
-    cards: 1 on one card (or the CPU), whatever the count; a count that
-    resolves to several cards raises."""
-    spec = "auto" if shard == "auto" else (
-        False if shard.lower() in ("off", "false", "0") else int(shard))
-    n = resolve_shard(spec, device)
-    if n > 1:
-        raise NotImplementedError(f"--shard {shard} over {n} cards: "
-                                  f"{MULTI_CARD}")
-    return n
+def shard_spec(shard: str):
+    """``--shard`` as ``repro``'s CLI parses it: ``"auto"``, False for
+    ``off``/``false``/``0``, else the count."""
+    if shard == "auto":
+        return "auto"
+    return False if shard.lower() in ("off", "false", "0") else int(shard)
 
 
 def main(argv=None):
@@ -125,9 +119,10 @@ def main(argv=None):
                          "latency behind the control interval (plans lag "
                          "observations by one cycle)")
     ap.add_argument("--shard", default="auto",
-                    help="'auto' (default), 'off' or a count, capped at "
-                         "the cards present: one card solves every layout "
-                         "bucket; several cards are not ported")
+                    help="'auto' (default: every card), 'off' or a count "
+                         "N (the first N cards, at most the cards present; "
+                         "N entries of the CPU on the CPU): each layout "
+                         "bucket's rows are spread over those devices")
     ap.add_argument("--adapt-budget", action="store_true",
                     help="online solver budget adaptation (shrink PGD "
                          "iters/starts at steady state, restore on load "
@@ -154,7 +149,6 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
-    one_card(args.shard, device)
 
     if args.host_caps:
         caps = [float(c) for c in args.host_caps.split(",")]
@@ -186,6 +180,7 @@ def main(argv=None):
                                  rebalance_every=args.rebalance_every,
                                  adapt_budget=args.adapt_budget,
                                  pipeline=args.pipeline,
+                                 shard=shard_spec(args.shard),
                                  forecast=args.forecast,
                                  horizon_s=args.horizon),
                       seed=args.seed, device=device)

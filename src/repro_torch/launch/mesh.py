@@ -2,19 +2,26 @@
 
 A ``Mesh`` names its axes and holds its devices in an object array of the
 mesh's shape, so that ``mesh.devices.shape`` reads as a JAX mesh's does
-(the sharding rules read it so). The port places tensors on one device:
+(the sharding rules read it so):
 
 * ``make_production_mesh`` gives the pod shapes the dry run prices,
   (data=16, model=16) or (pod=2, data=16, model=16). Its devices are
   placeholders on ``meta`` that hold nothing: a step built on it runs on
   meta tensors, shapes and counts only.
-* ``make_debug_mesh`` covers the devices that exist: the card unless the
-  caller asks for the CPU. A mesh of more than one card is not placed:
-  the step builders and ``CheckpointManager.restore`` raise for it
-  (``MULTI_CARD``).
+* ``make_debug_mesh`` covers the devices that exist. Inside an initialised
+  ``torch.distributed`` world of ``data * model`` ranks it is a real mesh:
+  it holds a ``DeviceMesh`` (``device_mesh``) with the dim names ("data",
+  "model"), each rank runs on its own device (``cuda:<local rank>``, or
+  the CPU when asked), and the step builders place their tensors on it as
+  DTensors (``launch/sharding.py::place``). Outside a world it is the one
+  card, or the CPU.
+
+Only the dense decoder runs on a mesh of more than one device; the other
+families raise there (``MULTI_CARD``).
 """
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -22,9 +29,9 @@ import torch
 
 from ..device import device_count, resolve_device
 
-MULTI_CARD = ("a mesh of several cards (torch.distributed placement of the "
-              "specs, shard_rows over cards, restore onto several cards) "
-              "is ROADMAP Queue 1, item 31")
+MULTI_CARD = ("the MoE, ssm, hybrid and encoder-decoder families (and "
+              "gemma3's mixed cache) on a mesh of several devices are "
+              "ROADMAP Queue 1, item 32")
 
 
 class Mesh:
@@ -32,10 +39,12 @@ class Mesh:
     one ``torch.device`` an entry."""
 
     def __init__(self, shape: Tuple[int, ...], axis_names: Tuple[str, ...],
-                 devices):
+                 devices, device_mesh=None, local_device=None):
         if len(shape) != len(axis_names):
             raise ValueError(f"shape {shape} for axes {axis_names}")
         self.axis_names = tuple(axis_names)
+        self.device_mesh = device_mesh      # torch DeviceMesh, in a world
+        self._local = local_device
         self.devices = np.empty(shape, dtype=object)
         flat = self.devices.reshape(-1)
         for i, d in enumerate(devices):
@@ -50,16 +59,24 @@ class Mesh:
         return dict(zip(self.axis_names, self.devices.shape))
 
     @property
+    def distributed(self) -> bool:
+        """True for a mesh over the ranks of a ``torch.distributed`` world
+        (its steps place DTensors)."""
+        return self.device_mesh is not None
+
+    @property
     def device(self) -> torch.device:
-        """The one device a step on this mesh runs on: ``meta`` for the
-        production meshes, the device of a one-device mesh. Raises for a
-        mesh over several real devices."""
+        """The device a step on this mesh runs on: ``meta`` for the
+        production meshes, this rank's device on a distributed mesh, the
+        device of a one-device mesh."""
         kinds = {str(d) for d in self.devices.reshape(-1)}
         if kinds == {"meta"}:
             return torch.device("meta")
+        if self.distributed:
+            return self._local
         if self.size != 1:
-            raise NotImplementedError(
-                f"{self.size}-device mesh: {MULTI_CARD}")
+            raise ValueError(f"a {self.size}-device mesh runs inside a "
+                             "torch.distributed world of as many ranks")
         return self.devices.reshape(-1)[0]
 
     def abstract(self) -> "Mesh":
@@ -83,8 +100,31 @@ def make_debug_mesh(data: int = 1, model: int = 1,
                     device: Optional[Union[str, torch.device]] = None
                     ) -> Mesh:
     """A (data, model) mesh over the devices that exist: the cards
-    (``device`` None or ``cuda``) or the CPU (``device="cpu"``)."""
+    (``device`` None or ``cuda``) or the CPU (``device="cpu"``).
+
+    Inside an initialised ``torch.distributed`` world the world must hold
+    ``data * model`` ranks, and the mesh is theirs: rank r runs on
+    ``cuda:<LOCAL_RANK>`` (r where the variable is unset) or on the CPU,
+    over a ``DeviceMesh`` of dims ("data", "model")."""
     dev = resolve_device(device)
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        from torch.distributed.device_mesh import init_device_mesh
+        world = dist.get_world_size()
+        if world != data * model:
+            raise ValueError(f"a ({data}, {model}) mesh in a world of "
+                             f"{world} ranks")
+        if dev.type == "cuda":
+            local = torch.device("cuda", int(os.environ.get(
+                "LOCAL_RANK", dist.get_rank())))
+            torch.cuda.set_device(local)
+        else:
+            local = dev
+        dm = init_device_mesh(local.type, (data, model),
+                              mesh_dim_names=("data", "model"))
+        devs = [torch.device(local.type, int(r)) if local.type == "cuda"
+                else local for r in dm.mesh.reshape(-1).tolist()]
+        return Mesh((data, model), ("data", "model"), devs, dm, local)
     n = device_count(dev)
     assert data * model <= n, (data, model, n)
     if dev.type == "cuda":

@@ -16,9 +16,11 @@ back to replicated, qwen2-moe's 60 experts fall back from EP to TP, etc.):
 
 The functions, their candidate lists and their order are ``repro``'s.
 ``PartitionSpec`` and ``NamedSharding`` are the port's own small classes:
-a tuple of entries, and a (mesh, spec) pair. The specs are pure shape
-logic; placing tensors by them over several cards is not ported
-(``mesh.MULTI_CARD``).
+a tuple of entries, and a (mesh, spec) pair. On a distributed mesh
+(``mesh.make_debug_mesh`` inside a world) a sharding is also a list of
+DTensor placements, one a mesh dim (``NamedSharding.placements``), and
+``place`` turns full tensors into DTensors by them: each rank keeps its
+own shard, ``sharded_size_bytes`` of them (``local_bytes`` reads it back).
 
 The port lays its trees out otherwise than ``repro``, and the rules are
 resolved on ``repro``'s layout so that every spec and every per-device
@@ -42,6 +44,7 @@ import dataclasses
 from typing import Any, Tuple
 
 import numpy as np
+import torch
 
 from ..train.tree import leaves, stacked_paths, unflatten
 
@@ -68,6 +71,50 @@ class NamedSharding:
     def num_devices_sharded_over(self, shape) -> int:
         """The shards a tensor of ``shape`` is cut into."""
         return _spec_shards(shape, self.spec, self.mesh)
+
+    @property
+    def placements(self) -> list:
+        """DTensor placements, one a mesh dim: ``Shard(d)`` where the spec
+        names the dim's axis on tensor dim d (("pod", "data") on one dim
+        shards it over both), ``Replicate()`` where it names it nowhere."""
+        from torch.distributed.tensor import Replicate, Shard
+        out = []
+        for axis in self.mesh.axis_names:
+            dims = [d for d, e in enumerate(tuple(self.spec))
+                    if e == axis or (isinstance(e, tuple) and axis in e)]
+            out.append(Shard(dims[0]) if dims else Replicate())
+        return out
+
+
+def place(tree, shardings):
+    """``tree``'s tensors as DTensors on their shardings' distributed mesh:
+    each rank cuts its own shard from the full tensor it holds (every rank
+    holds the same values; nothing is sent), on its device. A leaf that is
+    a DTensor already is redistributed to its placements where they
+    differ. A tree placed already comes back as it is."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    out = []
+    old = leaves(tree)
+    for t, sh in zip(old, leaves(shardings)):
+        mesh = sh.mesh
+        if isinstance(t, DTensor):
+            if list(t.placements) != sh.placements:
+                t = t.redistribute(mesh.device_mesh, sh.placements)
+            out.append(t)
+            continue
+        t = torch.as_tensor(t).to(mesh.device)
+        out.append(distribute_tensor(t, mesh.device_mesh, sh.placements,
+                                     src_data_rank=None))
+    if all(a is b for a, b in zip(out, old)):
+        return tree                        # placed already: the same tree
+    return unflatten(tree, out)
+
+
+def local_bytes(tree) -> int:
+    """This rank's bytes of a tree of DTensors (or plain tensors)."""
+    from torch.distributed.tensor import DTensor
+    return sum((t.to_local() if isinstance(t, DTensor) else t).nbytes
+               for t in leaves(tree))
 
 
 def _fits(shape: Tuple[int, ...], spec: P, mesh) -> bool:

@@ -7,8 +7,17 @@ shapes and dtypes, no data), and the shardings of its inputs and outputs
 under ``launch/sharding.py``'s rules: the one object the dry run runs on
 meta and the trainer runs on the card. The mesh decides the device: a
 production mesh's placeholders put the step on ``meta``, a debug mesh on
-its one device (the card, or the CPU). A mesh of several cards is not
-placed (``mesh.MULTI_CARD``).
+its one device (the card, or the CPU).
+
+On a distributed mesh (``mesh.make_debug_mesh`` inside a world) the dense
+decoder's steps run as DTensors: the step places its arguments by
+``in_shardings`` (``sharding.place``; a donated argument must arrive
+placed, so that the step writes into it), runs the model under DTensor's
+sharding propagation (``implicit_replication``: plain tensors such as
+positions count as replicated; ``models/spmd.py`` does what propagation
+does not), and hands its results back with ``out_shardings``' placements.
+The other families raise on a mesh of several devices
+(``mesh.MULTI_CARD``) and run as on one device in a one-rank world.
 """
 from __future__ import annotations
 
@@ -18,12 +27,13 @@ from typing import Any, Dict, Tuple
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
-from ..models import build
+from ..models import build, spmd
 from ..models.config import ModelConfig
 from ..models.model import ENCDEC_DEC_FRac
 from ..train.optimizer import AdamWConfig, adamw, compressed_adamw
 from ..train.tree import leaves, map_tree, structure, unflatten
 from . import sharding as SH
+from .mesh import MULTI_CARD
 
 META = torch.device("meta")
 # the keys of a train step's metrics: the loss's, the optimizer's, "loss"
@@ -92,8 +102,43 @@ def input_specs(cfg: ModelConfig, kind: str, batch: int, seq: int
     raise ValueError(kind)
 
 
+def _tensor(v, device: torch.device):
+    return v if spmd.is_dtensor(v) else torch.as_tensor(v, device=device)
+
+
 def _on(device: torch.device, batch) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    return {k: _tensor(v, device) for k, v in batch.items()}
+
+
+def _dtensor_steps(cfg: ModelConfig, mesh) -> bool:
+    """True where the steps run as DTensors on ``mesh``: the dense decoder
+    on a distributed mesh. Another family raises on a mesh of several
+    devices."""
+    if not mesh.distributed:
+        return False
+    if cfg.family == "dense" and not cfg.mixed_cache:
+        return True
+    if mesh.size > 1:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) on a {mesh.size}-device mesh: "
+            f"{MULTI_CARD}")
+    return False
+
+
+def _placed(fn, on_mesh: bool, in_shardings, out_shardings):
+    """``fn`` as a step on a distributed mesh where ``on_mesh``: arguments
+    placed by ``in_shardings``, results by ``out_shardings``."""
+    if not on_mesh:
+        return fn
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    def step(*args):
+        args = tuple(SH.place(a, sh) for a, sh in zip(args, in_shardings))
+        with implicit_replication():
+            out = fn(*args)
+        # result by result, so that a donated argument comes back as is
+        return tuple(SH.place(o, sh) for o, sh in zip(out, out_shardings))
+    return step
 
 
 def _value_and_grad(model, params, batch):
@@ -109,7 +154,7 @@ def _value_and_grad(model, params, batch):
     finally:
         for p in ps:
             p.requires_grad_(False)
-    grads = [torch.zeros_like(p) if g is None else g
+    grads = [torch.zeros_like(p) if g is None else spmd.placed_like(g, p)
              for p, g in zip(ps, grads)]
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
@@ -133,7 +178,7 @@ def make_train_step(cfg: ModelConfig, mesh, batch: int = 256,
     divided by M (activation memory scales with batch/M). Then, as in
     ``repro``, ``metrics["ce"]`` is the whole loss, aux included. The
     inputs (numpy arrays or tensors) go to the mesh's device."""
-    device = mesh.device
+    device, on_mesh = mesh.device, _dtensor_steps(cfg, mesh)
     if batch % microbatches:
         raise ValueError(f"batch {batch} is not a multiple of "
                          f"{microbatches} microbatches")
@@ -153,7 +198,7 @@ def make_train_step(cfg: ModelConfig, mesh, batch: int = 256,
         if microbatches == 1:
             loss, metrics, grads = _value_and_grad(model, params, b)
         else:
-            gsum = [torch.zeros(p.shape, dtype=torch.float32, device=device)
+            gsum = [torch.zeros_like(p, dtype=torch.float32)
                     for p in leaves(params)]
             lsum = torch.zeros((), dtype=torch.float32, device=device)
             asum = torch.zeros((), dtype=torch.float32, device=device)
@@ -183,7 +228,8 @@ def make_train_step(cfg: ModelConfig, mesh, batch: int = 256,
                                  dim=1 if microbatches > 1 else 0)
     m_shard = _replicated(dict.fromkeys(TRAIN_METRICS, 0), mesh)
     return StepBundle(
-        fn=train_step,
+        fn=_placed(train_step, on_mesh, (p_shard, o_shard, b_shard),
+                   (p_shard, o_shard, m_shard)),
         args=(p_shapes, o_shapes, b_shapes),
         in_shardings=(p_shard, o_shard, b_shard),
         out_shardings=(p_shard, o_shard, m_shard),
@@ -195,7 +241,7 @@ def make_prefill_step(cfg: ModelConfig, mesh, batch: int, seq: int,
     """``(params, batch_in) -> (next_tok (B,) int32, cache)``: a prompt of
     ``batch`` rows into a cache of ``seq`` positions, and its greedy next
     token."""
-    device = mesh.device
+    device, on_mesh = mesh.device, _dtensor_steps(cfg, mesh)
     model = build(cfg)
 
     @torch.no_grad()
@@ -214,8 +260,10 @@ def make_prefill_step(cfg: ModelConfig, mesh, batch: int, seq: int,
     tok_shard = SH.batch_shardings(
         torch.empty((batch,), dtype=torch.int32, device=META), mesh)
     cache_shard = SH.cache_shardings(model.cache_specs(batch, seq), mesh)
-    return StepBundle(prefill_step, (p_shapes, b_shapes),
-                      (p_shard, b_shard), (tok_shard, cache_shard))
+    return StepBundle(
+        _placed(prefill_step, on_mesh, (p_shard, b_shard),
+                (tok_shard, cache_shard)),
+        (p_shapes, b_shapes), (p_shard, b_shard), (tok_shard, cache_shard))
 
 
 def make_decode_step(cfg: ModelConfig, mesh, batch: int, seq: int,
@@ -223,12 +271,12 @@ def make_decode_step(cfg: ModelConfig, mesh, batch: int, seq: int,
     """``(params, tokens (B,1), cache) -> (next_tok (B,1) int32, cache)``:
     one greedy decode step of ``batch`` rows against a cache of ``seq``
     positions (written in place)."""
-    device = mesh.device
+    device, on_mesh = mesh.device, _dtensor_steps(cfg, mesh)
     model = build(cfg)
 
     @torch.no_grad()
     def serve_step(params, tokens, cache):
-        tokens = torch.as_tensor(tokens, device=device)
+        tokens = _tensor(tokens, device)
         if tuple(tokens.shape) != (batch, 1):
             raise ValueError(f"tokens {tuple(tokens.shape)}: the step was "
                              f"built for {(batch, 1)}")
@@ -241,9 +289,11 @@ def make_decode_step(cfg: ModelConfig, mesh, batch: int, seq: int,
     p_shard = SH.params_shardings(p_shapes, mesh, fsdp=fsdp)
     t_shard = SH.batch_shardings(t_shapes, mesh)
     c_shard = SH.cache_shardings(c_shapes, mesh)
-    return StepBundle(serve_step, (p_shapes, t_shapes, c_shapes),
-                      (p_shard, t_shard, c_shard),
-                      (t_shard, c_shard), donate_argnums=(2,))
+    return StepBundle(
+        _placed(serve_step, on_mesh, (p_shard, t_shard, c_shard),
+                (t_shard, c_shard)),
+        (p_shapes, t_shapes, c_shapes), (p_shard, t_shard, c_shard),
+        (t_shard, c_shard), donate_argnums=(2,))
 
 
 def _opt_shardings(opt_shapes, param_shapes, param_shardings, mesh):

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops as kops
+from . import spmd
 from .config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -39,7 +40,7 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int,
 
 
 def linear(p: Params, x):
-    return F.linear(x, p["w"], p.get("b"))
+    return F.linear(x, spmd.gathered(p["w"]), spmd.gathered(p.get("b")))
 
 
 def init_norm(d: int, dtype: torch.dtype, device,
@@ -183,9 +184,9 @@ def attention(p: Params, x, cfg: ModelConfig, *, rot,
     """
     B, S, _ = x.shape
     h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = linear(p["wq"], x).reshape(B, S, h, dh)
-    k = linear(p["wk"], x).reshape(B, S, kh, dh)
-    v = linear(p["wv"], x).reshape(B, S, kh, dh)
+    q = spmd.split_heads(linear(p["wq"], x), h).reshape(B, S, h, dh)
+    k = spmd.split_heads(linear(p["wk"], x), kh).reshape(B, S, kh, dh)
+    v = spmd.split_heads(linear(p["wv"], x), kh).reshape(B, S, kh, dh)
     if cfg.qk_norm:
         q = norm(p["q_norm"], q)
         k = norm(p["k_norm"], k)
@@ -204,10 +205,9 @@ def attention(p: Params, x, cfg: ModelConfig, *, rot,
         if S != 1:
             raise ValueError("decode attends one new token per row")
         ck, cv = cache
-        rows = torch.arange(B, device=x.device)
         idx = cache_pos.clamp(max=ck.shape[1] - 1)
-        ck[rows, idx] = k[:, :, 0].to(ck.dtype)
-        cv[rows, idx] = v[:, 0].to(cv.dtype)
+        spmd.write_slot(ck, idx, k[:, :, 0])
+        spmd.write_slot(cv, idx, v[:, 0])
         length = cache_pos + 1 if cache_length is None else cache_length
         start = torch.zeros_like(length) if window is None \
             else (length - window).clamp(min=0)

@@ -50,6 +50,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from . import spmd
 from .config import ModelConfig
 from .layers import (attention, cross_attention, cross_kv, init_attention,
                      init_mlp, init_norm, mlp, norm, rope_angles)
@@ -112,9 +113,10 @@ def _decoder_block(cfg: ModelConfig, lp: Params, x, rot,
 
 
 def _logits(params: Params, x):
-    """Tied (or separate) vocab projection in the activation dtype."""
-    head = params.get("head", params["embed"])
-    return x @ head.to(x.dtype).T
+    """Tied (or separate) vocab projection in the activation dtype (on a
+    mesh gathered over the vocab, ``spmd.full_vocab``)."""
+    head = spmd.gathered(params.get("head", params["embed"]))
+    return spmd.full_vocab(x @ head.to(x.dtype).T)
 
 
 def _hidden(params: Params, cfg: ModelConfig, tokens):
@@ -123,7 +125,7 @@ def _hidden(params: Params, cfg: ModelConfig, tokens):
     Returns (hidden (B,S,d_model), aux summed over the layers, [(k, v) per
     layer, each (B,S,KH,D)])."""
     B, S = tokens.shape
-    x = params["embed"][tokens].to(_dtype(cfg))       # no sqrt(d) scaling
+    x = spmd.embed(params["embed"], tokens).to(_dtype(cfg))  # no sqrt(d)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     rot = rope_angles(positions, cfg.d_head, cfg.rope_theta)
     kvs, aux = [], 0.0
@@ -170,6 +172,9 @@ def decoder_prefill(params: Params, cfg: ModelConfig, tokens, max_seq: int,
         if length is None else \
         torch.as_tensor(length, device=tokens.device).long().expand(B)
     last = x[torch.arange(B, device=tokens.device), pos - 1]      # (B,d)
+    if spmd.is_dtensor(x):                # on a mesh: DTensor k and v
+        return _logits(params, last), {**spmd.prefill_cache(kvs, max_seq),
+                                       "pos": pos.clone()}
     cache = decoder_init_cache(cfg, B, max_seq, tokens.device)
     for i, (k, v) in enumerate(kvs):
         cache["k"][i, :, :S] = k
@@ -182,7 +187,7 @@ def decoder_decode(params: Params, cfg: ModelConfig, tokens, cache):
     """One decode step for every row. tokens: (B,1); returns (logits (B,V),
     cache). The cache tensors are updated in place and returned with the
     cursors advanced by one."""
-    x = params["embed"][tokens].to(_dtype(cfg))
+    x = spmd.embed(params["embed"], tokens).to(_dtype(cfg))
     pos = cache["pos"]
     rot = rope_angles(pos[:, None], cfg.d_head, cfg.rope_theta)
     aux = 0.0

@@ -14,12 +14,15 @@ counterpart of ``repro/train/checkpoint.py``).
   (numpy has no bf16 without ``ml_dtypes``, which the port does not need).
   Leaves are taken in ``train/tree.py``'s fixed order: dicts by sorted
   key, lists, NamedTuple fields.
-* **Restore onto a device**: ``restore(like, step)`` puts each leaf on the
-  device and dtype of its ``like`` leaf; ``restore(like, step,
-  shardings=)`` on the device of each leaf's sharding's mesh (a tree of
+* **Restore onto a device or a mesh**: ``restore(like, step)`` puts each
+  leaf on the device and dtype of its ``like`` leaf; ``restore(like, step,
+  shardings=)`` by each leaf's sharding (a tree of
   ``launch/sharding.py::NamedSharding``, as a ``StepBundle``'s
-  ``in_shardings`` holds it). A mesh of several cards raises
-  (``launch/mesh.py::MULTI_CARD``).
+  ``in_shardings`` holds it): on its mesh's device, or on a distributed
+  mesh as a DTensor of which each rank keeps its own shard, cut from the
+  saved leaf bit for bit.
+* **Sharded trees**: ``save`` of a tree of DTensors gathers each leaf
+  whole (every rank takes part) and rank 0 alone writes it.
 * **Retention**: keeps the newest ``keep`` checkpoints.
 """
 from __future__ import annotations
@@ -34,6 +37,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..models.spmd import is_dtensor
 from .tree import leaves, structure, unflatten
 
 
@@ -59,9 +63,15 @@ class CheckpointManager:
         """Snapshot now (a host copy of every leaf), serialize in the
         background."""
         self.wait()                      # one in-flight save at a time
-        host = [torch.as_tensor(x).detach().to("cpu", copy=True)
-                .contiguous() for x in leaves(tree)]
+        sharded = any(is_dtensor(x) for x in leaves(tree))
+        host = [(x.full_tensor() if is_dtensor(x) else torch.as_tensor(x))
+                .detach().to("cpu", copy=True).contiguous()
+                for x in leaves(tree)]
         shape = structure(tree)
+        if sharded and torch.distributed.get_rank() != 0:
+            if blocking:
+                torch.distributed.barrier()      # rank 0 has written
+            return
 
         def work():
             try:
@@ -89,6 +99,8 @@ class CheckpointManager:
         self._thread.start()
         if blocking:
             self.wait()
+            if sharded:
+                torch.distributed.barrier()
 
     def wait(self) -> None:
         if self._thread is not None:
@@ -123,7 +135,8 @@ class CheckpointManager:
         """Restore into the structure of ``like``; each tensor leaf takes
         the dtype of its ``like`` leaf, and the device of its ``like``
         leaf, or with ``shardings`` (a tree with ``like``'s leaves) the
-        device of its sharding's mesh."""
+        device of its sharding's mesh, as a DTensor of its placements on a
+        distributed mesh."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -136,10 +149,10 @@ class CheckpointManager:
             raise ValueError(
                 f"checkpoint has {meta['n_leaves']} leaves, expected "
                 f"{len(like_leaves)}: structure changed?")
-        devices = [None] * len(like_leaves) if shardings is None else \
-            [sh.mesh.device for sh in leaves(shardings)]
-        if len(devices) != len(like_leaves):
-            raise ValueError(f"{len(devices)} shardings for "
+        shards = [None] * len(like_leaves) if shardings is None else \
+            leaves(shardings)
+        if len(shards) != len(like_leaves):
+            raise ValueError(f"{len(shards)} shardings for "
                              f"{len(like_leaves)} leaves")
         out = []
         with np.load(path / "leaves.npz") as z:
@@ -152,7 +165,14 @@ class CheckpointManager:
                         raise ValueError(
                             f"leaf {i}: checkpoint shape {shape}, expected "
                             f"{tuple(ref.shape)}")
-                    t = t.to(device=devices[i] or ref.device,
-                             dtype=ref.dtype)
+                    sh = shards[i]
+                    t = t.to(device=ref.device if sh is None
+                             else sh.mesh.device, dtype=ref.dtype)
+                    if sh is not None and sh.mesh.distributed:
+                        from torch.distributed.tensor import \
+                            distribute_tensor
+                        t = distribute_tensor(
+                            t, sh.mesh.device_mesh, sh.placements,
+                            src_data_rank=None)
                 out.append(t)
         return unflatten(like, out)

@@ -20,6 +20,11 @@ tensors of ``params`` and ``state`` and returns them: a functional update
 would hold a second copy of each (4 GB apiece for gemma3-1b in float32).
 ``grads`` are left as they were.
 
+On DTensor leaves (a step on a mesh, ``launch/steps.py``) the same calls
+run shard by shard; the global norm and each stack's int8 scale are taken
+over the whole tensors (``spmd.replicated`` reduces the ranks' partial
+norms and maxima), so every rank clips and quantizes as one device does.
+
 ``compressed_adamw`` wraps the update with int8 quantization plus an
 error-feedback accumulator: g_hat = Q(g + e), e <- (g + e) - g_hat, with
 one scale for each tensor of ``repro``'s layout: where ``repro`` stacks
@@ -36,6 +41,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..models import spmd
 from .tree import leaves, map_tree, stack_keys, unflatten
 
 
@@ -70,8 +76,11 @@ def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def _global_norm(tree) -> torch.Tensor:
+    """The norm of every leaf together; a DTensor leaf's norm is its whole
+    tensor's (its ranks' partial norms reduced)."""
     xs = [x.float() for x in leaves(tree)]
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(xs)))
+    return torch.linalg.vector_norm(torch.stack(
+        [spmd.replicated(n) for n in torch._foreach_norm(xs)]))
 
 
 def _zeros_like(tree):
@@ -167,7 +176,7 @@ def compressed_adamw(cfg: AdamWConfig):
         keys = stack_keys(grads)
         amax = {}
         for key, t in zip(keys, totals):
-            m = torch.max(torch.abs(t))
+            m = spmd.replicated(torch.max(torch.abs(t)))   # whole leaf's
             amax[key] = m if key not in amax else torch.maximum(amax[key], m)
         cgrads = []
         for key, total, e in zip(keys, totals, leaves(state.error)):

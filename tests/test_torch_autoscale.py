@@ -17,10 +17,12 @@ services.
    solved plans part from ``repro``'s random starts, ``torch.Generator``
    against ``jax.random``);
  * ``--dump-metrics`` writes the metric families ``repro``'s writes;
- * ``--shard`` resolves as ``repro``'s ``resolve_shard`` does on one
-   device: every count runs, and ``--shard 2`` and ``4`` print what
-   ``--shard 1`` prints; a count that resolves to several cards raises
-   naming the ROADMAP item for them;
+ * ``--shard`` names as many cards as ``repro``'s ``resolve_shard``
+   counts devices, with one card present and with four (but for the
+   integer 1, which ``repro`` takes for ``True``); a count N spreads each
+   bucket's rows over N devices (N entries of the CPU here, the first N
+   cards on the card), and ``--shard 2`` and ``4`` print what ``--shard
+   1`` prints;
  * the fleet launchers run on the CPU, and every launcher runs on the
    card unless told otherwise, raising when there is none.
 """
@@ -32,6 +34,7 @@ import torch
 
 from repro.env import profiles as jax_profiles
 from repro.launch import autoscale as jax_autoscale
+from repro_torch.device import shard_devices
 from repro_torch.env import profiles
 from repro_torch.launch import autoscale, fleet_autoscale, hetero_fleet, \
     serve
@@ -105,31 +108,69 @@ def test_summary_lines(capsys):
 
 @pytest.mark.parametrize("shard", ["auto", "off", "1"])
 def test_shard_on_one_card_is_accepted(shard):
-    assert autoscale.one_card(shard, torch.device("cpu")) == 1
+    assert shard_devices(autoscale.shard_spec(shard),
+                         torch.device("cpu")) == [torch.device("cpu")]
 
 
-def test_shard_over_several_cards_names_the_mesh_item(monkeypatch):
-    """Where several cards are present, a count above 1 asks for them:
-    spreading the solve over cards is ROADMAP item 31."""
+def test_shard_2_spreads_over_two_devices(monkeypatch, capsys):
+    """``--shard 2`` names two devices: the first two of four cards, two
+    entries of the CPU here. A fleet of three hosts in one bucket solved in
+    two row chunks on the CPU prints what ``--shard 1`` prints."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="item 31"):
-        autoscale.one_card("2", torch.device("cuda"))
-    assert autoscale.one_card("1", torch.device("cuda")) == 1
-    assert autoscale.one_card("off", torch.device("cuda")) == 1
+    cuda = torch.device("cuda")
+    assert shard_devices(autoscale.shard_spec("2"), cuda) == [
+        torch.device("cuda", 0), torch.device("cuda", 1)]
+    assert len(shard_devices("auto", cuda)) == 4
+    assert shard_devices(autoscale.shard_spec("off"), cuda) == [cuda]
+    outs = {}
+    for shard in ("1", "2"):
+        autoscale.main(["--device", "cpu", "--minutes", "2", "--hosts", "3",
+                        "--replicas", "3", "--shard", shard])
+        outs[shard] = capsys.readouterr().out
+    assert "hosts=3" in outs["1"] and outs["2"] == outs["1"]
 
 
-@pytest.mark.parametrize("shard", [True, False, None, "auto", "off", "0",
-                                   0, 1, 2, 4, "4"])
-def test_resolve_shard_matches_repro_on_one_device(shard):
-    from repro.core.solver import resolve_shard as jax_resolve_shard
-    from repro_torch.core.solver import resolve_shard
-    want = jax_resolve_shard(False if shard == "off" else shard)
-    assert resolve_shard(shard, torch.device("cpu")) == want == 1
+SHARD_SPECS = [True, False, None, "auto", "off", "0", 0, 1, 2, 4, "4"]
+
+
+def _shard_count_against_repro(monkeypatch, shard, cards):
+    """(the cards ``shard_devices`` names with ``cards`` present, the count
+    ``repro``'s ``resolve_shard`` gives with as many devices)."""
+    import repro.core.solver as jax_solver
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(jax_solver.jax, "device_count", lambda: cards)
+    got = shard_devices(shard, torch.device("cuda"))
+    want = jax_solver.resolve_shard(False if shard == "off" else shard)
+    return got, want
+
+
+@pytest.mark.parametrize("shard", SHARD_SPECS)
+def test_resolve_shard_matches_repro_on_one_device(monkeypatch, shard):
+    """The port's one resolver, ``shard_devices``, names as many cards as
+    ``repro``'s ``resolve_shard`` counts devices: one of one."""
+    got, want = _shard_count_against_repro(monkeypatch, shard, 1)
+    assert len(got) == want == 1
+    assert got[0] in (torch.device("cuda"), torch.device("cuda", 0))
+
+
+@pytest.mark.parametrize("shard", SHARD_SPECS)
+def test_shard_devices_match_repro_on_four_devices(monkeypatch, shard):
+    """With four cards present: as many as ``repro`` counts with four
+    devices, the first ones (the one device where sharding is off). The
+    integer 1 is one card: ``repro``'s ``shard in ("auto", True)`` takes
+    it for ``True`` (1 == True), every device."""
+    got, want = _shard_count_against_repro(monkeypatch, shard, 4)
+    if shard == 1 and shard is not True:
+        assert want == 4
+        want = 1
+    assert len(got) == want
+    if want > 1:
+        assert got == [torch.device("cuda", i) for i in range(want)]
 
 
 def test_shard_counts_above_one_print_what_shard_1_prints(capsys):
-    """``repro`` caps the count at the devices present, so on one device
-    ``--shard 2`` and ``--shard 4`` run the same solve as ``--shard 1``."""
+    """Spreading rows over devices changes no result, so ``--shard 2``
+    and ``--shard 4`` print what ``--shard 1`` prints."""
     outs = {}
     for shard in ("1", "2", "4"):
         autoscale.main(["--device", "cpu", "--minutes", "2", "--shard",

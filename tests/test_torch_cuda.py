@@ -671,6 +671,96 @@ def test_fleet_solve_is_one_launch_a_bucket_a_step_and_matches_the_cpu(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shards", [2, 3, 4])
+def test_sharded_fleet_solve_on_the_card_is_byte_identical(cuda_device,
+                                                           shards):
+    """Each bucket's rows over ``shards`` chunks, all on the card: the
+    assignments and scores byte-identical to the one-chunk solve, one
+    forward and 32 backward launches a non-empty chunk; the placement
+    scores of overlapping candidates likewise."""
+    from repro_torch.core.solver import FleetSolverProblem, PlacementProblem
+    problem, (fp, fp_cpu), (sm, _), rps, host_of, caps = \
+        _fleet_setup(cuda_device)
+    x0 = fp_cpu.random_assignment(np.random.default_rng(1))
+    u = fp.uniforms(torch.Generator(cuda_device).manual_seed(3), 6)
+    a1, s1 = fp.solve_many(sm, rps, x0, u=u)
+    many = FleetSolverProblem(problem, host_of, caps,
+                              devices=[cuda_device] * shards)
+    chunks = sum(len(bk.shards) for bk in many.buckets)
+    assert chunks > len(many.buckets)
+    n_fwd = rask_objective_forward_cuda.launches
+    n_bwd = rask_objective_backward_cuda.launches
+    a, sc = many.solve_many(sm, rps, x0, u=u)
+    assert rask_objective_forward_cuda.launches == n_fwd + chunks
+    assert rask_objective_backward_cuda.launches == n_bwd + 32 * chunks
+    assert np.array_equal(a, a1) and np.array_equal(sc, s1)
+    n = len(problem.specs)
+    subsets = [()] + [tuple(sorted({i, (i + 3) % n})) for i in range(n)]
+    pps = [PlacementProblem(problem, subsets, [4.0] * len(subsets),
+                            devices=[cuda_device] * k) for k in (1, shards)]
+    u = pps[0].uniforms(torch.Generator(cuda_device).manual_seed(4), 4)
+    got = [pp.scores(sm, rps, x0, n_starts=4, iters=16, u=u) for pp in pps]
+    assert np.array_equal(got[0], got[1])
+
+
+@pytest.mark.cuda
+def test_sharded_fleet_solve_over_every_card(cuda_device):
+    """``shard="auto"`` with two cards or more: each bucket's rows in
+    chunks on cuda:0, cuda:1, ..., each solved with its card current; the
+    assignments and scores byte-identical to one card's solve, one forward
+    and 32 backward launches a non-empty chunk; the placement scores
+    likewise. Skips with one card."""
+    from repro_torch.core.solver import FleetSolverProblem, PlacementProblem
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("spreading rows over cards needs two cards or more")
+    problem, _, (sm, _), rps, host_of, caps = _fleet_setup(cuda_device)
+    one = FleetSolverProblem(problem, host_of, caps, shard=False)
+    every = FleetSolverProblem(problem, host_of, caps)
+    assert every.devices == [torch.device("cuda", i) for i in range(n)]
+    chunks = sum(len(bk.shards) for bk in every.buckets)
+    assert len({w for bk in every.buckets for w, *_ in bk.shards}) > 1
+    x0 = one.random_assignment(np.random.default_rng(1))
+    u = one.uniforms(torch.Generator(cuda_device).manual_seed(3), 6)
+    a1, s1 = one.solve_many(sm, rps, x0, u=u)
+    n_fwd = rask_objective_forward_cuda.launches
+    n_bwd = rask_objective_backward_cuda.launches
+    a, sc = every.solve_many(sm, rps, x0, u=u)
+    assert rask_objective_forward_cuda.launches == n_fwd + chunks
+    assert rask_objective_backward_cuda.launches == n_bwd + 32 * chunks
+    assert np.array_equal(a, a1) and np.array_equal(sc, s1)
+    k = len(problem.specs)
+    subsets = [()] + [tuple(sorted({i, (i + 3) % k})) for i in range(k)]
+    pps = [PlacementProblem(problem, subsets, [4.0] * len(subsets),
+                            shard=shard) for shard in (False, "auto")]
+    assert pps[1].n_shards == n
+    u = pps[0].uniforms(torch.Generator(cuda_device).manual_seed(4), 4)
+    got = [pp.scores(sm, rps, x0, n_starts=4, iters=16, u=u) for pp in pps]
+    assert np.array_equal(got[0], got[1])
+
+
+@pytest.mark.cuda
+def test_sharded_solve_of_a_host_problem_on_the_card(cuda_device):
+    """A problem on the CPU with its row chunks on the card: the results
+    come back to the host whole, byte-identical to the same chunks of the
+    problem on the card, through the kernels."""
+    from repro_torch.core.solver import FleetSolverProblem
+    problem, (_, fp_cpu), (sm, sm_cpu), rps, host_of, caps = \
+        _fleet_setup(cuda_device)
+    chunks = [cuda_device] * 2
+    host = FleetSolverProblem(fp_cpu.problem, host_of, caps, devices=chunks)
+    card = FleetSolverProblem(problem, host_of, caps, devices=chunks)
+    x0 = card.random_assignment(np.random.default_rng(2))
+    u = card.uniforms(torch.Generator(cuda_device).manual_seed(5), 6)
+    want = card.solve_many(sm, rps, x0, u=u)
+    n_fwd = rask_objective_forward_cuda.launches
+    got = host.solve_many(sm_cpu, rps, x0, u=[t.cpu() for t in u])
+    assert rask_objective_forward_cuda.launches == n_fwd + sum(
+        len(bk.shards) for bk in host.buckets)
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
 def test_placement_scores_are_one_launch_a_bucket_and_match_the_cpu(
         cuda_device):
     """Overlapping candidate rows (and an empty one) scored on the card:
@@ -1878,16 +1968,124 @@ def test_bundle_step_on_the_card_matches_the_cpu(cuda_device, tmp_path):
     assert all(t.device.type == "cuda" for t in leaves(again))
 
 
+@pytest.fixture
+def nccl_world(cuda_device, tmp_path):
+    """A one-rank ``nccl`` world on the card, torn down after the test."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    yield cuda_device
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_mesh_steps_on_the_card_match_the_one_device_steps(nccl_world):
+    """gemma3-1b's smoke cut on the (1, 1) mesh of a one-rank ``nccl``
+    world, as DTensors: the prefill and two decode steps give the
+    one-device steps' tokens, through the CUDA kernels (their counts move;
+    float32, so the flash kernel is the split-TF32 one); one train step's
+    loss and grad norm within 1e-5 relative of the one-device step's,
+    through the backward kernel; the weights restored onto the mesh bit
+    for bit."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import get
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_cuda, flash_attention_cuda)
+    from repro_torch.launch import make_debug_mesh
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import (make_decode_step,
+                                          make_prefill_step, make_train_step)
+    from repro_torch.models import build
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.optimizer import AdamWConfig, adamw
+    from repro_torch.train.tree import leaves, map_tree
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(get("gemma3-1b").smoke(), dtype="float32")
+    mesh = make_debug_mesh()
+    assert mesh.distributed and mesh.device == dev
+    one = Mesh((1, 1), ("data", "model"), [dev])
+    params = build(cfg).init(torch.Generator(dev).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 40), device=dev,
+                         dtype=torch.int32,
+                         generator=torch.Generator(dev).manual_seed(1))
+    out, bundles = {}, {}
+    for m in (mesh, one):
+        pre, dec = (make_prefill_step(cfg, m, 2, 64),
+                    make_decode_step(cfg, m, 2, 64))
+        bundles[m.distributed] = pre
+        p = SH.place(params, pre.in_shardings[0]) if m.distributed \
+            else params
+        n_dec, n_fl = (decode_attention_cuda.launches,
+                       flash_attention_cuda.launches)
+        tok, cache = pre.fn(p, {"tokens": toks})
+        seq = [tok[:, None]]
+        for _ in range(2):
+            nxt, cache = dec.fn(p, seq[-1], cache)
+            seq.append(nxt)
+        out[m.distributed] = torch.cat([
+            t.full_tensor() if m.distributed else t for t in seq], dim=1)
+        assert flash_attention_cuda.launches == n_fl + cfg.n_layers
+        assert decode_attention_cuda.launches == n_dec + 2 * cfg.n_layers
+    assert torch.equal(out[True], out[False])
+    batch = {"tokens": toks[:, :32], "labels": toks[:, 1:33]}
+    metrics = {}
+    for m in (mesh, one):
+        tr = make_train_step(cfg, m, 2, 32)
+        p = map_tree(torch.clone, params)
+        o = adamw(AdamWConfig())[0](p)
+        if m.distributed:
+            p, o = SH.place(p, tr.in_shardings[0]), \
+                SH.place(o, tr.in_shardings[1])
+        n_bwd = flash_attention_backward_cuda.launches
+        _, _, mt = tr.fn(p, o, batch)
+        assert flash_attention_backward_cuda.launches == n_bwd + cfg.n_layers
+        metrics[m.distributed] = {k: float(v.full_tensor() if m.distributed
+                                           else v) for k, v in mt.items()}
+    for key in ("loss", "grad_norm"):
+        assert abs(metrics[True][key] - metrics[False][key]) \
+            <= 1e-5 * abs(metrics[False][key])
+    shardings = bundles[True].in_shardings[0]
+    placed = SH.place(params, shardings)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = CheckpointManager(tmp)
+        ckpt.save(0, placed, blocking=True)
+        back = ckpt.restore(map_tree(torch.zeros_like, placed),
+                            shardings=shardings)
+    assert all(torch.equal(a.to_local(), b.to_local())
+               for a, b in zip(leaves(back), leaves(placed)))
+
+
 @pytest.mark.cuda
 def test_shard_4_runs_on_the_one_card(cuda_device, capsys):
     """``--shard 4`` resolves to the one card (``repro`` caps the count at
     the devices present) and prints what ``--shard 1`` prints."""
+    from repro_torch.device import shard_devices
     from repro_torch.launch import autoscale
     if torch.cuda.device_count() != 1:
         pytest.skip("the one-card semantics need exactly one card")
-    assert autoscale.one_card("4", cuda_device) == 1
+    assert shard_devices(autoscale.shard_spec("4"), cuda_device) == [
+        torch.device("cuda", 0)]
     outs = []
     for shard in ("1", "4"):
         autoscale.main(["--minutes", "2", "--shard", shard])
         outs.append(capsys.readouterr().out)
     assert "cycles=" in outs[0] and outs[1] == outs[0]
+
+
+@pytest.mark.cuda
+def test_shard_auto_over_every_card_prints_what_shard_1_prints(capsys):
+    """With two cards or more, the CLI's default ``--shard auto`` spreads
+    the 3-host fleet's buckets over every card and prints what ``--shard
+    1`` prints. Skips with one card."""
+    from repro_torch.launch import autoscale
+    if torch.cuda.device_count() < 2:
+        pytest.skip("spreading rows over cards needs two cards or more")
+    outs = []
+    for shard in ("1", "auto"):
+        autoscale.main(["--minutes", "2", "--hosts", "3", "--replicas", "3",
+                        "--shard", shard])
+        outs.append(capsys.readouterr().out)
+    assert "hosts=3" in outs[0] and outs[1] == outs[0]

@@ -125,7 +125,7 @@ def test_buckets_are_repros(counts, bucketed):
     assert tf.hosts == jf.hosts and tf.bucket_of == jf.bucket_of
     assert [bk.hosts for bk in tf.buckets] == [bk.hosts for bk in jf.buckets]
     assert [bk.key for bk in tf.buckets] == [bk.key for bk in jf.buckets]
-    assert tf.layout_key == jf.layout_key[1:]     # repro's leads with shards
+    assert tf.layout_key == jf.layout_key      # both lead with ("shards", 1)
 
 
 def _assert_bucket_equal(tb, jb, jsm, tsm):
