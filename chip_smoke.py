@@ -505,15 +505,22 @@ to one chunk, the RASK kernels' launches the non-empty chunks x 33, no
 plain version on the card, the scores held to the CPU twin's as in
 "fleet_solve"; it reports each count's median ms (with several cards,
 one more count: a chunk on each card). Phase "mesh" runs the
-dense decoder's step bundles on a one-rank ``nccl`` world's (1, 1) mesh,
-every tensor a DTensor placed by the bundle's shardings: gemma3-1b at full
-width cut to ``PERIOD_LAYERS``, a bf16 prefill of 4 x 1,024 tokens and 8
-decode steps (tokens equal to the one-device steps', logits and cache
-within 5e-2), a float32 train step twice on 4 x 1,024 tokens (loss, grad
-norm and Adam's moments within 1e-4 relative), the kernels' launch counts
-zeroed before and read after the mesh run, the placed state's local bytes
-equal to the dry run's per-device bytes, the bf16 weights restored onto
-the mesh bit for bit, and each step's ms beside the one-device step's.
+step bundles on a one-rank ``nccl`` world's (1, 1) mesh, every tensor a
+DTensor placed by the bundle's shardings: gemma3-1b at full width cut to
+``PERIOD_LAYERS``, a bf16 prefill of 4 x 1,024 tokens and 8 decode steps
+(tokens equal to the one-device steps', logits and cache within 5e-2), a
+float32 train step twice on 4 x 1,024 tokens (loss, grad norm and Adam's
+moments within 1e-4 relative); the same for mamba2-370m (8 of 48
+layers; 4 x 1,000 prompt tokens; its train step through the SSD scan's
+forward and backward kernels under ``local_map``), and serving for
+qwen2-moe-a2.7b (2 of 24 layers, the 512 bucket, its kept routes equal)
+and jamba's period (``_jamba_cut`` with 4 experts, 4 x 1,000). For
+each: the kernels' launch counts zeroed before and read after the mesh
+run, the placed state's local bytes equal to the dry run's per-device
+bytes, and each step's ms beside the one-device step's; gemma3-1b's bf16
+weights also restored onto the mesh bit for bit. "ssd_kernels" and
+"ssd_backward_kernels" also hold the scans at a rank's local shapes on
+meshes of several cards (``MESH_SSD_SHAPES``).
 Whether two ``gloo`` ranks on the one card carry the steps is a probe run
 by hand (``python -m repro_torch.launch.gloo_on_cuda``), not a phase.
 
@@ -1591,13 +1598,22 @@ SSD_TOL = {"float32": dict(atol=1e-4, rtol=1e-3),     # test_ssd_sweep's
            "bfloat16": dict(atol=1e-1, rtol=1e-1)}
 
 
+# (b, l, initial state, h): a rank's local shapes of the mesh phase's
+# 4 x 1,024-token scans on meshes of several cards: mamba2-370m's
+# 32 heads on (2, 2) and (1, 4), 16 and 8 a rank; jamba's 256 on a "model"
+# axis of 2 and 4, 128 and 64 a rank, one row
+MESH_SSD_SHAPES = ((2, 1024, False, 16), (4, 1024, False, 8),
+                   (1, 1024, False, 128), (1, 1024, False, 64))
+
+
 def ssd_cases(dev, dtype):
     """The scan's inputs at the slice's shapes (32 heads of 64, state 128,
     chunk 128), with test_ssd_sweep's distributions: the prompt lengths of
     phase "ssm_serve" rounded up to the chunk, and b = 2 with a non-zero
     initial state (two and six chunks); then jamba's Mamba-2 sublayers,
     256 heads of 64 ("h256"), at its 300- and 1000-token prompts (l = 384
-    and 1024)."""
+    and 1024); then the local shapes of ``MESH_SSD_SHAPES`` ("h16", "h8",
+    "h128", "h64")."""
     g = torch.Generator(dev).manual_seed(13)
 
     def randn(*shape):
@@ -1606,14 +1622,14 @@ def ssd_cases(dev, dtype):
     for b, l, with_state, h in ((1, 128, False, 32), (1, 384, False, 32),
                                 (1, 1024, False, 32), (2, 256, True, 32),
                                 (2, 768, True, 32), (1, 384, False, 256),
-                                (1, 1024, False, 256)):
+                                (1, 1024, False, 256), *MESH_SSD_SHAPES):
         p, n = 64, 128
         args = [randn(b, l, h, p) * 0.5,
                 torch.nn.functional.softplus(randn(b, l, h)),
                 -torch.exp(randn(h) * 0.3),
                 randn(b, l, n) * 0.5, randn(b, l, n) * 0.5]
         init = randn(b, h, p, n) * 0.5 if with_state else None
-        name = ("h256_" if h == 256 else "") + f"b{b}_l{l}" \
+        name = ("" if h == 32 else f"h{h}_") + f"b{b}_l{l}" \
             + ("_init" if with_state else "")
         out.append((name, [t.to(dtype) for t in args],
                     None if init is None else init.to(dtype)))
@@ -5100,8 +5116,9 @@ def ssd_backward_cases(dev, dtype):
     mamba2-370m's training shape (4 rows of 1,024 tokens); jamba's
     full-width Mamba-2 sublayer (256 heads of 64) at l = 384 and 1024; two
     rows of 512 with an initial state and a final-state cotangent; one
-    chunk (l = 64). Each case is (name, [x, dt, A, B, C], initial state,
-    dy, dfinal)."""
+    chunk (l = 64); a rank's local shapes on meshes of several cards
+    (``MESH_SSD_SHAPES``, "mesh_h16" ...). Each case is (name, [x, dt, A,
+    B, C], initial state, dy, dfinal)."""
     g = torch.Generator(dev).manual_seed(29)
 
     def randn(*shape):
@@ -5111,7 +5128,9 @@ def ssd_backward_cases(dev, dtype):
                                  ("h256_b1_l384", 1, 384, 256, False),
                                  ("h256_b1_l1024", 1, 1024, 256, False),
                                  ("b2_l512_state", 2, 512, 32, True),
-                                 ("b1_l64", 1, 64, 32, False)):
+                                 ("b1_l64", 1, 64, 32, False),
+                                 *((f"mesh_h{h}_b{b}_l{l}", b, l, h, False)
+                                   for b, l, _, h in MESH_SSD_SHAPES)):
         p, n = 64, 128
         args = [randn(b, l, h, p) * 0.5,
                 torch.nn.functional.softplus(randn(b, l, h)),
@@ -5650,6 +5669,15 @@ def phase_fleet_shards(dev):
 
 MESH_ROWS, MESH_PROMPT, MESH_MAX_SEQ, MESH_DECODES = 4, 1024, 2048, 8
 MESH_TRAIN_STEPS = 2
+# the other families, full width cut in depth (PERF.md section 4):
+# mamba2-370m 8 of 48 layers, 4 x 1,000 tokens; qwen2-moe-a2.7b 2 of 24
+# layers, 4 x 512 (the 512 bucket); jamba at phase "hybrid_serve"'s
+# one-period cut with 8 of its 16 experts (51.6 GB: the one-device steps
+# run first, then the weights are placed leaf by leaf, each one-device
+# leaf dropped as its DTensor takes its place), 4 x 1,000
+MESH_SSM_LAYERS, MESH_SSM_PROMPT = 8, 1000
+MESH_MOE_LAYERS, MESH_MOE_PROMPT = 2, 512
+MESH_HYBRID_PROMPT = 1000
 # bf16 serving: the mesh's one rank runs the one-device step's kernels on
 # the same tensors, so tokens must be equal and logits and caches agree to
 # bf16's rounding (tests/test_kernels.py's 5e-2); float32 training: loss
@@ -5672,7 +5700,8 @@ def _mesh_counts():
     v = flash_attention_cuda.variant_launches
     return {"decode_attention": decode_attention_cuda.launches,
             "flash_wgmma": v["wgmma"], "flash_attention_fp32": v["tf32x3"],
-            "flash_attention_backward": flash_attention_backward_cuda.launches}
+            "flash_attention_backward": flash_attention_backward_cuda.launches,
+            **_ssd_launches()}
 
 
 def _zero_mesh_counts():
@@ -5680,6 +5709,7 @@ def _zero_mesh_counts():
     from repro_torch.kernels.flash_attention import reset_launches
     decode_attention_cuda.launches = 0
     reset_launches()
+    _zero_ssd_launches()
 
 
 def _whole(t):
@@ -5696,45 +5726,69 @@ def _wall_ms(fn):
     return 1e3 * (time.perf_counter() - t0), out
 
 
-def _mesh_serve(dev, mesh, one):
-    """gemma3-1b (bf16, full width, ``PERIOD_LAYERS`` deep): a prefill of
-    ``MESH_ROWS`` x ``MESH_PROMPT`` tokens into a ``MESH_MAX_SEQ`` cache
-    and ``MESH_DECODES`` decode steps through the DTensor path, against
-    the one-device bundle steps on the same weights; then the weights
-    saved and restored onto the mesh."""
+def _place_dropping(tree, shardings):
+    """``sharding.place(tree, shardings)`` leaf by leaf into ``tree``
+    itself, each one-device leaf dropped as its DTensor takes its place:
+    the card holds one tree and one leaf, not two trees (placing copies
+    even on a (1, 1) mesh)."""
+    from repro_torch.launch import sharding as SH
+    for k in (tree if isinstance(tree, dict) else range(len(tree))):
+        if isinstance(tree[k], (dict, list)):
+            _place_dropping(tree[k], shardings[k])
+        else:
+            tree[k] = SH.place(tree[k], shardings[k])
+    return tree
+
+
+def _mesh_serve(dev, mesh, one, cfg, prompt_len, want, prefills=3,
+                restore=False):
+    """``cfg`` (bf16) through the DTensor path: ``prefills`` prefills of
+    ``MESH_ROWS`` x ``prompt_len`` tokens into a ``MESH_MAX_SEQ`` cache
+    (the first fills DTensor's caches, the rest are timed) and
+    ``MESH_DECODES`` decode steps, against the one-device bundle steps on
+    the same weights, run first: tokens equal, an MoE's kept routes at
+    the first prefill equal, logits and every cache leaf within
+    ``MESH_BF16_TOL``; the kernels' counts, zeroed just before the mesh
+    run and read just after, equal to ``want(prefills)``; the placed
+    weights' local bytes the dry run's; with ``restore`` the weights saved
+    and restored onto the mesh bit for bit."""
     import tempfile
 
     from torch.distributed.tensor.experimental import implicit_replication
 
-    from repro_torch.configs import get
     from repro_torch.kernels import ops as kernel_ops
     from repro_torch.launch import sharding as SH
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import build
+    from repro_torch.models.moe import recording_routes
     from repro_torch.train.checkpoint import CheckpointManager
     from repro_torch.train.tree import leaves, map_tree
 
-    cfg = dataclasses.replace(get("gemma3-1b"), n_layers=PERIOD_LAYERS)
     model = build(cfg)
     params = model.init(torch.Generator(dev).manual_seed(0))
     pre1, dec1 = (make_prefill_step(cfg, one, MESH_ROWS, MESH_MAX_SEQ),
                   make_decode_step(cfg, one, MESH_ROWS, MESH_MAX_SEQ))
     pre, dec = (make_prefill_step(cfg, mesh, MESH_ROWS, MESH_MAX_SEQ),
                 make_decode_step(cfg, mesh, MESH_ROWS, MESH_MAX_SEQ))
-    placed = SH.place(params, pre.in_shardings[0])
-    prompt = torch.randint(0, cfg.vocab, (MESH_ROWS, MESH_PROMPT),
+    prompt = torch.randint(0, cfg.vocab, (MESH_ROWS, prompt_len),
                            generator=torch.Generator(dev).manual_seed(1),
                            device=dev, dtype=torch.int32)
     res = {"model": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
-           "rows": MESH_ROWS, "prompt": MESH_PROMPT,
-           "max_seq": MESH_MAX_SEQ, "decode_steps": MESH_DECODES,
-           "local_bytes": SH.local_bytes(placed),
+           "n_experts": cfg.n_experts, "rows": MESH_ROWS,
+           "prompt": prompt_len, "max_seq": MESH_MAX_SEQ,
+           "decode_steps": MESH_DECODES, "prefills": prefills,
+           "weights_gb": _nbytes(params) / 1e9,
            "dryrun_bytes": SH.sharded_size_bytes(pre.args[0],
                                                  pre.in_shardings[0])}
 
     def run(step_pre, step_dec, p):
         ms = {"prefill": [], "decode": []}
-        for _ in range(3):          # the first call fills DTensor's caches
+        with recording_routes() as routes:
+            t, (tok, cache) = _wall_ms(
+                lambda: step_pre.fn(p, {"tokens": prompt}))
+        kept = [(_whole(i), _whole(k)) for i, k in routes]
+        ms["prefill"].append(t)
+        for _ in range(prefills - 1):
             t, (tok, cache) = _wall_ms(
                 lambda: step_pre.fn(p, {"tokens": prompt}))
             ms["prefill"].append(t)
@@ -5745,31 +5799,45 @@ def _mesh_serve(dev, mesh, one):
             ms["decode"].append(t)
             toks.append(nxt)
         return (torch.cat([_whole(t) for t in toks], dim=1),
-                [_whole(cache["k"]), _whole(cache["v"])], ms)
+                {k: _whole(v) for k, v in cache.items()
+                 if v.is_floating_point()}, ms, kept)
 
+    toks1, cache1, ms1, kept1 = run(pre1, dec1, params)
+    with torch.no_grad():
+        logits1 = model.prefill(params, {"tokens": prompt},
+                                max_seq=MESH_MAX_SEQ)[0]
+    before = torch.cuda.memory_allocated()
+    placed = _place_dropping(params, pre.in_shardings[0])
+    del params
+    res["placing_allocated_gb"] = \
+        (torch.cuda.memory_allocated() - before) / 1e9
+    res["local_bytes"] = SH.local_bytes(placed)
     _zero_mesh_counts()
     gathered = kernel_ops.GATHERED_KV_BYTES
     gathered.update(dict.fromkeys(gathered, 0))
     with PlainOnCard() as plain:
-        toks, kv, ms = run(pre, dec, placed)
+        toks, cache, ms, kept = run(pre, dec, placed)
         torch.cuda.synchronize()
     launches = _mesh_counts()
     gathered = dict(gathered)
-    toks1, kv1, ms1 = run(pre1, dec1, params)
     batch = SH.place({"tokens": prompt}, pre.in_shardings[1])
     with torch.no_grad():
         with implicit_replication():
             logits = model.prefill(placed, batch,
                                    max_seq=MESH_MAX_SEQ)[0].full_tensor()
-        logits1 = model.prefill(params, {"tokens": prompt},
-                                max_seq=MESH_MAX_SEQ)[0]
     res.update({
         "launches": launches, "plain_calls_on_card": plain.calls,
         "tokens_equal": bool(torch.equal(toks, toks1)),
+        "moe_layers_routed": len(kept),
+        "routes_equal": len(kept) == len(kept1) and all(
+            torch.equal(a, b) for pair, pair1 in zip(kept, kept1)
+            for a, b in zip(pair, pair1)),
+        "routes_dropped": int(sum(int((~k).sum()) for _, k in kept)),
         "logits_max_abs_diff": float((logits.float() - logits1.float())
                                      .abs().max()),
-        "cache_max_abs_diff": max(float((a.float() - b.float()).abs().max())
-                                  for a, b in zip(kv, kv1)),
+        "cache_max_abs_diff": {k: float((v.float() - cache1[k].float())
+                                        .abs().max())
+                               for k, v in cache.items()},
         "prefill_ms": ms["prefill"], "prefill_ms_one_device": ms1["prefill"],
         "prefill_ms_median": statistics.median(ms["prefill"][1:]),
         "prefill_ms_median_one_device": statistics.median(
@@ -5779,42 +5847,45 @@ def _mesh_serve(dev, mesh, one):
         "gathered_cache_bytes_a_step":     # counted; 0 where "model" is 1
             gathered["decode_attention"] / MESH_DECODES,
         "gathered_kv_bytes": gathered})
-    with tempfile.TemporaryDirectory() as tmp:
-        ckpt = CheckpointManager(tmp)
-        t = time.perf_counter()
-        ckpt.save(0, placed, blocking=True)
-        back = ckpt.restore(map_tree(torch.zeros_like, placed),
-                            shardings=pre.in_shardings[0])
-        torch.cuda.synchronize()
-        res["restore_roundtrip_s"] = time.perf_counter() - t
-    res["restored_bitwise"] = all(
-        torch.equal(a.to_local(), b.to_local())
-        and list(a.placements) == list(b.placements)
-        and a.to_local().device == dev
-        for a, b in zip(leaves(back), leaves(placed)))
+    name = f"mesh {cfg.name}"
+    if restore:
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = CheckpointManager(tmp)
+            t = time.perf_counter()
+            ckpt.save(0, placed, blocking=True)
+            back = ckpt.restore(map_tree(torch.zeros_like, placed),
+                                shardings=pre.in_shardings[0])
+            torch.cuda.synchronize()
+            res["restore_roundtrip_s"] = time.perf_counter() - t
+        res["restored_bitwise"] = all(
+            torch.equal(a.to_local(), b.to_local())
+            and list(a.placements) == list(b.placements)
+            and a.to_local().device == dev
+            for a, b in zip(leaves(back), leaves(placed)))
+        check(res["restored_bitwise"], f"{name}: restore is not bitwise")
     check(res["local_bytes"] == res["dryrun_bytes"],
-          f"mesh serve: local bytes {res['local_bytes']} vs the dry run's "
+          f"{name}: local bytes {res['local_bytes']} vs the dry run's "
           f"{res['dryrun_bytes']}")
-    check(launches["flash_wgmma"] == 3 * cfg.n_layers     # 3 prefills
-          and launches["decode_attention"] == cfg.n_layers * MESH_DECODES,
-          f"mesh serve: launches {launches}")
+    expected = want(prefills)
+    check({k: launches[k] for k in expected} == expected,
+          f"{name}: launches {launches}, want {expected}")
     check(not any(plain.calls.values()),
-          f"mesh serve: plain versions on the card {plain.calls}")
-    check(res["tokens_equal"], "mesh serve: tokens differ from one device")
+          f"{name}: plain versions on the card {plain.calls}")
+    check(res["tokens_equal"], f"{name}: tokens differ from one device")
+    check(res["routes_equal"], f"{name}: kept routes differ from one device")
     check(res["logits_max_abs_diff"] <= MESH_BF16_TOL
-          and res["cache_max_abs_diff"] <= MESH_BF16_TOL,
-          f"mesh serve: logits {res['logits_max_abs_diff']}, cache "
+          and max(res["cache_max_abs_diff"].values()) <= MESH_BF16_TOL,
+          f"{name}: logits {res['logits_max_abs_diff']}, cache "
           f"{res['cache_max_abs_diff']}")
-    check(res["restored_bitwise"], "mesh serve: restore is not bitwise")
+    log(f"{name}: {json.dumps(res)}")
     return res
 
 
-def _mesh_train(dev, mesh, one):
-    """gemma3-1b (float32, full width, ``PERIOD_LAYERS`` deep):
-    ``MESH_TRAIN_STEPS`` train steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ``
-    tokens through the DTensor path against the one-device bundle step
-    from the same weights and batches."""
-    from repro_torch.configs import get
+def _mesh_train(dev, mesh, one, cfg, want):
+    """``cfg`` (float32): ``MESH_TRAIN_STEPS`` train steps of
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens through the DTensor path
+    against the one-device bundle step from the same weights and batches;
+    the kernels' counts around the mesh run equal to ``want``."""
     from repro_torch.data import TokenPipeline
     from repro_torch.device import upload
     from repro_torch.launch import sharding as SH
@@ -5823,8 +5894,6 @@ def _mesh_train(dev, mesh, one):
     from repro_torch.train.optimizer import AdamWConfig, adamw
     from repro_torch.train.tree import leaves, map_tree
 
-    cfg = dataclasses.replace(get(TRAIN_ARCH), n_layers=PERIOD_LAYERS,
-                              dtype="float32")
     params = build(cfg).init(torch.Generator(dev).manual_seed(0))
     opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=10,
                           total_steps=TRAIN_STEPS)
@@ -5879,38 +5948,51 @@ def _mesh_train(dev, mesh, one):
                 "mu_rel_diff": worst(mu, leaves(state1[1].mu)),
                 "nu_rel_diff": worst(nu, leaves(state1[1].nu)),
                 "step_ms": ms, "step_ms_one_device": ms1})
-    n = cfg.n_layers * MESH_TRAIN_STEPS
+    name = f"mesh train {cfg.name}"
     check(res["local_bytes"] == res["dryrun_bytes"],
-          f"mesh train: local bytes {res['local_bytes']} vs the dry run's "
+          f"{name}: local bytes {res['local_bytes']} vs the dry run's "
           f"{res['dryrun_bytes']}")
-    check(launches["flash_attention_fp32"] == n
-          and launches["flash_attention_backward"] == n,
-          f"mesh train: launches {launches}, {n} expected")
+    check({k: launches[k] for k in want} == want,
+          f"{name}: launches {launches}, want {want}")
     check(not any(plain.calls.values()),
-          f"mesh train: plain versions on the card {plain.calls}")
+          f"{name}: plain versions on the card {plain.calls}")
     check(max(rel.values()) <= MESH_F32_REL
           and res["mu_rel_diff"] <= MESH_F32_REL
           and res["nu_rel_diff"] <= MESH_F32_REL,
-          f"mesh train: {rel}, mu {res['mu_rel_diff']}, nu "
+          f"{name}: {rel}, mu {res['mu_rel_diff']}, nu "
           f"{res['nu_rel_diff']}")
+    log(f"{name}: {json.dumps(res)}")
     return res
 
 
 def phase_mesh(dev):
-    """The dense decoder's step bundles on a real ``torch.distributed``
-    mesh: a one-rank ``nccl`` world on the card (``tcp://localhost``, a
-    free port), ``make_debug_mesh()`` its (1, 1) mesh, every step's
-    tensors DTensors placed by the bundle's shardings. "serve": the bf16
-    decode and prefill steps (``_mesh_serve``), "train": the float32
-    train step (``_mesh_train``), each held to the one-device bundle step
-    on the same inputs, its launch counts (zeroed just before the mesh run
-    and read just after) those of the kernels, the placed state's local
-    bytes the dry run's per-device bytes, and the serving weights restored
-    onto the mesh bit for bit."""
+    """The step bundles on a real ``torch.distributed`` mesh: a one-rank
+    ``nccl`` world on the card (``tcp://localhost``, a free port),
+    ``make_debug_mesh()`` its (1, 1) mesh, every step's tensors DTensors
+    placed by the bundle's shardings, each held to the one-device bundle
+    step on the same inputs (``_mesh_serve``, ``_mesh_train``) with its
+    launch counts zeroed just before the mesh run and read just after and
+    its placed state's local bytes the dry run's per-device bytes.
+    "serve": gemma3-1b's bf16 prefill and decode steps (the weights also
+    restored onto the mesh bit for bit); "train": its float32 train step;
+    "ssm_serve", "ssm_train": mamba2-370m's (the SSD scan's forward and
+    backward kernels under ``local_map``); "moe_serve": qwen2-moe-a2.7b's
+    (its kept routes equal); "hybrid_serve": jamba's period (attention,
+    the SSD scan, the MoE)."""
     import torch.distributed as dist
 
+    from repro_torch.configs import get
     from repro_torch.launch.mesh import Mesh, make_debug_mesh
 
+    gemma = dataclasses.replace(get("gemma3-1b"), n_layers=PERIOD_LAYERS)
+    ssm = dataclasses.replace(get(SSM_TRAIN_ARCH), n_layers=MESH_SSM_LAYERS)
+    moe = dataclasses.replace(get(MOE_ARCH), n_layers=MESH_MOE_LAYERS)
+    jamba = _jamba_cut()
+    n_attn, n_mamba, _ = _hybrid_counts(jamba)
+
+    def attention(n):          # n attention layers: flash, decode
+        return lambda prefills: {"flash_wgmma": prefills * n,
+                                 "decode_attention": n * MESH_DECODES}
     _free_card()
     dist.init_process_group("nccl", init_method="tcp://localhost:"
                             f"{_free_port()}", rank=0, world_size=1)
@@ -5920,9 +6002,38 @@ def phase_mesh(dev):
         check(mesh.distributed and mesh.device == dev,
               f"mesh: {mesh!r} on {mesh.device}")
         res = {"phase": "mesh", "backend": dist.get_backend(),
-               "mesh": repr(mesh), "serve": _mesh_serve(dev, mesh, one)}
+               "mesh": repr(mesh)}
+        res["serve"] = _mesh_serve(dev, mesh, one, gemma, MESH_PROMPT,
+                                   attention(gemma.n_layers),
+                                   restore=True)
         _free_card()
-        res["train"] = _mesh_train(dev, mesh, one)
+        n = PERIOD_LAYERS * MESH_TRAIN_STEPS
+        res["train"] = _mesh_train(
+            dev, mesh, one, dataclasses.replace(gemma, dtype="float32"),
+            {"flash_attention_fp32": n, "flash_attention_backward": n})
+        _free_card()
+        res["ssm_serve"] = _mesh_serve(
+            dev, mesh, one, ssm, MESH_SSM_PROMPT,
+            lambda prefills: {"ssd_scan": prefills * ssm.n_layers,
+                              "flash_wgmma": 0, "decode_attention": 0})
+        _free_card()
+        n = MESH_SSM_LAYERS * MESH_TRAIN_STEPS
+        res["ssm_train"] = _mesh_train(
+            dev, mesh, one, dataclasses.replace(ssm, dtype="float32"),
+            {"ssd_scan": n, "ssd_scan_backward": n})
+        _free_card()
+        res["moe_serve"] = _mesh_serve(
+            dev, mesh, one, moe, MESH_MOE_PROMPT,
+            attention(moe.n_layers))
+        check(res["moe_serve"]["moe_layers_routed"] == moe.n_layers,
+              f"mesh moe: {res['moe_serve']['moe_layers_routed']} layers "
+              "routed")
+        _free_card()
+        hybrid = attention(n_attn)
+        res["hybrid_serve"] = _mesh_serve(
+            dev, mesh, one, jamba, MESH_HYBRID_PROMPT,
+            lambda prefills: dict(hybrid(prefills),
+                                  ssd_scan=prefills * n_mamba))
     finally:
         dist.destroy_process_group()
     _free_card()
@@ -6047,8 +6158,8 @@ def main(argv=None):
                     "the training phases (comma-separated: train_kernels, "
                     "train_crosscheck, train, ssd_backward_kernels, "
                     "ssm_train_crosscheck, ssm_train, dryrun: after train "
-                    "and ssm_train; fleet_shards, mesh) and print no "
-                    "summary")
+                    "and ssm_train; fleet_shards, mesh; ssd_kernels) and "
+                    "print no summary")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -6090,9 +6201,10 @@ def main(argv=None):
             if name == "dryrun":
                 emit(phase_dryrun, dev, trained)
                 continue
-            if name in ("fleet_shards", "mesh"):
+            if name in ("fleet_shards", "mesh", "ssd_kernels"):
                 emit({"fleet_shards": phase_fleet_shards,
-                      "mesh": phase_mesh}[name], dev)
+                      "mesh": phase_mesh,
+                      "ssd_kernels": phase_ssd_kernels}[name], dev)
                 continue
             out = emit(training[name], dev)
             if name in ("train", "ssm_train"):
@@ -6174,6 +6286,9 @@ def main(argv=None):
     del trained, ssm_trained
     fleet_shards = emit(phase_fleet_shards, dev)
     mesh = emit(phase_mesh, dev)
+    mesh_launches = {k: sum(mesh[p]["launches"][k] for p in (
+        "serve", "train", "ssm_serve", "ssm_train", "moe_serve",
+        "hybrid_serve")) for k in mesh["serve"]["launches"]}
     shard_launches = {k: sum(fleet_shards[p][n]["launches"][k]
                              for p in ("hetero", "scale", "placement")
                              for n in fleet_shards[p])
@@ -6245,8 +6360,7 @@ def main(argv=None):
                                  hybrid_serve["launches"]["decode_attention"],
                              "hybrid_crosscheck":
                                  hybrid_cross["decode_launches"],
-                             "mesh": mesh["serve"]["launches"][
-                                 "decode_attention"]},
+                             "mesh": mesh_launches["decode_attention"]},
         "flash_attention": {"serve": serve["flash_variant_launches"]["wgmma"],
                             "engine_compare": sum(c["wgmma"]
                                                   for c in compare),
@@ -6257,7 +6371,7 @@ def main(argv=None):
                                 encdec_serve["launches"]["flash_wgmma"],
                             "hybrid_serve":
                                 hybrid_serve["launches"]["flash_wgmma"],
-                            "mesh": mesh["serve"]["launches"]["flash_wgmma"]},
+                            "mesh": mesh_launches["flash_wgmma"]},
         "flash_attention_fp32": {
             "crosscheck": cross["flash_launches"]["tf32x3"],
             "moe_crosscheck": moe_cross["flash_launches"]["tf32x3"],
@@ -6280,9 +6394,11 @@ def main(argv=None):
                      "ssm_train": ssm_train["launches"]["ssd_scan"],
                      "ssm_train_crosscheck": sum(
                          ssm_train_cross[m]["launches"]["ssd_scan"]
-                         for m in ("mamba2", "jamba"))},
+                         for m in ("mamba2", "jamba")),
+                     "mesh": mesh_launches["ssd_scan"]},
         "ssd_scan_backward": {
             "ssm_train": ssm_train["launches"]["ssd_scan_backward"],
+            "mesh": mesh_launches["ssd_scan_backward"],
             "ssm_train_crosscheck": sum(
                 ssm_train_cross[m]["launches"]["ssd_scan_backward"]
                 for m in ("mamba2", "jamba"))},
@@ -6315,7 +6431,9 @@ def main(argv=None):
                                      "jamba_S300", "jamba_S1000"),
                  "flash_attention_fp32": ("whisper_enc", "whisper_xattn",
                                           "jamba_S300"),
-                 "ssd_scan": ("h256_b1_l384", "h256_b1_l1024")}
+                 "ssd_scan": ("h256_b1_l384", "h256_b1_l1024",
+                              *(f"h{h}_b{b}_l{l}"
+                                for b, l, _, h in MESH_SSD_SHAPES))}
     e11_rows = [r for r in rows + ssd_kernels["cases"]
                 if r["dtype"] == "bfloat16"] + loop["rask_kernels"] + [
         dict(r, kernel="flash_attention_fp32") for r in rows

@@ -20,7 +20,10 @@ with the query heads (else replicated, as gemma3's one kv head is), and
 the decode cache's sequence gathered over "model" (the bytes each rank
 receives for it are counted in ``GATHERED_KV_BYTES``). ``_route`` then
 picks the kernel by the local tensor's device, and under autograd the
-backward kernel runs on the local shards.
+backward kernel runs on the local shards. The SSD scan runs so too
+(``_local_ssd``): rows over every mesh dim but "model", heads over
+"model", B and C (shared by every head) replicated, their gradients
+``Partial()`` over "model".
 
 Gradients: on a CPU tensor every entry point differentiates through its
 plain version under ordinary autograd. On a CUDA tensor attention
@@ -125,6 +128,82 @@ def _is_dtensor(t) -> bool:
     return isinstance(t, DTensor)
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient comes out contiguous (a DTensor's
+    local shard, and its global strides with it)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not _is_dtensor(g):
+            return g.contiguous()
+        if g.to_local().is_contiguous() and g.is_contiguous():
+            return g
+        from torch._prims_common import make_contiguous_strides_for
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(
+            g.to_local().contiguous(), g.device_mesh, g.placements,
+            run_check=False, shape=g.shape,
+            stride=make_contiguous_strides_for(g.shape))
+
+
+def contiguous_grad(t):
+    """``t``, its gradient made contiguous where it requires one.
+    ``local_map`` wraps a local gradient as a DTensor with strides taken
+    from it, and a redistribute's backward may leave a strided local
+    shard (an all-to-all's chunks) under contiguous global strides; either
+    breaks the views that autograd takes upstream. So ``on_local_shards``
+    passes every input through this, outside and inside."""
+    if isinstance(t, torch.Tensor) and t.requires_grad:
+        return _ContiguousGrad.apply(t)
+    return t
+
+
+def row_ranks(mesh) -> int:
+    """Ranks the rows split over: every mesh dim but "model"."""
+    return math.prod(s for n, s in zip(mesh.mesh_dim_names, mesh.shape)
+                     if n != "model")
+
+
+def model_ranks(mesh) -> int:
+    """Ranks of the mesh's "model" dim (1 without one)."""
+    return dict(zip(mesh.mesh_dim_names, mesh.shape)).get("model", 1)
+
+
+def mesh_placements(mesh, model, rows) -> list:
+    """One placement a dim of ``mesh``: ``model`` on "model", ``rows`` on
+    every other dim of more than one rank (the dims the rows split over),
+    ``Replicate()`` on a dim of one (a shard of all the rows would stop
+    views from merging them with the next dim)."""
+    from torch.distributed.tensor import Replicate
+    return [model if n == "model" else rows if k > 1 else Replicate()
+            for n, k in zip(mesh.mesh_dim_names, mesh.shape)]
+
+
+def on_local_shards(fn, args, in_pl, grad_pl, out_pl):
+    """``fn(*args)`` on each rank's local shards, under ``local_map``:
+    ``args`` redistributed to ``in_pl`` (a plain tensor counts as
+    replicated on the mesh of the first DTensor), their gradients declared
+    ``grad_pl``, the results placed ``out_pl``. Every input's gradient is
+    made contiguous, outside ``fn`` and inside (``contiguous_grad``)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = next(t.device_mesh for t in args if _is_dtensor(t))
+    args = [DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+            if isinstance(t, torch.Tensor) and not _is_dtensor(t) else t
+            for t in args]
+
+    def local(*shards):
+        return fn(*map(contiguous_grad, shards))
+    return local_map(local, out_placements=out_pl, in_placements=in_pl,
+                     in_grad_placements=grad_pl, redistribute_inputs=True,
+                     device_mesh=mesh)(*map(contiguous_grad, args))
+
+
 def _local_attention(fn, q, kv, extra=()):
     """``fn(q, *kv, *extra)`` on each rank's local shards of DTensor ``q``
     (rows dim 0, heads dim 1), ``kv`` (flash's (B, KH, T, D) beside a
@@ -133,38 +212,27 @@ def _local_attention(fn, q, kv, extra=()):
     where they split evenly; query heads over "model" where they split
     and the kv heads split with them, or there is one kv head (then
     replicated); the rest is replicated (a cache's sequence gathered)."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
+    from torch.distributed.tensor import Partial, Replicate, Shard
     mesh = q.device_mesh
-    names = mesh.mesh_dim_names
-    size = dict(zip(names, mesh.shape))
     kv_dim = 1 if q.dim() == 4 else 2
-    H, KH, m = q.shape[1], kv[0].shape[kv_dim], size.get("model", 1)
+    H, KH, m = q.shape[1], kv[0].shape[kv_dim], model_ranks(mesh)
     q_heads = H % m == 0 and (KH % m == 0 or KH == 1)
     kv_heads = q_heads and KH % m == 0
-    rows = q.shape[0] % math.prod(
-        s for n, s in size.items() if n != "model") == 0
-
-    def pl(split, head_dim):
-        return tuple((Shard(head_dim) if split else Replicate())
-                     if n == "model" else
-                     (Shard(0) if rows else Replicate()) for n in names)
-    qp, kp, rp = pl(q_heads, 1), pl(kv_heads, kv_dim), pl(False, None)
+    rows = Shard(0) if q.shape[0] % row_ranks(mesh) == 0 else Replicate()
+    qp = mesh_placements(mesh, Shard(1) if q_heads else Replicate(), rows)
+    kp = mesh_placements(mesh, Shard(kv_dim) if kv_heads else Replicate(),
+                         rows)
+    rp = mesh_placements(mesh, Replicate(), rows)
     # kv replicated over "model" beside split query heads: each rank's
     # gradient of kv is its heads' part
-    kg = tuple(Partial() if n == "model" and q_heads and not kv_heads
-               else p for n, p in zip(names, kp))
-    extra = tuple(t if _is_dtensor(t) else DTensor.from_local(
-        t, mesh, [Replicate()] * mesh.ndim, run_check=False) for t in extra)
+    kg = mesh_placements(mesh, Partial(), rows) \
+        if q_heads and not kv_heads else kp
     entry = "flash_attention" if q.dim() == 4 else "decode_attention"
     GATHERED_KV_BYTES[entry] += sum(_gathered_bytes(t, kp) for t in kv)
-    return local_map(fn, out_placements=list(qp),
-                     in_placements=(qp,) + (kp,) * len(kv)
-                     + (rp,) * len(extra),
-                     in_grad_placements=(qp,) + (kg,) * len(kv)
-                     + (rp,) * len(extra),
-                     redistribute_inputs=True, device_mesh=mesh)(
-                         q, *kv, *extra)
+    n_kv, n_extra = len(kv), len(extra)
+    return on_local_shards(
+        fn, (q, *kv, *extra), (qp,) + (kp,) * n_kv + (rp,) * n_extra,
+        (qp,) + (kg,) * n_kv + (rp,) * n_extra, qp)
 
 
 def _gathered_bytes(t, placements) -> int:
@@ -221,13 +289,51 @@ def decode_attention(q, k_cache, v_cache, length, start):
                                           start=start)
 
 
+def _local_ssd(x, dt, A, B, C, chunk, initial_state):
+    """``ssd`` on each rank's local shards of DTensor ``x``: rows over
+    every mesh dim but "model" where they split evenly; x, dt, A, the
+    initial state and both outputs by heads over "model" where the heads
+    split (else replicated); B and C, shared by every head, replicated
+    over "model". A rank's gradients of B and C are its heads' share, so
+    they are declared ``Partial()`` over "model" where the heads split,
+    and A's is its rows' share, ``Partial()`` over the dims its rows split
+    over."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh, R = x.device_mesh, Replicate()
+    heads = x.shape[2] % model_ranks(mesh) == 0
+    rows = x.shape[0] % row_ranks(mesh) == 0
+    row = Shard(0) if rows else R
+
+    def by_heads(dim):
+        return Shard(dim) if heads else R
+    xp = mesh_placements(mesh, by_heads(2), row)      # x, dt and y
+    sp = mesh_placements(mesh, by_heads(1), row)      # the states
+    ap = mesh_placements(mesh, by_heads(0), R)
+    ag = mesh_placements(mesh, by_heads(0), Partial() if rows else R)
+    bp = mesh_placements(mesh, R, row)                # B and C
+    bg = mesh_placements(mesh, Partial() if heads else R, row)
+    args = [x, dt, A, B, C] + ([] if initial_state is None
+                               else [initial_state])
+    n_init = len(args) - 5
+
+    def scan(x, dt, A, B, C, *init):
+        return ssd(x.contiguous(), dt.contiguous(), A.contiguous(),
+                   B.contiguous(), C.contiguous(), chunk=chunk,
+                   initial_state=init[0].contiguous() if init else None)
+    return on_local_shards(scan, args, (xp, xp, ap, bp, bp) + (sp,) * n_init,
+                           (xp, xp, ag, bg, bg) + (sp,) * n_init, (xp, sp))
+
+
 def ssd(x, dt, A, B, C, *, chunk: int = 128, initial_state=None):
     """Mamba-2 chunked SSD scan: x (b,l,h,p), dt (b,l,h), A (h,), B/C
     (b,l,n) -> (y (b,l,h,p), final_state (b,h,p,n)). Shapes and dtype flow:
     ``ref.ssd_reference``. Where grad mode is on and an input requires
     grad, a CUDA call goes through ``SSDScan`` (forward kernel, keeping its
     states, then the backward kernel); otherwise through the forward kernel
-    alone."""
+    alone. DTensors run on their local shards, h / model heads a rank
+    (``_local_ssd``)."""
+    if _is_dtensor(x):
+        return _local_ssd(x, dt, A, B, C, chunk, initial_state)
     if _route(x, "ssd"):
         tensors = (x, dt, A, B, C) + (() if initial_state is None
                                       else (initial_state,))

@@ -16,8 +16,9 @@ mesh's shape, so that ``mesh.devices.shape`` reads as a JAX mesh's does
   DTensors (``launch/sharding.py::place``). Outside a world it is the one
   card, or the CPU.
 
-Only the dense decoder runs on a mesh of more than one device; the other
-families raise there (``MULTI_CARD``).
+The dense decoder, the MoE decoder, the ssm program and the hybrid run on
+a mesh of more than one device; the encoder-decoder and gemma3's mixed
+cache raise there (``MULTI_CARD``).
 """
 from __future__ import annotations
 
@@ -29,9 +30,8 @@ import torch
 
 from ..device import device_count, resolve_device
 
-MULTI_CARD = ("the MoE, ssm, hybrid and encoder-decoder families (and "
-              "gemma3's mixed cache) on a mesh of several devices are "
-              "ROADMAP Queue 1, item 32")
+MULTI_CARD = ("the encoder-decoder family and gemma3's mixed cache on a "
+              "mesh of several devices are ROADMAP Queue 1, item 32")
 
 
 class Mesh:

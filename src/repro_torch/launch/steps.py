@@ -9,15 +9,17 @@ meta and the trainer runs on the card. The mesh decides the device: a
 production mesh's placeholders put the step on ``meta``, a debug mesh on
 its one device (the card, or the CPU).
 
-On a distributed mesh (``mesh.make_debug_mesh`` inside a world) the dense
-decoder's steps run as DTensors: the step places its arguments by
+On a distributed mesh (``mesh.make_debug_mesh`` inside a world) the
+steps of the dense and MoE decoders, the ssm program and the hybrid run
+as DTensors: the step places its arguments by
 ``in_shardings`` (``sharding.place``; a donated argument must arrive
 placed, so that the step writes into it), runs the model under DTensor's
 sharding propagation (``implicit_replication``: plain tensors such as
 positions count as replicated; ``models/spmd.py`` does what propagation
 does not), and hands its results back with ``out_shardings``' placements.
-The other families raise on a mesh of several devices
-(``mesh.MULTI_CARD``) and run as on one device in a one-rank world.
+The encoder-decoder and gemma3's mixed cache raise on a mesh of several
+devices (``mesh.MULTI_CARD``) and run as on one device in a one-rank
+world.
 """
 from __future__ import annotations
 
@@ -110,13 +112,18 @@ def _on(device: torch.device, batch) -> Dict[str, torch.Tensor]:
     return {k: _tensor(v, device) for k, v in batch.items()}
 
 
+# the families whose steps run as DTensors on a distributed mesh
+MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
+
 def _dtensor_steps(cfg: ModelConfig, mesh) -> bool:
-    """True where the steps run as DTensors on ``mesh``: the dense decoder
-    on a distributed mesh. Another family raises on a mesh of several
+    """True where the steps run as DTensors on ``mesh``: a family of
+    ``MESH_FAMILIES`` without gemma3's mixed cache, on a distributed mesh.
+    The encoder-decoder and the mixed cache raise on a mesh of several
     devices."""
     if not mesh.distributed:
         return False
-    if cfg.family == "dense" and not cfg.mixed_cache:
+    if cfg.family in MESH_FAMILIES and not cfg.mixed_cache:
         return True
     if mesh.size > 1:
         raise NotImplementedError(

@@ -23,11 +23,13 @@ caller can count the routes dropped at capacity.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from . import spmd
 from .config import ModelConfig
 from .layers import activation, init_mlp, mlp
 
@@ -94,7 +96,7 @@ def moe(p: Params, x, cfg: ModelConfig, capacity_factor: float = 1.25,
     tg = min(group_size, T)
     if T % tg and not ragged:
         raise ValueError(f"{T} tokens do not split into groups of {tg}")
-    xt = x.reshape(T, d)
+    xt = spmd.group_rows(x.reshape(T, d), tg)
     full = T - T % tg
     parts = [_dispatch(p, xt[:full].reshape(full // tg, tg, d), cfg,
                        capacity_factor)]
@@ -110,7 +112,8 @@ def moe(p: Params, x, cfg: ModelConfig, capacity_factor: float = 1.25,
         y = y + mlp(p["shared"], x, cfg)
 
     # load-balancing aux loss (Switch): E * sum_e f_e * P_e
-    frac = F.one_hot(gate_idx[:, 0], e).float().mean(dim=0)
+    first = gate_idx[:, :1] == torch.arange(e, device=gate_idx.device)
+    frac = first.float().mean(dim=0)
     aux = e * torch.sum(frac * probs.mean(dim=0))
     return y, aux
 
@@ -125,10 +128,31 @@ def _rows(parts, width: int):
 
 def _dispatch(p: Params, xg, cfg: ModelConfig, capacity_factor: float):
     """The routed experts over groups xg (G, Tg, d): (y (G, Tg, d),
-    gate_idx (G, Tg, k), router probs (G, Tg, E), kept routes (G*Tg, k))."""
+    gate_idx (G, Tg, k), router probs (G, Tg, E), kept routes (G*Tg, k)).
+    On a mesh (DTensor ``xg``) ``spmd.moe_dispatch`` runs the two halves
+    on each rank's local shards."""
+    if spmd.is_dtensor(xg):
+        return spmd.moe_dispatch(
+            functools.partial(_route, cfg=cfg,
+                              capacity_factor=capacity_factor),
+            functools.partial(_experts, act=cfg.act), p, xg)
+    dispatch, combine, gate_idx, probs, kept = _route(
+        xg, p["router"], cfg, capacity_factor,
+        record=_ROUTES is not None)
+    y = _experts(xg, dispatch, combine, p["up"], p["gate"], p["down"],
+                 cfg.act)
+    return y, gate_idx, probs, kept
+
+
+def _route(xg, router, cfg: ModelConfig, capacity_factor: float,
+           record: bool = True):
+    """The routing of groups xg (G, Tg, d): (dispatch (G, Tg, E, C) in
+    ``xg.dtype``, combine (G, Tg, E, C) float32, gate_idx (G, Tg, k),
+    router probs (G, Tg, E), kept routes (G*Tg, k), or None where not
+    ``record``)."""
     G, tg, d = xg.shape
     e, k = cfg.n_experts, cfg.top_k
-    logits = torch.einsum("gtd,de->gte", xg.float(), p["router"])
+    logits = torch.einsum("gtd,de->gte", xg.float(), router)
     probs = torch.softmax(logits, dim=-1)
     gate_w, gate_idx = torch.topk(probs, k, dim=-1)          # (G, Tg, k)
     gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp(min=1e-9)
@@ -150,14 +174,20 @@ def _dispatch(p: Params, xg, cfg: ModelConfig, capacity_factor: float):
         dispatch = dispatch + pos_oh
         combine = combine + pos_oh.float() * gate_w[..., choice, None, None]
         counts = counts + (onehot * keep).sum(dim=1)
-        if _ROUTES is not None:
+        if record:
             keeps.append(keep.any(dim=-1))                   # (G, Tg)
     kept = torch.stack(keeps, dim=-1).reshape(G * tg, k) if keeps else None
+    return dispatch, combine, gate_idx, probs, kept
 
+
+def _experts(xg, dispatch, combine, up, gate, down, act: str):
+    """The expert FFNs over routed groups xg (G, Tg, d): dispatch and
+    combine (G, Tg, E', C), up and gate (E', d, f), down (E', f, d) -> y
+    (G, Tg, d), summed over the E' experts given (all of them on one
+    device; a rank's own on a mesh, whose sums are then partial)."""
     expert_in = torch.einsum("gtec,gtd->gecd", dispatch, xg)  # (G, E, C, d)
-    h = torch.einsum("gecd,edf->gecf", expert_in, p["up"])
-    g = torch.einsum("gecd,edf->gecf", expert_in, p["gate"])
-    h = h * activation(g, cfg.act)
-    expert_out = torch.einsum("gecf,efd->gecd", h, p["down"])
-    y = torch.einsum("gtec,gecd->gtd", combine.to(xg.dtype), expert_out)
-    return y, gate_idx, probs, kept
+    h = torch.einsum("gecd,edf->gecf", expert_in, up)
+    g = torch.einsum("gecd,edf->gecf", expert_in, gate)
+    h = h * activation(g, act)
+    expert_out = torch.einsum("gecf,efd->gecd", h, down)
+    return torch.einsum("gtec,gecd->gtd", combine.to(xg.dtype), expert_out)

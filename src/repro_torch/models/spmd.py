@@ -1,6 +1,7 @@
-"""The decoder on a mesh: what DTensor's sharding propagation does not
-carry by itself (the dense decoder's prefill, decode and loss on DTensor
-parameters and inputs, ``launch/steps.py``).
+"""The models on a mesh: what DTensor's sharding propagation does not
+carry by itself (the dense and MoE decoders', the ssm program's and the
+hybrid's prefill, decode and loss on DTensor parameters and inputs,
+``launch/steps.py``).
 
 Parameters arrive placed by ``launch/sharding.py``'s rules: a matmul
 weight's parallel dim over "model" (TP) and its other dim over "data"
@@ -20,6 +21,13 @@ activations keep their rows over "data", as the batch is placed.
 * ``split_heads``: a projection whose heads do not split evenly over
   "model" (gemma3's one kv head: "model" would cut its d_head) is
   replicated over "model" before it is viewed as heads.
+* ``shardwise``: a function that keeps the sharded dims apart (the
+  Mamba-2 block's causal conv and sequence padding) runs on each rank's
+  own shard under ``local_map``, not op by op under propagation.
+* ``group_rows`` and ``moe_dispatch``: the MoE's routing runs on each
+  rank's whole groups (exact integers, as on one device), and its experts
+  on the rank's own experts (expert parallel over "model"), whose sums
+  are partial over "model".
 * ``write_slot`` and ``prefill_cache``: the decode cache is sharded by
   rows over "data" and by sequence over "model" (context-sharded);
   each rank writes the new slot into its own shard, and the decode kernel
@@ -30,6 +38,8 @@ On plain tensors every helper is the identity or the one-device code.
 from __future__ import annotations
 
 import torch
+
+from ..kernels import ops as kops
 
 
 def _dtensor():
@@ -55,7 +65,9 @@ def gathered(w):
 
 
 def over_model(x):
-    """``x`` replicated over "model"."""
+    """``x`` replicated over "model"; a plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
     from torch.distributed.tensor import Replicate
     names = x.device_mesh.mesh_dim_names
     want = [Replicate() if n == "model" else p
@@ -92,9 +104,7 @@ def embed(table, tokens):
     if not is_dtensor(table):
         return table[tokens]
     from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
     table = gathered(table)
-    mesh, names = table.device_mesh, table.device_mesh.mesh_dim_names
     v0 = _shard_offset(table, 0)
     t_pl = list(tokens.placements)
 
@@ -107,10 +117,9 @@ def embed(table, tokens):
     out_pl = [Partial() if v else p for v, p in zip(vocab_split, t_pl)]
     grad_pl = [p if v else (Partial() if t != Replicate() else Replicate())
                for v, p, t in zip(vocab_split, table.placements, t_pl)]
-    out = local_map(lookup, out_placements=out_pl,
-                    in_placements=(list(table.placements), t_pl),
-                    in_grad_placements=(grad_pl, t_pl),
-                    device_mesh=mesh)(table, tokens)
+    out = kops.on_local_shards(lookup, (table, tokens),
+                               (list(table.placements), t_pl),
+                               (grad_pl, t_pl), out_pl)
     return out.redistribute(placements=t_pl)
 
 
@@ -119,17 +128,12 @@ def full_vocab(logits):
     return over_model(logits) if is_dtensor(logits) else logits
 
 
-def model_size(x) -> int:
-    names = x.device_mesh.mesh_dim_names
-    return x.device_mesh.size(names.index("model")) \
-        if "model" in names else 1
-
-
 def split_heads(x, n_heads: int):
     """(..., n_heads * d) ready to be viewed as heads: replicated over
     "model" where its heads do not split over it (one head, or a count
     that "model" does not divide), so that no view cuts a head's d."""
-    if is_dtensor(x) and (n_heads == 1 or n_heads % model_size(x)):
+    if is_dtensor(x) and (n_heads == 1
+                          or n_heads % kops.model_ranks(x.device_mesh)):
         return over_model(x)
     return x
 
@@ -175,15 +179,98 @@ def write_slot(cache, idx, new) -> None:
 
 def prefill_cache(kvs, max_seq: int):
     """The decoder's {"k", "v"} (L, B, max_seq, KH, D) from a prompt's
-    per-layer (k, v), each (B, S, KH, D) DTensors: the prompt's slots,
-    then zeros, in the layout the prompt's k and v have."""
-    from torch.distributed.tensor import zeros
+    per-layer (k, v), each (B, S, KH, D): the prompt's slots, then zeros,
+    in the layout the prompt's k and v have (DTensors on a mesh)."""
     out = {}
     for name, i in (("k", 0), ("v", 1)):
         full = torch.stack([kv[i] for kv in kvs])
         L, B, S, KH, D = full.shape
-        pad = zeros((L, B, max_seq - S, KH, D), dtype=full.dtype,
-                    device_mesh=full.device_mesh,
-                    placements=full.placements)
-        out[name] = torch.cat([full, pad], dim=2)
+        out[name] = torch.cat([full, _zeros(full, (L, B, max_seq - S, KH,
+                                                   D))], dim=2)
     return out
+
+
+def _zeros(like, shape):
+    """Zeros of ``shape`` in ``like``'s dtype, on its device or, for a
+    DTensor, on its mesh in its placements."""
+    if not is_dtensor(like):
+        return torch.zeros(shape, dtype=like.dtype, device=like.device)
+    from torch.distributed.tensor import zeros
+    return zeros(shape, dtype=like.dtype, device_mesh=like.device_mesh,
+                 placements=like.placements)
+
+
+def shardwise(fn, x, *whole):
+    """``fn(x, *whole)``. On a DTensor ``x``, ``fn`` runs on the rank's
+    own shard of ``x`` (partial sums reduced first) with ``whole`` whole
+    on every rank, and the result keeps ``x``'s placements: for a function
+    that treats the dims ``x`` is sharded over independently and keeps
+    their sizes (the Mamba-2 block's causal conv and its padding of the
+    sequence). The gradients of ``whole`` are partial over the dims ``x``
+    is sharded over."""
+    if not is_dtensor(x):
+        return fn(x, *whole)
+    from torch.distributed.tensor import Partial, Replicate
+    pl = [Replicate() if p.is_partial() else p for p in x.placements]
+    rep = [Replicate()] * x.device_mesh.ndim
+    grad = [Partial() if p.is_shard() else Replicate() for p in pl]
+    n = len(whole)
+    return kops.on_local_shards(fn, (x, *whole), (pl,) + (rep,) * n,
+                                (pl,) + (grad,) * n, pl)
+
+
+def group_rows(xt, tg: int):
+    """Tokens (T, d) ready to be cut into groups of ``tg``: on a mesh,
+    rows stay split where every rank holds whole groups, and are
+    gathered otherwise (one group of a prompt, or a last ragged one)."""
+    if not is_dtensor(xt):
+        return xt
+    T = xt.shape[0]
+    if T % tg == 0 and (T // tg) % kops.row_ranks(xt.device_mesh) == 0:
+        return xt
+    return gathered(xt)
+
+
+def moe_dispatch(route, experts, p, xg):
+    """An MoE's dispatch on groups xg (G, Tg, d), a DTensor: (y, gate_idx,
+    probs, kept) as ``moe._dispatch`` returns them.
+
+    ``route(xg, router)`` runs on each rank's groups (over every mesh dim
+    but "model" where G splits, else all of them; replicated over
+    "model"), so its top-k, one-hots and cumsums are one device's on the
+    same rows. ``experts(xg, dispatch, combine, up, gate, down)`` runs on
+    the rank's experts where "model" divides them (expert parallel, as
+    the sharding rules place them; else on all of them, gathered): the
+    expert inputs take E over "model" and the combine's sum over E comes
+    out ``Partial()`` over "model", reduced once where it meets the
+    residual. Expert weights are gathered over the other dims first
+    (FSDP). Gradients: a rank's routing sees its rows (the router's is
+    partial over the dims they split over); its experts' share of xg's
+    and of the combine weights' is partial over "model"."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh, R = xg.device_mesh, Replicate()
+    m = kops.model_ranks(mesh)
+    n_exp = p["up"].shape[0]
+    ep = n_exp % m == 0
+    rows = xg.shape[0] % kops.row_ranks(mesh) == 0
+    row, row_part = (Shard(0), Partial()) if rows else (R, R)
+    rp = kops.mesh_placements(mesh, R, row)
+    part = kops.mesh_placements(mesh, Partial() if ep else R, row)
+    w_in = kops.mesh_placements(mesh, Shard(0) if ep else R, R)
+    w_grad = kops.mesh_placements(mesh, Shard(0) if ep else R, row_part)
+    dispatch, combine, gate_idx, probs, kept = kops.on_local_shards(
+        route, (xg, replicated(p["router"])),
+        (rp, kops.mesh_placements(mesh, R, R)),
+        (rp, kops.mesh_placements(mesh, R, row_part)), (rp,) * 5)
+    first = mesh.get_local_rank("model") * (n_exp // m) \
+        if ep and "model" in mesh.mesh_dim_names else 0
+
+    def mine(xg, dispatch, combine, up, gate, down):
+        own = slice(first, first + up.shape[0])
+        return experts(xg, dispatch[:, :, own], combine[:, :, own], up,
+                       gate, down)
+    y = kops.on_local_shards(
+        mine, (xg, dispatch, combine, p["up"], p["gate"], p["down"]),
+        (rp, rp, rp, w_in, w_in, w_in),
+        (part, rp, part, w_grad, w_grad, w_grad), part)
+    return y, gate_idx, probs, kept

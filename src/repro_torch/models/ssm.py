@@ -11,6 +11,12 @@ PyTorch, as ``repro`` runs it in plain jnp) with a (conv, ssm) state cache.
 The casts are ``repro``'s: ``dt`` and ``A`` are computed in float32 and
 cast to the activation dtype before the scan, and the decode recurrence and
 its state stay in the model dtype.
+
+On a mesh (DTensors, ``launch/steps.py``) ``in_proj``'s columns are
+gathered over "model" before the split, the conv runs on the whole
+channel axis with its weights gathered, the scan runs on each rank's
+heads (``kernels/ops.py::_local_ssd``), and the gated output is gathered
+over "model" before ``out_norm``, whose RMS is over the whole width.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops as kops
 from ..kernels import ref as kref
+from . import spmd
 from .config import ModelConfig
 from .layers import init_linear, init_norm, linear, norm
 
@@ -49,11 +56,22 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig,
 
 
 def _split(cfg: ModelConfig, proj):
+    """[z | x B C | dt]. On a mesh the projection's columns are gathered
+    over "model" first: its shards do not align with the segments."""
+    proj = spmd.over_model(proj)
     di, n = cfg.d_inner, cfg.ssm_state
     z = proj[..., :di]
     xBC = proj[..., di:di + di + 2 * n]
     dt = proj[..., di + di + 2 * n:]
     return z, xBC, dt
+
+
+def _conv_weights(p: Params):
+    """The depthwise conv's (w, b), whole on every rank on a mesh: their
+    channels [x | B | C] are sharded over "model", and the conv runs on
+    the whole channel axis (B and C are needed whole by every head), on
+    each rank's rows (``spmd.shardwise``)."""
+    return spmd.replicated(p["conv_w"]), spmd.replicated(p["conv_b"])
 
 
 def _causal_conv(xBC, w, b):
@@ -88,18 +106,18 @@ def mamba_prefill(p: Params, x, cfg: ModelConfig,
     proj = linear(p["in_proj"], x)
     z, xBC, dt = _split(cfg, proj)
     conv_in = xBC
-    xBC = F.silu(_causal_conv(xBC, p["conv_w"], p["conv_b"]))
+    xBC = spmd.shardwise(lambda xBC, w, b: F.silu(_causal_conv(xBC, w, b)),
+                         xBC, *_conv_weights(p))
     xs = xBC[..., :di].reshape(Bsz, L, h, hd)
     Bmat = xBC[..., di:di + n]
     Cmat = xBC[..., di + n:]
     dt, A = _dt_A(p, dt)
 
     pad = (-L) % cfg.ssm_chunk
-    if pad:
-        xs = F.pad(xs, (0, 0, 0, 0, 0, pad))
-        Bmat = F.pad(Bmat, (0, 0, 0, pad))
-        Cmat = F.pad(Cmat, (0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))            # dt = 0 -> identity step
+    if pad:                                       # dt = 0 -> identity step
+        xs, Bmat, Cmat, dt = (spmd.shardwise(
+            lambda t: F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)), t)
+            for t in (xs, Bmat, Cmat, dt))
 
     init_state = initial[1] if initial is not None else None
     y, final_state = kops.ssd(
@@ -108,7 +126,7 @@ def mamba_prefill(p: Params, x, cfg: ModelConfig,
         initial_state=init_state)
     y = y[:, :L] + xs[:, :L] * p["D"][None, None, :, None]
     y = y.reshape(Bsz, L, di)
-    y = y * F.silu(z)
+    y = spmd.over_model(y * F.silu(z))            # the norm's whole width
     y = norm(p["out_norm"], y)
     conv_state = conv_in[:, -(cfg.ssm_conv - 1):, :]   # last K-1 raw inputs
     return linear(p["out_proj"], y), (conv_state, final_state)
@@ -123,7 +141,8 @@ def mamba_decode(p: Params, x, cfg: ModelConfig, cache: Tuple):
     proj = linear(p["in_proj"], x[:, 0, :])
     z, xBC, dt = _split(cfg, proj)
     window = torch.cat([conv_state, xBC[:, None, :]], dim=1)     # (B,K,C)
-    conv_out = torch.einsum("bkc,kc->bc", window, p["conv_w"]) + p["conv_b"]
+    conv_w, conv_b = _conv_weights(p)
+    conv_out = torch.einsum("bkc,kc->bc", window, conv_w) + conv_b
     xBC_c = F.silu(conv_out)
     xs = xBC_c[..., :di].reshape(Bsz, h, hd)
     Bmat = xBC_c[..., di:di + n]
@@ -133,7 +152,7 @@ def mamba_decode(p: Params, x, cfg: ModelConfig, cache: Tuple):
         xs, dt.to(xs.dtype), A.to(xs.dtype), Bmat, Cmat, ssm_state)
     y = y + xs * p["D"][None, :, None]
     y = y.reshape(Bsz, di)
-    y = y * F.silu(z)
+    y = spmd.over_model(y * F.silu(z))
     y = norm(p["out_norm"], y)
     out = linear(p["out_proj"], y)[:, None, :]
     return out, (window[:, 1:, :], ssm_state)

@@ -172,15 +172,8 @@ def decoder_prefill(params: Params, cfg: ModelConfig, tokens, max_seq: int,
         if length is None else \
         torch.as_tensor(length, device=tokens.device).long().expand(B)
     last = x[torch.arange(B, device=tokens.device), pos - 1]      # (B,d)
-    if spmd.is_dtensor(x):                # on a mesh: DTensor k and v
-        return _logits(params, last), {**spmd.prefill_cache(kvs, max_seq),
-                                       "pos": pos.clone()}
-    cache = decoder_init_cache(cfg, B, max_seq, tokens.device)
-    for i, (k, v) in enumerate(kvs):
-        cache["k"][i, :, :S] = k
-        cache["v"][i, :, :S] = v
-    cache["pos"] = pos.clone()
-    return _logits(params, last), cache
+    return _logits(params, last), {**spmd.prefill_cache(kvs, max_seq),
+                                   "pos": pos.clone()}
 
 
 def decoder_decode(params: Params, cfg: ModelConfig, tokens, cache):
@@ -232,7 +225,7 @@ def ssm_forward(params: Params, cfg: ModelConfig, tokens):
 
 
 def _ssm_hidden(params: Params, cfg: ModelConfig, tokens):
-    x = params["embed"][tokens].to(_dtype(cfg))
+    x = spmd.embed(params["embed"], tokens).to(_dtype(cfg))
     states = []
     for lp in params["layers"]:
         h, state = mamba_prefill(lp["mamba"], norm(lp["ln"], x), cfg)
@@ -269,7 +262,7 @@ def ssm_decode(params: Params, cfg: ModelConfig, tokens, cache):
     """One decode step for every row. tokens: (B,1); returns (logits (B,V),
     cache). Each layer's states are written back into the cache tensors in
     place, which are returned with the cursors advanced by one."""
-    x = params["embed"][tokens].to(_dtype(cfg))
+    x = spmd.embed(params["embed"], tokens).to(_dtype(cfg))
     for i, lp in enumerate(params["layers"]):
         h, (conv, state) = mamba_decode(
             lp["mamba"], norm(lp["ln"], x), cfg,
@@ -432,7 +425,7 @@ def _hybrid_period(cfg: ModelConfig, pp: Params, x, rot, *, caches=None,
 
 def _hybrid_hidden(params: Params, cfg: ModelConfig, tokens):
     B, S = tokens.shape
-    x = params["embed"][tokens].to(_dtype(cfg))
+    x = spmd.embed(params["embed"], tokens).to(_dtype(cfg))
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     rot = rope_angles(positions, cfg.d_head, cfg.rope_theta)
     aux, caches = 0.0, []
@@ -451,11 +444,15 @@ def hybrid_forward(params: Params, cfg: ModelConfig, tokens,
     return _logits(params, x), aux, (caches if want_cache else None)
 
 
+def _hybrid_kv_len(cfg: ModelConfig, max_seq: int) -> int:
+    return min(max_seq, cfg.window) if cfg.window else max_seq
+
+
 def hybrid_init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                       device) -> Dict[str, torch.Tensor]:
     n_periods, P, _, _ = _hybrid_layout(cfg)
     conv_s, ssm_s = mamba_state_shapes(cfg, batch)
-    kv_len = min(max_seq, cfg.window) if cfg.window else max_seq
+    kv_len = _hybrid_kv_len(cfg, max_seq)
     kv = (n_periods, batch, kv_len, cfg.n_kv_heads, cfg.d_head)
     n_mamba = n_periods * (P - 1)
 
@@ -473,25 +470,23 @@ def hybrid_prefill(params: Params, cfg: ModelConfig, tokens, max_seq: int):
     ``repro``."""
     B, S = tokens.shape
     x, _, caches = _hybrid_hidden(params, cfg, tokens)
-    cache = hybrid_init_cache(cfg, B, max_seq, tokens.device)
-    kv_len = cache["kv_k"].shape[2]
+    kv_len = _hybrid_kv_len(cfg, max_seq)
     n = min(S, kv_len)
-    P1 = cfg.attn_period - 1
-    for i, new in enumerate(caches):
-        k, v = new["kv"]
-        cache["kv_k"][i, :, :n] = k[:, S - n:]
-        cache["kv_v"][i, :, :n] = v[:, S - n:]
-        cache["conv"][i * P1:(i + 1) * P1] = torch.stack(new["conv"])
-        cache["ssm"][i * P1:(i + 1) * P1] = torch.stack(new["ssm"])
-    cache["pos"].fill_(S)
-    return _logits(params, x[:, -1]), cache
+    kv = spmd.prefill_cache([(k[:, S - n:], v[:, S - n:])
+                             for k, v in (new["kv"] for new in caches)],
+                            kv_len)
+    return _logits(params, x[:, -1]), {
+        "kv_k": kv["k"], "kv_v": kv["v"],
+        **{name: torch.cat([torch.stack(new[name]) for new in caches])
+           for name in ("conv", "ssm")},
+        "pos": torch.full((B,), S, dtype=torch.long, device=tokens.device)}
 
 
 def hybrid_decode(params: Params, cfg: ModelConfig, tokens, cache):
     """One decode step for every row. tokens: (B,1); returns (logits (B,V),
     cache), its tensors updated in place. The attention write clamps to
     kv_len - 1, as ``repro``'s does."""
-    x = params["embed"][tokens].to(_dtype(cfg))
+    x = spmd.embed(params["embed"], tokens).to(_dtype(cfg))
     pos = cache["pos"]
     write_pos = pos.clamp(max=cache["kv_k"].shape[2] - 1)
     rot = rope_angles(pos[:, None], cfg.d_head, cfg.rope_theta)

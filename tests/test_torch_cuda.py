@@ -2089,3 +2089,48 @@ def test_shard_auto_over_every_card_prints_what_shard_1_prints(capsys):
                         "--shard", shard])
         outs.append(capsys.readouterr().out)
     assert "hosts=3" in outs[0] and outs[1] == outs[0]
+
+
+# -- the step bundles over four cards -------------------------------------
+
+FOUR_CARD_ARCHS = ("gemma3-1b", "mamba2-370m", "qwen2-moe-a2.7b",
+                   "jamba-1.5-large-398b")
+
+
+@pytest.mark.cuda
+def test_step_bundles_over_four_cards(cuda_device, tmp_path):
+    """The dense decoder's (gemma3-1b), the ssm program's (mamba2-370m),
+    the MoE decoder's (qwen2-moe-a2.7b) and the hybrid's (jamba) step
+    bundles at their float32 smoke cuts in one 4-rank ``nccl`` world, a
+    rank a card, meshed (2, 2), (4, 1) and (1, 4): prefill, three decodes
+    written into the donated cache, a train step, a compressed one and
+    one of two microbatches, against the one-card steps at the bars of
+    ``tests/torch_mesh_world.py`` (not against ``repro``: this machine
+    has no JAX); MoE routes equal; local bytes the dry run's; the state
+    restored onto the mesh bitwise. Skips below four cards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("a rank a card needs four cards")
+    import torch_mesh_world as W
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import build
+    from repro_torch.train.tree import map_tree
+    inps, ones = {}, {}
+    for arch in FOUR_CARD_ARCHS:
+        cfg = W.smoke(arch)
+        inps[arch] = W.inputs(build(cfg).init(
+            torch.Generator().manual_seed(0)))
+        card = dict(inps[arch], params=map_tree(
+            lambda t: t.to(cuda_device), inps[arch]["params"]))
+        ones[arch] = W._cpu(W.run_steps(cfg, make_debug_mesh(), card)[0])
+    worlds, _ = W.spawn(tmp_path, inps, 600, backend="nccl")
+    for (arch, shape), ranks in worlds.items():
+        one = ones[arch]
+        W.check_prefill(ranks[0], one)
+        W.check_decode(ranks, one)
+        W.check_train(ranks[0], one)
+        W.check_compressed(ranks[0], one)
+        W.check_microbatched(ranks[0], one)
+        W.check_bytes(ranks)
+        W.check_routes(ranks, one)
+        assert all(res["restored_bitwise"] for res in ranks), (arch, shape)

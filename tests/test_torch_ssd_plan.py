@@ -49,6 +49,12 @@ H100 = {1: 132, 2: 132, 3: 117, 4: 120, 5: 110, 6: 102, 7: 105, 8: 120}
 # two rows of 512; one chunk (chip_smoke.py's "ssd_backward_kernels")
 CHIP = [(4, 1024, 32, 128), (1, 384, 256, 128), (1, 1024, 256, 128),
         (2, 512, 32, 128), (1, 64, 32, 64)]
+# a rank's local shapes on a mesh of several cards (the heads over
+# "model", the rows over "data"): mamba2's 32 heads on (2, 2) and (1, 4),
+# jamba's 256 on a "model" axis of 2 and 4 (chip_smoke.py's
+# MESH_SSD_SHAPES)
+MESH_LOCAL = [(2, 1024, 16, 128), (4, 1024, 8, 128), (1, 1024, 128, 128),
+              (1, 1024, 64, 128)]
 
 
 def _every_plan(b, l, h, ck):
@@ -58,8 +64,8 @@ def _every_plan(b, l, h, ck):
             yield BackwardPlan.of(pairs, h, g, cl)
 
 
-@pytest.mark.parametrize("b,l,h,ck", CHIP + [(1, 32, 20, 16),
-                                             (2, 64, 7, 16)])
+@pytest.mark.parametrize("b,l,h,ck", CHIP + MESH_LOCAL
+                         + [(1, 32, 20, 16), (2, 64, 7, 16)])
 def test_plan_covers_every_head_once(b, l, h, ck):
     for plan in [backward_plan(b, l, h, ck, H100)] + \
             list(_every_plan(b, l, h, ck)):
