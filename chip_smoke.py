@@ -514,13 +514,19 @@ moments within 1e-4 relative); the same for mamba2-370m (8 of 48
 layers; 4 x 1,000 prompt tokens; its train step through the SSD scan's
 forward and backward kernels under ``local_map``), and serving for
 qwen2-moe-a2.7b (2 of 24 layers, the 512 bucket, its kept routes equal)
-and jamba's period (``_jamba_cut`` with 4 experts, 4 x 1,000). For
+and jamba's period (``_jamba_cut``, 4 x 1,000); whisper-large-v3 at full
+width and depth (4 clips of 1,500 frames, an 8-token prompt, the bundles
+built with seq = 1,500 frames) and its float32 train step cut to 8 + 8
+layers; gemma3-1b's mixed ring cache, decoded on one device to W - 8,
+then 16 steps on both across the ring's wrap (``_mesh_mixed``). For
 each: the kernels' launch counts zeroed before and read after the mesh
 run, the placed state's local bytes equal to the dry run's per-device
 bytes, and each step's ms beside the one-device step's; gemma3-1b's bf16
 weights also restored onto the mesh bit for bit. "ssd_kernels" and
 "ssd_backward_kernels" also hold the scans at a rank's local shapes on
-meshes of several cards (``MESH_SSD_SHAPES``).
+meshes of several cards (``MESH_SSD_SHAPES``), and "kernels" the decode
+kernel over whisper's frames and the flash kernel over its encoder
+(``MESH_WHISPER_SHAPES``).
 Whether two ``gloo`` ranks on the one card carry the steps is a probe run
 by hand (``python -m repro_torch.launch.gloo_on_cuda``), not a phase.
 
@@ -659,8 +665,10 @@ def decode_cases(dev, dtype):
     decoder, 20 heads on 20 kv heads, d_head 64, 4 clips: self-attention
     at its last step (68 of 448 slots) and cross-attention over all 1,500
     encoder frames; gemma3-1b's mixed cache, 2 rows of a full 512-slot
-    local ring; and jamba's attention layer, 64 heads on 8 kv heads
-    (G = 8), d_head 128, the serving rows of a 2048-slot cache."""
+    local ring; jamba's attention layer, 64 heads on 8 kv heads
+    (G = 8), d_head 128, the serving rows of a 2048-slot cache; and
+    whisper's cross cache at a rank's local (rows, heads) on the (2, 2),
+    (1, 4) and (4, 1) meshes (``MESH_WHISPER_SHAPES``)."""
     H, KH, D, S = 4, 1, 256, 2048
     lengths = [108, 308, 708, 1008]
     cases = {
@@ -675,6 +683,8 @@ def decode_cases(dev, dtype):
         "whisper_cross": ([1500] * 4, [0] * 4, 1500, 20, 20, 64),
         "mixed_ring": ([512] * 2, [0] * 2, 512, H, KH, D),
         "jamba": (lengths, [0] * 4, S, 64, 8, 128),
+        **{f"whisper_cross_r{b}h{h}": ([1500] * b, [0] * b, 1500, h, h, 64)
+           for b, h in MESH_WHISPER_SHAPES},
     }
     g = torch.Generator(dev).manual_seed(11)
     out = []
@@ -700,9 +710,10 @@ def flash_cases(dev, dtype):
     window; whisper-large-v3's 4 clips, 20 heads on 20 kv heads, d_head
     64: the encoder (1,500 frames, not causal), the prompt's
     cross-attention (4 queries over 1,500 frames, not causal) and its
-    self-attention (4 tokens, causal); and jamba's exact-length prompts of
-    300 and 1000 tokens, 64 heads on 8 kv heads (G = 8), d_head 128. Each
-    case is (name, q, k, v, window, causal)."""
+    self-attention (4 tokens, causal); jamba's exact-length prompts of
+    300 and 1000 tokens, 64 heads on 8 kv heads (G = 8), d_head 128; and
+    whisper's encoder at a rank's local (rows, heads) on the (2, 2) and
+    (1, 4) meshes. Each case is (name, q, k, v, window, causal)."""
     g = torch.Generator(dev).manual_seed(12)
 
     def randn(*shape):
@@ -733,6 +744,9 @@ def flash_cases(dev, dtype):
     for S in (300, 1000):
         out.append((f"jamba_S{S}", randn(1, 64, S, 128), randn(1, 8, S, 128),
                     randn(1, 8, S, 128), 0, True))
+    for b, h in MESH_WHISPER_SHAPES[:2]:
+        out.append((f"whisper_enc_r{b}h{h}", randn(b, h, 1500, 64),
+                    randn(b, h, 1500, 64), randn(b, h, 1500, 64), 0, False))
     return out
 
 
@@ -779,6 +793,8 @@ def phase_kernels(dev):
                 (lambda c=c: decode_attention_cuda(c[0], c[1], c[2], length,
                                                    start)) for c in copies],
                 50)
+            # the grid the timed calls launched, as the wrapper records it
+            row["ctas"] = decode_attention_cuda.last_ctas
             row["kernels_per_call"], row["kernel_names"] = \
                 kernels_per_call(lambda: decode_attention_cuda(
                     q, k, v, length, start))
@@ -5669,6 +5685,15 @@ def phase_fleet_shards(dev):
 
 MESH_ROWS, MESH_PROMPT, MESH_MAX_SEQ, MESH_DECODES = 4, 1024, 2048, 8
 MESH_TRAIN_STEPS = 2
+# whisper-large-v3: serving at full width and depth, 4 clips of
+# 1,500 frames and an 8-token prompt, the bundles built with seq = 1,500
+# frames; training in float32 cut to 8 + 8 layers (4 x 1,500 frames, 187
+# tokens); gemma3-1b's mixed cache: 16 decode steps across its ring's
+# wrap, from a one-device cache decoded to W - 8
+MESH_ENCDEC_PROMPT, MESH_ENCDEC_TRAIN_LAYERS, MESH_MIXED_STEPS = 8, 8, 16
+# a rank's local (rows, heads) of whisper's 4 clips x 20 heads on the
+# (2, 2), (1, 4) and (4, 1) meshes
+MESH_WHISPER_SHAPES = ((2, 10), (4, 5), (1, 20))
 # the other families, full width cut in depth (PERF.md section 4):
 # mamba2-370m 8 of 48 layers, 4 x 1,000 tokens; qwen2-moe-a2.7b 2 of 24
 # layers, 4 x 512 (the 512 bucket); jamba at phase "hybrid_serve"'s
@@ -5741,10 +5766,12 @@ def _place_dropping(tree, shardings):
 
 
 def _mesh_serve(dev, mesh, one, cfg, prompt_len, want, prefills=3,
-                restore=False):
+                restore=False, frames=0):
     """``cfg`` (bf16) through the DTensor path: ``prefills`` prefills of
     ``MESH_ROWS`` x ``prompt_len`` tokens into a ``MESH_MAX_SEQ`` cache
-    (the first fills DTensor's caches, the rest are timed) and
+    (an encoder-decoder: ``frames`` seeded frames a row too, the bundles
+    built with seq = ``frames``, the cross cache's frames; the first
+    prefill fills DTensor's caches, the rest are timed) and
     ``MESH_DECODES`` decode steps, against the one-device bundle steps on
     the same weights, run first: tokens equal, an MoE's kept routes at
     the first prefill equal, logits and every cache leaf within
@@ -5766,16 +5793,23 @@ def _mesh_serve(dev, mesh, one, cfg, prompt_len, want, prefills=3,
 
     model = build(cfg)
     params = model.init(torch.Generator(dev).manual_seed(0))
-    pre1, dec1 = (make_prefill_step(cfg, one, MESH_ROWS, MESH_MAX_SEQ),
-                  make_decode_step(cfg, one, MESH_ROWS, MESH_MAX_SEQ))
-    pre, dec = (make_prefill_step(cfg, mesh, MESH_ROWS, MESH_MAX_SEQ),
-                make_decode_step(cfg, mesh, MESH_ROWS, MESH_MAX_SEQ))
+    max_seq = frames or MESH_MAX_SEQ
+    pre1, dec1 = (make_prefill_step(cfg, one, MESH_ROWS, max_seq),
+                  make_decode_step(cfg, one, MESH_ROWS, max_seq))
+    pre, dec = (make_prefill_step(cfg, mesh, MESH_ROWS, max_seq),
+                make_decode_step(cfg, mesh, MESH_ROWS, max_seq))
+    gen = torch.Generator(dev).manual_seed(1)
     prompt = torch.randint(0, cfg.vocab, (MESH_ROWS, prompt_len),
-                           generator=torch.Generator(dev).manual_seed(1),
-                           device=dev, dtype=torch.int32)
-    res = {"model": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+                           generator=gen, device=dev, dtype=torch.int32)
+    batch = {"tokens": prompt}
+    if frames:
+        batch["frames"] = torch.randn(
+            (MESH_ROWS, frames, cfg.d_model), generator=gen,
+            device=dev).to(getattr(torch, cfg.dtype))
+    res = {"model": cfg.name, "layers": cfg.n_layers,
+           "encoder_layers": cfg.encoder_layers, "dtype": cfg.dtype,
            "n_experts": cfg.n_experts, "rows": MESH_ROWS,
-           "prompt": prompt_len, "max_seq": MESH_MAX_SEQ,
+           "prompt": prompt_len, "frames": frames, "max_seq": max_seq,
            "decode_steps": MESH_DECODES, "prefills": prefills,
            "weights_gb": _nbytes(params) / 1e9,
            "dryrun_bytes": SH.sharded_size_bytes(pre.args[0],
@@ -5784,13 +5818,11 @@ def _mesh_serve(dev, mesh, one, cfg, prompt_len, want, prefills=3,
     def run(step_pre, step_dec, p):
         ms = {"prefill": [], "decode": []}
         with recording_routes() as routes:
-            t, (tok, cache) = _wall_ms(
-                lambda: step_pre.fn(p, {"tokens": prompt}))
+            t, (tok, cache) = _wall_ms(lambda: step_pre.fn(p, batch))
         kept = [(_whole(i), _whole(k)) for i, k in routes]
         ms["prefill"].append(t)
         for _ in range(prefills - 1):
-            t, (tok, cache) = _wall_ms(
-                lambda: step_pre.fn(p, {"tokens": prompt}))
+            t, (tok, cache) = _wall_ms(lambda: step_pre.fn(p, batch))
             ms["prefill"].append(t)
         toks = [tok[:, None]]
         for _ in range(MESH_DECODES):
@@ -5804,8 +5836,7 @@ def _mesh_serve(dev, mesh, one, cfg, prompt_len, want, prefills=3,
 
     toks1, cache1, ms1, kept1 = run(pre1, dec1, params)
     with torch.no_grad():
-        logits1 = model.prefill(params, {"tokens": prompt},
-                                max_seq=MESH_MAX_SEQ)[0]
+        logits1 = model.prefill(params, batch, max_seq=max_seq)[0]
     before = torch.cuda.memory_allocated()
     placed = _place_dropping(params, pre.in_shardings[0])
     del params
@@ -5820,11 +5851,11 @@ def _mesh_serve(dev, mesh, one, cfg, prompt_len, want, prefills=3,
         torch.cuda.synchronize()
     launches = _mesh_counts()
     gathered = dict(gathered)
-    batch = SH.place({"tokens": prompt}, pre.in_shardings[1])
     with torch.no_grad():
         with implicit_replication():
-            logits = model.prefill(placed, batch,
-                                   max_seq=MESH_MAX_SEQ)[0].full_tensor()
+            logits = model.prefill(placed, SH.place(
+                batch, pre.in_shardings[1]), max_seq=max_seq)[0] \
+                .full_tensor()
     res.update({
         "launches": launches, "plain_calls_on_card": plain.calls,
         "tokens_equal": bool(torch.equal(toks, toks1)),
@@ -5881,16 +5912,18 @@ def _mesh_serve(dev, mesh, one, cfg, prompt_len, want, prefills=3,
     return res
 
 
-def _mesh_train(dev, mesh, one, cfg, want):
+def _mesh_train(dev, mesh, one, cfg, want, seq=TRAIN_SEQ):
     """``cfg`` (float32): ``MESH_TRAIN_STEPS`` train steps of
-    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens through the DTensor path
-    against the one-device bundle step from the same weights and batches;
-    the kernels' counts around the mesh run equal to ``want``."""
+    ``TRAIN_BATCH`` x ``seq`` tokens (an encoder-decoder: ``seq`` seeded
+    frames and seq // 8 tokens a row) through the DTensor path against
+    the one-device bundle step from the same weights and batches; the
+    kernels' counts around the mesh run equal to ``want``."""
     from repro_torch.data import TokenPipeline
     from repro_torch.device import upload
     from repro_torch.launch import sharding as SH
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import build
+    from repro_torch.models.model import ENCDEC_DEC_FRac
     from repro_torch.train.optimizer import AdamWConfig, adamw
     from repro_torch.train.tree import leaves, map_tree
 
@@ -5898,17 +5931,24 @@ def _mesh_train(dev, mesh, one, cfg, want):
     opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=10,
                           total_steps=TRAIN_STEPS)
     init, _ = adamw(opt_cfg)
-    tr1 = make_train_step(cfg, one, TRAIN_BATCH, TRAIN_SEQ, opt_cfg=opt_cfg)
-    tr = make_train_step(cfg, mesh, TRAIN_BATCH, TRAIN_SEQ, opt_cfg=opt_cfg)
-    pipe = TokenPipeline(vocab=cfg.vocab, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    tr1 = make_train_step(cfg, one, TRAIN_BATCH, seq, opt_cfg=opt_cfg)
+    tr = make_train_step(cfg, mesh, TRAIN_BATCH, seq, opt_cfg=opt_cfg)
+    encdec = cfg.family == "encdec"
+    pipe = TokenPipeline(vocab=cfg.vocab, batch=TRAIN_BATCH,
+                         seq=seq // ENCDEC_DEC_FRac if encdec else seq)
     batches = [{k: upload(v, dev) for k, v in pipe.batch_at(i).items()}
                for i in range(MESH_TRAIN_STEPS)]
-    placed = [SH.place(map_tree(torch.clone, params), tr.in_shardings[0])]
+    gen = torch.Generator(dev).manual_seed(3)
+    for b in batches if encdec else ():
+        b["frames"] = torch.randn((TRAIN_BATCH, seq, cfg.d_model),
+                                  generator=gen, device=dev)
+    placed = [_place_dropping(map_tree(torch.clone, params),
+                              tr.in_shardings[0])]
     placed.append(SH.place(init(placed[0]), tr.in_shardings[1]))
     placed_batch = SH.place(batches[0], tr.in_shardings[2])
-    res = {"model": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
-           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
-           "steps": MESH_TRAIN_STEPS,
+    res = {"model": cfg.name, "layers": cfg.n_layers,
+           "encoder_layers": cfg.encoder_layers, "dtype": cfg.dtype,
+           "batch": TRAIN_BATCH, "seq": seq, "steps": MESH_TRAIN_STEPS,
            "local_bytes": SH.local_bytes((*placed, placed_batch)),
            "dryrun_bytes": SH.sharded_size_bytes(tr.args, tr.in_shardings)}
     del placed_batch
@@ -5965,6 +6005,105 @@ def _mesh_train(dev, mesh, one, cfg, want):
     return res
 
 
+def _mesh_mixed(dev, mesh, one, cfg):
+    """gemma3's mixed cache (bf16), which has no prefill: the one-device
+    decode step runs ``MESH_ROWS`` rows greedily from ``init_cache`` to
+    pos W - 8; a copy of that cache is placed on the mesh, and both run
+    ``MESH_MIXED_STEPS`` steps from there, across the ring's wrap at W.
+    Tokens equal, the mesh cache written in place (the bundle donates
+    it), every cache leaf and one more step's logits within
+    ``MESH_BF16_TOL``; the kernels' counts, zeroed just before the mesh
+    steps and read just after, the decode kernel's once a layer a step."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import build
+    from repro_torch.train.tree import map_tree
+
+    model = build(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    dec1 = make_decode_step(cfg, one, MESH_ROWS, MESH_MAX_SEQ)
+    dec = make_decode_step(cfg, mesh, MESH_ROWS, MESH_MAX_SEQ)
+    start = cfg.window - MESH_MIXED_STEPS // 2
+    cache1 = model.init_cache(MESH_ROWS, MESH_MAX_SEQ, dev)
+    tok1 = torch.randint(0, cfg.vocab, (MESH_ROWS, 1), device=dev,
+                         dtype=torch.int32,
+                         generator=torch.Generator(dev).manual_seed(1))
+    t0 = time.perf_counter()
+    for _ in range(start):
+        tok1, cache1 = dec1.fn(params, tok1, cache1)
+    torch.cuda.synchronize()
+    res = {"model": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+           "rows": MESH_ROWS, "window": cfg.window, "max_seq": MESH_MAX_SEQ,
+           "from_pos": start, "decode_steps": MESH_MIXED_STEPS,
+           "one_device_warm_s": time.perf_counter() - t0}
+    placed = SH.place(params, dec.in_shardings[0])
+    cache = SH.place(map_tree(torch.clone, cache1), dec.in_shardings[2])
+    tok = SH.place(tok1, dec.in_shardings[1])
+    res["local_bytes"] = SH.local_bytes((placed, cache))
+    res["dryrun_bytes"] = SH.sharded_size_bytes(dec.args[::2],
+                                                dec.in_shardings[::2])
+    ms1, toks1 = [], []
+    for _ in range(MESH_MIXED_STEPS):
+        t, (tok1, cache1) = _wall_ms(lambda: dec1.fn(params, tok1, cache1))
+        ms1.append(t)
+        toks1.append(tok1)
+    ms, toks, in_place = [], [], True
+    _zero_mesh_counts()
+    with PlainOnCard() as plain:
+        for _ in range(MESH_MIXED_STEPS):
+            t, (tok, new) = _wall_ms(lambda: dec.fn(placed, tok, cache))
+            in_place &= all(new[k] is cache[k] and new[k].to_local()
+                            .data_ptr() == cache[k].to_local().data_ptr()
+                            for k in cache if k != "pos")
+            cache = new
+            ms.append(t)
+            toks.append(tok)
+        torch.cuda.synchronize()
+    launches = _mesh_counts()
+    with torch.no_grad():
+        logits1 = model.decode(params, tok1, map_tree(torch.clone,
+                                                      cache1))[0]
+        with implicit_replication():
+            logits = model.decode(placed, tok, map_tree(
+                torch.clone, cache))[0].full_tensor()
+    toks = torch.cat([_whole(t) for t in toks], dim=1)
+    res.update({
+        "launches": launches, "plain_calls_on_card": plain.calls,
+        "tokens_equal": bool(torch.equal(toks, torch.cat(toks1, dim=1))),
+        "cache_in_place": in_place,
+        "pos": _whole(cache["pos"]).tolist(),
+        "logits_max_abs_diff": float((logits.float() - logits1.float())
+                                     .abs().max()),
+        "cache_max_abs_diff": {
+            k: float((_whole(v).float() - cache1[k].float()).abs().max())
+            for k, v in cache.items() if v.is_floating_point()},
+        "decode_ms": ms, "decode_ms_one_device": ms1,
+        "decode_ms_median": statistics.median(ms[1:]),
+        "decode_ms_median_one_device": statistics.median(ms1[1:])})
+    name = f"mesh mixed {cfg.name}"
+    want = {"decode_attention": cfg.n_layers * MESH_MIXED_STEPS,
+            "flash_wgmma": 0}
+    check(res["local_bytes"] == res["dryrun_bytes"],
+          f"{name}: local bytes {res['local_bytes']} vs the dry run's "
+          f"{res['dryrun_bytes']}")
+    check({k: launches[k] for k in want} == want,
+          f"{name}: launches {launches}, want {want}")
+    check(not any(plain.calls.values()),
+          f"{name}: plain versions on the card {plain.calls}")
+    check(res["pos"] == [start + MESH_MIXED_STEPS] * MESH_ROWS
+          and res["pos"][0] > cfg.window, f"{name}: cursors {res['pos']}")
+    check(res["tokens_equal"], f"{name}: tokens differ from one device")
+    check(in_place, f"{name}: the cache was not written in place")
+    check(res["logits_max_abs_diff"] <= MESH_BF16_TOL
+          and max(res["cache_max_abs_diff"].values()) <= MESH_BF16_TOL,
+          f"{name}: logits {res['logits_max_abs_diff']}, cache "
+          f"{res['cache_max_abs_diff']}")
+    log(f"{name}: {json.dumps(res)}")
+    return res
+
+
 def phase_mesh(dev):
     """The step bundles on a real ``torch.distributed`` mesh: a one-rank
     ``nccl`` world on the card (``tcp://localhost``, a free port),
@@ -5978,7 +6117,10 @@ def phase_mesh(dev):
     "ssm_serve", "ssm_train": mamba2-370m's (the SSD scan's forward and
     backward kernels under ``local_map``); "moe_serve": qwen2-moe-a2.7b's
     (its kept routes equal); "hybrid_serve": jamba's period (attention,
-    the SSD scan, the MoE)."""
+    the SSD scan, the MoE); "encdec_serve", "encdec_train": whisper's
+    (the non-causal flash kernel and its backward under ``local_map``,
+    the decode kernel over the cross cache); "mixed_decode": gemma3's
+    mixed ring cache across its wrap (``_mesh_mixed``)."""
     import torch.distributed as dist
 
     from repro_torch.configs import get
@@ -5988,6 +6130,7 @@ def phase_mesh(dev):
     ssm = dataclasses.replace(get(SSM_TRAIN_ARCH), n_layers=MESH_SSM_LAYERS)
     moe = dataclasses.replace(get(MOE_ARCH), n_layers=MESH_MOE_LAYERS)
     jamba = _jamba_cut()
+    whisper = get(WHISPER_ARCH)
     n_attn, n_mamba, _ = _hybrid_counts(jamba)
 
     def attention(n):          # n attention layers: flash, decode
@@ -6034,6 +6177,29 @@ def phase_mesh(dev):
             dev, mesh, one, jamba, MESH_HYBRID_PROMPT,
             lambda prefills: dict(hybrid(prefills),
                                   ssd_scan=prefills * n_mamba))
+        _free_card()
+        # whisper: flash for each encoder layer and twice a decoder layer
+        # (its causal prompt, its cross-attention), the decode kernel
+        # twice a decoder layer (self and cross)
+        n_flash = whisper.encoder_layers + 2 * whisper.n_layers
+        res["encdec_serve"] = _mesh_serve(
+            dev, mesh, one, whisper, MESH_ENCDEC_PROMPT,
+            lambda prefills: {"flash_wgmma": prefills * n_flash,
+                              "decode_attention":
+                                  2 * whisper.n_layers * MESH_DECODES},
+            frames=WHISPER_FRAMES)
+        _free_card()
+        cut = dataclasses.replace(
+            whisper, n_layers=MESH_ENCDEC_TRAIN_LAYERS,
+            encoder_layers=MESH_ENCDEC_TRAIN_LAYERS, dtype="float32")
+        n = (cut.encoder_layers + 2 * cut.n_layers) * MESH_TRAIN_STEPS
+        res["encdec_train"] = _mesh_train(
+            dev, mesh, one, cut,
+            {"flash_attention_fp32": n, "flash_attention_backward": n},
+            seq=WHISPER_FRAMES)
+        _free_card()
+        res["mixed_decode"] = _mesh_mixed(dev, mesh, one,
+                                          gemma_period(mixed_cache=True))
     finally:
         dist.destroy_process_group()
     _free_card()
@@ -6158,8 +6324,8 @@ def main(argv=None):
                     "the training phases (comma-separated: train_kernels, "
                     "train_crosscheck, train, ssd_backward_kernels, "
                     "ssm_train_crosscheck, ssm_train, dryrun: after train "
-                    "and ssm_train; fleet_shards, mesh; ssd_kernels) and "
-                    "print no summary")
+                    "and ssm_train; fleet_shards, mesh; ssd_kernels, "
+                    "kernels) and print no summary")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -6201,10 +6367,13 @@ def main(argv=None):
             if name == "dryrun":
                 emit(phase_dryrun, dev, trained)
                 continue
-            if name in ("fleet_shards", "mesh", "ssd_kernels"):
+            if name in ("fleet_shards", "mesh", "ssd_kernels", "kernels"):
                 emit({"fleet_shards": phase_fleet_shards,
                       "mesh": phase_mesh,
-                      "ssd_kernels": phase_ssd_kernels}[name], dev)
+                      "ssd_kernels": phase_ssd_kernels,
+                      "kernels": lambda d: {"phase": "kernels",
+                                            "cases": phase_kernels(d)}
+                      }[name], dev)
                 continue
             out = emit(training[name], dev)
             if name in ("train", "ssm_train"):
@@ -6288,7 +6457,8 @@ def main(argv=None):
     mesh = emit(phase_mesh, dev)
     mesh_launches = {k: sum(mesh[p]["launches"][k] for p in (
         "serve", "train", "ssm_serve", "ssm_train", "moe_serve",
-        "hybrid_serve")) for k in mesh["serve"]["launches"]}
+        "hybrid_serve", "encdec_serve", "encdec_train", "mixed_decode"))
+        for k in mesh["serve"]["launches"]}
     shard_launches = {k: sum(fleet_shards[p][n]["launches"][k]
                              for p in ("hetero", "scale", "placement")
                              for n in fleet_shards[p])
@@ -6380,10 +6550,10 @@ def main(argv=None):
             "train": train["launches"]["flash_attention_fp32"],
             "train_crosscheck":
                 train_cross["launches"]["flash_attention_fp32"],
-            "mesh": mesh["train"]["launches"]["flash_attention_fp32"]},
+            "mesh": mesh_launches["flash_attention_fp32"]},
         "flash_attention_backward": {
             "train": train["launches"]["flash_attention_backward"],
-            "mesh": mesh["train"]["launches"]["flash_attention_backward"],
+            "mesh": mesh_launches["flash_attention_backward"],
             "train_crosscheck":
                 train_cross["launches"]["flash_attention_backward"],
             "ssm_train_crosscheck": ssm_train_cross["jamba"]["launches"][
@@ -6424,11 +6594,15 @@ def main(argv=None):
     # loop's own agent, whose errors count in the entry's worst)
     e11_cases = {"decode_attention": ("e11_stacked", "e11_dict", "moe",
                                       "whisper_self", "whisper_cross",
-                                      "mixed_ring", "jamba"),
+                                      "mixed_ring", "jamba",
+                                      *(f"whisper_cross_r{b}h{h}"
+                                        for b, h in MESH_WHISPER_SHAPES)),
                  "flash_attention": ("e11_S13", "e11_S32", "moe_S128",
                                      "moe_S512", "moe_S1024", "whisper_enc",
                                      "whisper_xattn", "whisper_prompt",
-                                     "jamba_S300", "jamba_S1000"),
+                                     "jamba_S300", "jamba_S1000",
+                                     *(f"whisper_enc_r{b}h{h}"
+                                       for b, h in MESH_WHISPER_SHAPES[:2])),
                  "flash_attention_fp32": ("whisper_enc", "whisper_xattn",
                                           "jamba_S300"),
                  "ssd_scan": ("h256_b1_l384", "h256_b1_l1024",
@@ -6447,7 +6621,8 @@ def main(argv=None):
             rep = next(r for r in e11_rows if r["kernel"] == entry["name"]
                        and r["case"] == case)
             entry[case] = {k: rep[k] for k in ("ms", "call_ms", "plain_ms",
-                                               "library_ms", "max_abs_err")}
+                                               "library_ms", "max_abs_err",
+                                               "ctas") if k in rep}
             entry[case]["bound_ms"], entry[case]["bound_by"] = rep["bound"]
             if entry["name"].startswith("rask"):
                 entry["max_abs_err"] = max(entry["max_abs_err"],

@@ -87,15 +87,18 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                              f"shape ({B},)")
     out = torch.empty_like(q)
     lib = _lib()
+    cluster = cluster_size(B * KH, _sm_count(q.device.index))
     code = lib.decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         length.data_ptr(), start.data_ptr(), out.data_ptr(),
-        B, H, KH, S, D, cluster_size(B * KH, _sm_count(q.device.index)),
-        _build.DTYPE_CODES[q.dtype],
+        B, H, KH, S, D, cluster, _build.DTYPE_CODES[q.dtype],
         _build.current_stream(q.device))
     _build.check_launch(lib, "decode_attention", code)
     decode_attention_cuda.launches += 1
+    # the grid just launched: a cluster of CTAs a (row, kv head)
+    decode_attention_cuda.last_ctas = B * KH * cluster
     return out
 
 
 decode_attention_cuda.launches = 0
+decode_attention_cuda.last_ctas = 0

@@ -236,17 +236,23 @@ def _local_attention(fn, q, kv, extra=()):
 
 
 def _gathered_bytes(t, placements) -> int:
-    """What ``t``'s local shard grows by, in bytes, when it is
-    redistributed to ``placements``: what this rank receives to gather it
-    (0 for a plain tensor, or one that stays or shrinks)."""
+    """What this rank receives, in bytes, when ``t`` is redistributed to
+    ``placements``: its new local shard less the part of it that its old
+    shard holds (both are boxes of the global tensor). A gather receives
+    what the shard grows by; an all-to-all (a cache's sequence shards to
+    its kv heads' shards) what it does not hold of its new shard; 0 for a
+    plain tensor, or one that stays or shrinks."""
     if not _is_dtensor(t):
         return 0
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
-    shape, _ = compute_local_shape_and_global_offset(
+    new, new_off = compute_local_shape_and_global_offset(
         t.shape, t.device_mesh, placements)
-    return max(0, math.prod(shape) - t.to_local().numel()) \
-        * t.element_size()
+    old, old_off = compute_local_shape_and_global_offset(
+        t.shape, t.device_mesh, t.placements)
+    held = math.prod(max(0, min(a + n, b + o) - max(a, b))
+                     for n, a, o, b in zip(new, new_off, old, old_off))
+    return (math.prod(new) - held) * t.element_size()
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):

@@ -16,9 +16,7 @@ mesh's shape, so that ``mesh.devices.shape`` reads as a JAX mesh's does
   DTensors (``launch/sharding.py::place``). Outside a world it is the one
   card, or the CPU.
 
-The dense decoder, the MoE decoder, the ssm program and the hybrid run on
-a mesh of more than one device; the encoder-decoder and gemma3's mixed
-cache raise there (``MULTI_CARD``).
+Every family's steps run on a mesh of more than one device.
 """
 from __future__ import annotations
 
@@ -29,10 +27,6 @@ import numpy as np
 import torch
 
 from ..device import device_count, resolve_device
-
-MULTI_CARD = ("the encoder-decoder family and gemma3's mixed cache on a "
-              "mesh of several devices are ROADMAP Queue 1, item 32")
-
 
 class Mesh:
     """``axis_names`` and an object array ``devices`` of the mesh's shape,

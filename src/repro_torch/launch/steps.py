@@ -10,16 +10,20 @@ production mesh's placeholders put the step on ``meta``, a debug mesh on
 its one device (the card, or the CPU).
 
 On a distributed mesh (``mesh.make_debug_mesh`` inside a world) the
-steps of the dense and MoE decoders, the ssm program and the hybrid run
-as DTensors: the step places its arguments by
+steps of every family run as DTensors: the step places its arguments by
 ``in_shardings`` (``sharding.place``; a donated argument must arrive
 placed, so that the step writes into it), runs the model under DTensor's
 sharding propagation (``implicit_replication``: plain tensors such as
 positions count as replicated; ``models/spmd.py`` does what propagation
 does not), and hands its results back with ``out_shardings``' placements.
-The encoder-decoder and gemma3's mixed cache raise on a mesh of several
-devices (``mesh.MULTI_CARD``) and run as on one device in a one-rank
-world.
+
+The encoder-decoder's bundles take ``seq`` as the encoder's frame count,
+as ``repro``'s do: the train step's tokens are seq // 8, and the prefill
+and decode bundles size the cross cache as ``seq`` frames (its self cache
+holds 448 positions whatever ``seq``). So a caller builds them with
+``seq`` = the clips' frame count, not a token count. A mixed-cache
+(gemma3) prefill step raises ``Model.prefill``'s ``ValueError`` when
+called, on a mesh as on one device: the cache starts from ``init_cache``.
 """
 from __future__ import annotations
 
@@ -35,7 +39,6 @@ from ..models.model import ENCDEC_DEC_FRac
 from ..train.optimizer import AdamWConfig, adamw, compressed_adamw
 from ..train.tree import leaves, map_tree, structure, unflatten
 from . import sharding as SH
-from .mesh import MULTI_CARD
 
 META = torch.device("meta")
 # the keys of a train step's metrics: the loss's, the optimizer's, "loss"
@@ -112,26 +115,6 @@ def _on(device: torch.device, batch) -> Dict[str, torch.Tensor]:
     return {k: _tensor(v, device) for k, v in batch.items()}
 
 
-# the families whose steps run as DTensors on a distributed mesh
-MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
-
-def _dtensor_steps(cfg: ModelConfig, mesh) -> bool:
-    """True where the steps run as DTensors on ``mesh``: a family of
-    ``MESH_FAMILIES`` without gemma3's mixed cache, on a distributed mesh.
-    The encoder-decoder and the mixed cache raise on a mesh of several
-    devices."""
-    if not mesh.distributed:
-        return False
-    if cfg.family in MESH_FAMILIES and not cfg.mixed_cache:
-        return True
-    if mesh.size > 1:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) on a {mesh.size}-device mesh: "
-            f"{MULTI_CARD}")
-    return False
-
-
 def _placed(fn, on_mesh: bool, in_shardings, out_shardings):
     """``fn`` as a step on a distributed mesh where ``on_mesh``: arguments
     placed by ``in_shardings``, results by ``out_shardings``."""
@@ -185,7 +168,7 @@ def make_train_step(cfg: ModelConfig, mesh, batch: int = 256,
     divided by M (activation memory scales with batch/M). Then, as in
     ``repro``, ``metrics["ce"]`` is the whole loss, aux included. The
     inputs (numpy arrays or tensors) go to the mesh's device."""
-    device, on_mesh = mesh.device, _dtensor_steps(cfg, mesh)
+    device, on_mesh = mesh.device, mesh.distributed
     if batch % microbatches:
         raise ValueError(f"batch {batch} is not a multiple of "
                          f"{microbatches} microbatches")
@@ -247,8 +230,9 @@ def make_prefill_step(cfg: ModelConfig, mesh, batch: int, seq: int,
                       fsdp: bool = True) -> StepBundle:
     """``(params, batch_in) -> (next_tok (B,) int32, cache)``: a prompt of
     ``batch`` rows into a cache of ``seq`` positions, and its greedy next
-    token."""
-    device, on_mesh = mesh.device, _dtensor_steps(cfg, mesh)
+    token (an encoder-decoder: ``batch_in`` holds ``seq`` frames a row and
+    the cross cache ``seq`` frames)."""
+    device, on_mesh = mesh.device, mesh.distributed
     model = build(cfg)
 
     @torch.no_grad()
@@ -277,8 +261,9 @@ def make_decode_step(cfg: ModelConfig, mesh, batch: int, seq: int,
                      fsdp: bool = True) -> StepBundle:
     """``(params, tokens (B,1), cache) -> (next_tok (B,1) int32, cache)``:
     one greedy decode step of ``batch`` rows against a cache of ``seq``
-    positions (written in place)."""
-    device, on_mesh = mesh.device, _dtensor_steps(cfg, mesh)
+    positions (written in place; an encoder-decoder's cross cache of
+    ``seq`` frames)."""
+    device, on_mesh = mesh.device, mesh.distributed
     model = build(cfg)
 
     @torch.no_grad()

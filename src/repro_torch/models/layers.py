@@ -53,9 +53,13 @@ def init_norm(d: int, dtype: torch.dtype, device,
 
 def norm(p: Params, x, kind: str = "rmsnorm", eps: float = 1e-6):
     """RMSNorm, or LayerNorm (population variance) plus ``bias``, in
-    float32, times ``scale`` (not 1 + scale), cast back."""
+    float32, times ``scale`` (not 1 + scale), cast back. On a mesh a
+    LayerNorm's input is reduced over "model" first: from a partial sum
+    DTensor's LayerNorm would scatter the rows over "model", which a view
+    of fewer rows than ranks cannot take."""
     if kind == "layernorm":
-        y = F.layer_norm(x.float(), (x.shape[-1],), eps=eps)
+        y = F.layer_norm(spmd.over_model(x).float(), (x.shape[-1],),
+                         eps=eps)
         return (y * p["scale"] + p["bias"]).to(x.dtype)
     y = F.rms_norm(x.float(), (x.shape[-1],), eps=eps)
     return (y * p["scale"]).to(x.dtype)          # bf16 scale promotes to f32
@@ -129,8 +133,9 @@ def cross_kv(p: Params, cfg: ModelConfig, enc_out):
     """Cross-attention K/V from encoder states: (B,T,KH,D) each, the decode
     kernel's cache layout."""
     B, T, _ = enc_out.shape
-    k = linear(p["wk"], enc_out).reshape(B, T, cfg.n_kv_heads, cfg.d_head)
-    v = linear(p["wv"], enc_out).reshape(B, T, cfg.n_kv_heads, cfg.d_head)
+    kh, dh = cfg.n_kv_heads, cfg.d_head
+    k = spmd.split_heads(linear(p["wk"], enc_out), kh).reshape(B, T, kh, dh)
+    v = spmd.split_heads(linear(p["wv"], enc_out), kh).reshape(B, T, kh, dh)
     return k, v
 
 
@@ -142,7 +147,7 @@ def cross_attention(p: Params, x, cfg: ModelConfig, kv):
     flash kernel, not causal (it needs T >= S)."""
     B, S, _ = x.shape
     h, dh = cfg.n_heads, cfg.d_head
-    q = linear(p["wq"], x).reshape(B, S, h, dh)
+    q = spmd.split_heads(linear(p["wq"], x), h).reshape(B, S, h, dh)
     k, v = kv
     if S == 1:
         T = k.shape[1]

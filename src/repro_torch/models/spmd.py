@@ -1,7 +1,6 @@
 """The models on a mesh: what DTensor's sharding propagation does not
-carry by itself (the dense and MoE decoders', the ssm program's and the
-hybrid's prefill, decode and loss on DTensor parameters and inputs,
-``launch/steps.py``).
+carry by itself (every family's prefill, decode and loss on DTensor
+parameters and inputs, ``launch/steps.py``).
 
 Parameters arrive placed by ``launch/sharding.py``'s rules: a matmul
 weight's parallel dim over "model" (TP) and its other dim over "data"
@@ -14,13 +13,18 @@ activations keep their rows over "data", as the batch is placed.
   product, and shards the rows' reduction instead.
 * ``embed``: the vocab-parallel lookup: each rank looks up its own vocab
   rows, and the partial rows are summed over "model" (indexing would
-  gather the whole table).
+  gather the whole table). A vocab that "model" does not divide
+  (whisper's 51,866 on 4) leaves the table whole over "model", and each
+  rank looks up whole rows.
+* ``whole``: a replicated DTensor as a plain tensor, to index a plain
+  table with (whisper's sinusoid row at a decode step's cursor).
 * ``full_vocab``: the tied head's logits come out sharded over "model" by
   vocab; they are gathered before the log-softmax and the argmax, which
   reduce over the whole vocab (a redistribute, not ``loss_parallel``).
 * ``split_heads``: a projection whose heads do not split evenly over
   "model" (gemma3's one kv head: "model" would cut its d_head) is
-  replicated over "model" before it is viewed as heads.
+  replicated over "model" before it is viewed as heads, in
+  self-attention and in whisper's cross-attention alike.
 * ``shardwise``: a function that keeps the sharded dims apart (the
   Mamba-2 block's causal conv and sequence padding) runs on each rank's
   own shard under ``local_map``, not op by op under propagation.
@@ -32,6 +36,15 @@ activations keep their rows over "data", as the batch is placed.
   rows over "data" and by sequence over "model" (context-sharded);
   each rank writes the new slot into its own shard, and the decode kernel
   reads the layer's cache gathered over "model" (``kernels/ops.py``).
+  gemma3's ring of W slots is sharded so too: a write at pos % W lands on
+  the rank that holds that slot, and a wrap writes slot 0 on the first
+  "model" rank. whisper's prefill stacks its self K/V (padded to 448
+  slots) and its cross K/V (the encoder's T frames) with
+  ``prefill_cache``, and a decode step gathers both caches.
+* Biases: a row-parallel product (``wo``, ``down``) comes out
+  ``Partial()`` over "model", and its replicated bias is added once to
+  the sum (propagation splits it over the partial ranks), not once a
+  rank.
 
 On plain tensors every helper is the identity or the one-device code.
 """
@@ -123,6 +136,12 @@ def embed(table, tokens):
     return out.redistribute(placements=t_pl)
 
 
+def whole(x):
+    """``x`` as a plain tensor of every entry (a DTensor gathered); a
+    plain tensor as it is."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
 def full_vocab(logits):
     """Logits gathered over "model" (vocab) on a mesh."""
     return over_model(logits) if is_dtensor(logits) else logits
@@ -177,27 +196,57 @@ def write_slot(cache, idx, new) -> None:
                                  new.to(local.dtype), local[rows, j])
 
 
-def prefill_cache(kvs, max_seq: int):
-    """The decoder's {"k", "v"} (L, B, max_seq, KH, D) from a prompt's
-    per-layer (k, v), each (B, S, KH, D): the prompt's slots, then zeros,
-    in the layout the prompt's k and v have (DTensors on a mesh)."""
-    out = {}
-    for name, i in (("k", 0), ("v", 1)):
-        full = torch.stack([kv[i] for kv in kvs])
-        L, B, S, KH, D = full.shape
-        out[name] = torch.cat([full, _zeros(full, (L, B, max_seq - S, KH,
-                                                   D))], dim=2)
+def prefill_cache(kvs, max_seq: int, names=("k", "v"), layers=None):
+    """A cache's {names[0], names[1]} (L, B, max_seq, KH, D) from a
+    prompt's per-layer (k, v), each (B, S, KH, D): the prompt's slots,
+    then zeros. Each cache is made once, in the first layer's layout
+    (DTensors on a mesh, the sequence whole on every rank), and each
+    layer is laid out as it and copied into its slots as ``kvs`` yields
+    it: an iterator of layers holds one layer beside the cache at most.
+    ``layers`` is L where ``kvs`` has no length. The decoder's {"k",
+    "v"}; whisper's self K/V and, at max_seq = T, its cross K/V
+    ("cross_k", "cross_v")."""
+    L = len(kvs) if layers is None else layers
+    out, layout = {}, {}
+    for i, kv in enumerate(kvs):
+        for name, t in zip(names, kv):
+            S = t.shape[1]
+            if not is_dtensor(t):
+                if name not in out:
+                    out[name] = _stacked_zeros(t, L, max_seq)
+                out[name][i, :, :S] = t
+                continue
+            if name not in out:
+                layout[name] = _layer_layout(t)
+                out[name] = _stacked_zeros(t, L, max_seq, layout[name])
+            if list(t.placements) != layout[name]:
+                t = t.redistribute(placements=layout[name])
+            # rows, heads and d split alike in both: the local slots match
+            out[name].to_local()[i, :, :S].copy_(t.to_local())
     return out
 
 
-def _zeros(like, shape):
-    """Zeros of ``shape`` in ``like``'s dtype, on its device or, for a
-    DTensor, on its mesh in its placements."""
-    if not is_dtensor(like):
-        return torch.zeros(shape, dtype=like.dtype, device=like.device)
-    from torch.distributed.tensor import zeros
-    return zeros(shape, dtype=like.dtype, device_mesh=like.device_mesh,
-                 placements=like.placements)
+def _layer_layout(t):
+    """A layer's (B, S, KH, D) k or v DTensor's placements with its
+    sequence (dim 1) whole on every rank and partial sums reduced."""
+    from torch.distributed.tensor import Replicate
+    return [Replicate() if p.is_partial()
+            or (p.is_shard() and p.dim % t.ndim == 1) else p
+            for p in t.placements]
+
+
+def _stacked_zeros(t, layers: int, max_seq: int, layout=None):
+    """Zeros (layers, B, max_seq, KH, D) in the dtype of a layer's ``t``
+    (B, S, KH, D), on its device or, for a DTensor, on its mesh with
+    each dim split as in a layer's ``layout``."""
+    B, _, KH, D = t.shape
+    shape = (layers, B, max_seq, KH, D)
+    if not is_dtensor(t):
+        return torch.zeros(shape, dtype=t.dtype, device=t.device)
+    from torch.distributed.tensor import Shard, zeros
+    pl = [Shard(p.dim % t.ndim + 1) if p.is_shard() else p for p in layout]
+    return zeros(shape, dtype=t.dtype, device_mesh=t.device_mesh,
+                 placements=pl)
 
 
 def shardwise(fn, x, *whole):

@@ -306,8 +306,9 @@ def decoder_init_cache_mixed(cfg: ModelConfig, batch: int, max_seq: int,
 def decoder_decode_mixed(params: Params, cfg: ModelConfig, tokens, cache):
     """One decode step on the mixed cache. Local layers write their ring at
     pos % W and attend to its min(pos + 1, W) valid slots (start 0);
-    global layers attend to [0, pos + 1). Tensors are updated in place."""
-    x = params["embed"][tokens].to(_dtype(cfg))
+    global layers attend to [0, pos + 1). Tensors are updated in place
+    (on a mesh each rank writes the ring slot it holds)."""
+    x = spmd.embed(params["embed"], tokens).to(_dtype(cfg))
     pos = cache["pos"]
     W = cfg.window
     rot = rope_angles(pos[:, None], cfg.d_head, cfg.rope_theta)
@@ -572,34 +573,32 @@ def _encdec_cross_kvs(params: Params, cfg: ModelConfig, enc_out):
     return (cross_kv(lp["cross"], cfg, enc_out) for lp in params["dec_layers"])
 
 
-def _encdec_decoder(params: Params, cfg: ModelConfig, tokens, cross_kvs,
-                    cache=None):
+def _encdec_decoder(params: Params, cfg: ModelConfig, tokens, cross_kvs):
     """The decoder over a prompt: causal self-attention, cross-attention to
-    ``cross_kvs`` (one (k, v) a layer). With ``cache``, each layer's self
-    K/V goes into it. Returns hidden states (B, S, d_model)."""
+    ``cross_kvs`` (one (k, v) a layer). Returns (hidden states (B, S,
+    d_model), [each layer's self (k, v), each (B, S, KH, D)])."""
     B, S = tokens.shape
     dtype, kind = _dtype(cfg), cfg.norm
-    x = params["embed"][tokens].to(dtype) \
+    x = spmd.embed(params["embed"], tokens).to(dtype) \
         + sinusoid_positions(S, cfg.d_model, dtype, tokens.device)[None]
-    for i, (lp, ckv) in enumerate(zip(params["dec_layers"], cross_kvs)):
-        h, (k, v) = attention(lp["attn"], norm(lp["ln1"], x, kind), cfg,
-                              rot=None)
+    kvs = []
+    for lp, ckv in zip(params["dec_layers"], cross_kvs):
+        h, kv = attention(lp["attn"], norm(lp["ln1"], x, kind), cfg,
+                          rot=None)
+        kvs.append(kv)
         x = x + h
         x = x + cross_attention(lp["cross"], norm(lp["ln_x"], x, kind), cfg,
                                 ckv)
         x = x + mlp(lp["ffn"], norm(lp["ln2"], x, kind), cfg)
-        if cache is not None:
-            cache["k"][i, :, :S] = k
-            cache["v"][i, :, :S] = v
-    return norm(params["final_norm"], x, kind)
+    return norm(params["final_norm"], x, kind), kvs
 
 
 def encdec_forward(params: Params, cfg: ModelConfig, frames, tokens):
     """Teacher-forced: encode frames, decode tokens. Returns (logits
     (B,S,V), aux 0.0, None), as ``repro``'s (without its cache)."""
     enc_out = encdec_encode(params, cfg, frames)
-    x = _encdec_decoder(params, cfg, tokens,
-                        _encdec_cross_kvs(params, cfg, enc_out))
+    x, _ = _encdec_decoder(params, cfg, tokens,
+                           _encdec_cross_kvs(params, cfg, enc_out))
     return _logits(params, x), 0.0, None
 
 
@@ -619,19 +618,25 @@ def encdec_init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 def encdec_prefill(params: Params, cfg: ModelConfig, frames, tokens):
     """Encode the frames and run the decoder prompt; cache the self K/V
-    (``DEC_LEN`` slots) and the cross K/V (the encoder's T frames).
-    Returns (last-position logits (B,V), cache)."""
+    (``DEC_LEN`` slots, the prompt's then zeros) and the cross K/V (the
+    encoder's T frames), each made once in the layers' layout and filled
+    a layer at a time (``spmd.prefill_cache``: DTensors on a mesh), so the
+    cross K/V are never held twice. Returns (last-position logits (B,V),
+    cache)."""
     B, S = tokens.shape
     if S > DEC_LEN:
         raise ValueError(f"a {S}-token prompt exceeds {DEC_LEN} positions")
     enc_out = encdec_encode(params, cfg, frames)
-    cache = encdec_init_cache(cfg, B, enc_out.shape[1], tokens.device)
-    for i, (k, v) in enumerate(_encdec_cross_kvs(params, cfg, enc_out)):
-        cache["cross_k"][i] = k
-        cache["cross_v"][i] = v
-    x = _encdec_decoder(params, cfg, tokens,
-                        zip(cache["cross_k"], cache["cross_v"]), cache)
-    cache["pos"].fill_(S)
+    L = len(params["dec_layers"])
+    cross = spmd.prefill_cache(_encdec_cross_kvs(params, cfg, enc_out),
+                               enc_out.shape[1], ("cross_k", "cross_v"),
+                               layers=L)
+    x, kvs = _encdec_decoder(
+        params, cfg, tokens, ((cross["cross_k"][i], cross["cross_v"][i])
+                              for i in range(L)))
+    cache = {**spmd.prefill_cache(kvs, DEC_LEN), **cross,
+             "pos": torch.full((B,), S, dtype=torch.long,
+                               device=tokens.device)}
     return _logits(params, x[:, -1]), cache
 
 
@@ -640,12 +645,14 @@ def encdec_decode(params: Params, cfg: ModelConfig, tokens, cache):
     position pos (clamped to the table, as a gather in ``repro`` clamps),
     self-attention against the ``DEC_LEN`` cache, cross-attention over
     every encoder frame (the decode kernel, start 0, length T). Returns
-    (logits (B,V), cache), its tensors updated in place."""
+    (logits (B,V), cache), its tensors updated in place. On a mesh the
+    cursors index the plain sinusoid table as a plain copy
+    (``spmd.whole``)."""
     dtype, kind = _dtype(cfg), cfg.norm
     pos = cache["pos"]
     table = sinusoid_positions(DEC_LEN, cfg.d_model, dtype, tokens.device)
-    x = params["embed"][tokens].to(dtype) \
-        + table[pos.clamp(max=DEC_LEN - 1)][:, None]
+    x = spmd.embed(params["embed"], tokens).to(dtype) \
+        + table[spmd.whole(pos).clamp(max=DEC_LEN - 1)][:, None]
     for i, lp in enumerate(params["dec_layers"]):
         h, _ = attention(lp["attn"], norm(lp["ln1"], x, kind), cfg, rot=None,
                          cache=(cache["k"][i], cache["v"][i]), cache_pos=pos)

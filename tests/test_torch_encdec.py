@@ -31,26 +31,10 @@ from repro_torch.launch import serve as launch_serve
 from repro_torch.models import build, layers, transformer
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serve.engine import EngineConfig, ServingEngine
+from torch_weights import perturbed
 
 torch.set_num_threads(1)
 TOL = dict(atol=1e-4, rtol=1e-4)
-
-
-def _perturbed(tree, rng):
-    """``tree`` with every bias drawn from N(0, 0.1) and every norm scale
-    from 1 + N(0, 0.1): ``repro`` initialises them to 0 and 1."""
-    out = {}
-    for key, val in tree.items():
-        if isinstance(val, dict):
-            out[key] = _perturbed(val, rng)
-        elif key in ("b", "bias"):
-            out[key] = (0.1 * rng.normal(size=val.shape)).astype(val.dtype)
-        elif key == "scale":
-            out[key] = (1 + 0.1 * rng.normal(size=val.shape)).astype(
-                val.dtype)
-        else:
-            out[key] = np.asarray(val)
-    return out
 
 
 @pytest.fixture(scope="module")
@@ -58,7 +42,7 @@ def pair():
     jcfg = jax_get("whisper-large-v3").smoke()
     cfg = get("whisper-large-v3").smoke()
     jmodel = jax_build(jcfg)
-    tree = _perturbed(jax.tree.map(np.asarray, jax.jit(jmodel.init)(
+    tree = perturbed(jax.tree.map(np.asarray, jax.jit(jmodel.init)(
         jax.random.PRNGKey(0))), np.random.default_rng(1))
     jparams = jax.tree.map(jnp.asarray, tree)
     return jmodel, jparams, build(cfg), params_from_numpy(cfg, tree), cfg

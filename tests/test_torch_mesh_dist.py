@@ -37,27 +37,26 @@ the port's one-device steps on the same inputs:
 * every rank's local shapes are the specs' split of the global shapes, and
   its local bytes equal ``sharded_size_bytes`` (the dry run's per-device
   bytes); the saved state restored onto the mesh equals each rank's shards
-  bit for bit;
-* the encoder-decoder and gemma3's mixed cache raise on the 4-rank mesh,
-  naming ROADMAP item 32.
+  bit for bit.
+
+The other families run on the same meshes in
+``tests/test_torch_mesh_families.py`` and
+``tests/test_torch_mesh_encdec.py``.
 
 One 4-rank world runs the three meshes (``tests/torch_mesh_world.py``,
 which also sets the bars above; the dense decoder's own checks are its
 ``extras``), joined within 360 s of its spawn (other tests share the
 cores) or killed, failing the test.
 """
-import dataclasses
-
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
 
 import torch_mesh_world as W
-from repro_torch.configs import get
 from repro_torch.launch import sharding as SH
 from repro_torch.launch.mesh import Mesh, make_debug_mesh
-from repro_torch.launch.steps import make_decode_step, make_train_step
+from repro_torch.launch.steps import make_train_step
 from repro_torch.train.optimizer import AdamWConfig, adamw, compressed_adamw
 from repro_torch.train.tree import leaves, map_tree
 
@@ -71,9 +70,7 @@ JOIN_S = 360
 def _updates(cfg, mesh, inp):
     """One AdamW update from ``repro``'s gradients (``inp["grads"]``), and
     one compressed update from ``repro``'s state after a compressed update
-    with its next gradient (``inp["compressed"]``), both on ``mesh``; on a
-    mesh of several devices, what the encoder-decoder's and gemma3's
-    mixed-cache builders raise."""
+    with its next gradient (``inp["compressed"]``), both on ``mesh``."""
     tr = make_train_step(cfg, mesh, B, S, opt_cfg=AdamWConfig(**OCFG))
     p_sh, o_sh = tr.in_shardings[:2]
 
@@ -99,15 +96,6 @@ def _updates(cfg, mesh, inp):
                c_upd_nu=[W._full(t) for t in leaves(o3.inner.nu)],
                c_upd_error=[W._full(t) for t in leaves(o3.error)],
                c_upd_grad_norm=float(W._full(m3["grad_norm"])))
-    out["raises"] = {}
-    mixed = dataclasses.replace(get(ARCH).smoke(), mixed_cache=True)
-    for cfg_, make in ((get("whisper-large-v3").smoke(), make_train_step),
-                       (mixed, make_decode_step)):
-        name = cfg_.name + ("-mixed" if cfg_.mixed_cache else "")
-        try:
-            make(cfg_, mesh, B, S)
-        except NotImplementedError as e:
-            out["raises"][name] = str(e)
     return out
 
 
@@ -294,17 +282,6 @@ def test_local_shards_are_the_specs_split(world, reference):
 def test_restore_onto_the_mesh_is_bitwise(world):
     _, ranks = world
     assert all(res["restored_bitwise"] for res in ranks)
-
-
-def test_other_families_name_item_32(world):
-    """The encoder-decoder and gemma3's mixed cache still raise on a mesh
-    of several devices (the MoE, ssm and hybrid families run there:
-    ``tests/test_torch_mesh_families.py``)."""
-    _, ranks = world
-    for res in ranks:
-        assert sorted(res["raises"]) == ["gemma3-1b-smoke-mixed",
-                                         "whisper-large-v3-smoke"]
-        assert all("item 32" in m for m in res["raises"].values())
 
 
 def test_world_mesh_needs_as_many_ranks(tmp_path):

@@ -1,24 +1,31 @@
-"""Shared by ``tests/test_torch_mesh_dist.py`` (the dense decoder) and
+"""Shared by ``tests/test_torch_mesh_dist.py`` (the dense decoder),
 ``tests/test_torch_mesh_families.py`` (the ssm program, the MoE decoder and
-the hybrid): configs' step bundles on a real ``torch.distributed`` mesh,
-a 4-rank ``gloo`` world on the CPU meshed (2, 2), (4, 1) and (1, 4) in
-turn, each config's smoke cut in float32 (vocab 64), against the port's
-one-device steps and ``repro``'s jitted one-device train step on the same
-weights (``repro``'s init, carried across by ``models/convert.py``).
+the hybrid) and ``tests/test_torch_mesh_encdec.py`` (the encoder-decoder
+and gemma3's mixed cache): configs' step bundles on a real
+``torch.distributed`` mesh, a 4-rank ``gloo`` world on the CPU meshed
+(2, 2), (4, 1) and (1, 4) in turn, each config's smoke cut in float32
+(vocab 64; whisper's 66), against the port's one-device steps and
+``repro``'s jitted one-device train step on the same weights (``repro``'s
+init, carried across by ``models/convert.py``; whisper's zero biases and
+unit LayerNorm scales replaced by seeded draws, so that a bias added once
+a rank would show).
 
 On each mesh every rank places the weights by the bundles' shardings
 (``launch/sharding.py::place``) and runs, as DTensors:
 
-* the prefill step (4 rows of 24 tokens into a 48-slot cache), its logits
-  (``Model.prefill`` on the placed weights) and, for an MoE, its kept
-  routes (``moe.recording_routes``);
-* three decode steps, each writing into the cache it was given (the same
-  tensors and local storage come back: the bundle donates the cache),
-  and the bytes each rank received to gather attention's kv
-  (``kernels/ops.py::GATHERED_KV_BYTES``);
-* one train step (4 x 32 tokens), one compressed train step
-  (``compressed_grads=True``) and one step of two microbatches, each from
-  the same weights;
+* the prefill step (4 rows of 24 tokens into a 48-slot cache; whisper: 4
+  clips of 64 frames and an 8-token prompt, the bundles built with seq =
+  64 frames), its logits (``Model.prefill`` on the placed weights) and,
+  for an MoE, its kept routes (``moe.recording_routes``); a mixed cache
+  has no prefill: its prefill step's ``ValueError``;
+* three decode steps (a mixed cache: 20 from a placed ``init_cache``,
+  past one wrap of its 16-slot ring), each writing into the cache it was
+  given (the same tensors and local storage come back: the bundle
+  donates the cache), and the bytes each rank received to gather
+  attention's kv (``kernels/ops.py::GATHERED_KV_BYTES``);
+* one train step (4 x 32 tokens; whisper: 4 x 64 frames and 8 tokens),
+  one compressed train step (``compressed_grads=True``) and one step of
+  two microbatches, each from the same weights;
 * the state's local shapes and bytes and the cache's local bytes, and a
   save from rank 0 restored onto the mesh;
 * a config's own ``extras`` entries.
@@ -29,11 +36,11 @@ norm within 1e-5 relative of the one-device step's (and ``repro``'s); the
 first moment within 1e-4 of each leaf's largest entry (1e-9 floor) of
 both, the second of the one-device step's (1e-12 floor); the compressed
 step's loss and grad norm within 1e-5 relative, its error feedback within
-1e-3 of each leaf's largest entry but for at most one entry in 10,000 (a
-code that rounds the other way); the microbatched step's loss, grad norm
-and aux within 1e-5 relative, its first moment as above; routes
-identical; local bytes equal to ``sharded_size_bytes``; the restore
-bitwise.
+1e-3 of each leaf's largest entry (1e-9 floor) but for at most one entry
+in 10,000 (a code that rounds the other way); the microbatched step's
+loss, grad norm and aux within 1e-5 relative, its first moment as above;
+routes identical; local bytes equal to ``sharded_size_bytes``; the
+restore bitwise.
 
 One world runs every config of a test file (``spawn`` start method, a
 ``FileStore`` under the test's temp dir, one thread a rank); the parent
@@ -42,6 +49,7 @@ limit, counted from the spawn, that kills the ranks and fails the test.
 """
 import dataclasses
 import time
+from typing import Any, Dict
 
 import numpy as np
 import pytest
@@ -57,20 +65,33 @@ from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
                                       make_train_step)
 from repro_torch.models import build
+from repro_torch.models.model import ENCDEC_DEC_FRac
 from repro_torch.models.moe import recording_routes
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.optimizer import AdamWConfig, adamw, compressed_adamw
 from repro_torch.train.tree import leaves, map_tree
+from torch_weights import perturbed
 
 MESHES = [(2, 2), (4, 1), (1, 4)]
 B, S, PROMPT, MAX_SEQ, DECODES = 4, 32, 24, 48, 3
 OCFG = dict(lr=5e-3, warmup_steps=2, total_steps=20)
 VOCAB = 64
+# whisper's vocab: 66 % 4 = 2, as 51,866 % 4 = 2, so that a "model" axis
+# of 4 leaves the table whole over "model" (the embed rule's fallback)
+VOCABS = {"whisper-large-v3": 66}
+# whisper's clips and prompt; a mixed cache's decode steps (W = 16)
+FRAMES, ENCDEC_PROMPT, MIXED_DECODES = 64, 8, 20
+TRAIN_KINDS = ("plain", "compressed", "micro")
+MIXED = "-mixed"           # an arch's suffix: its config with mixed_cache
 
 
-def smoke(arch):
-    return dataclasses.replace(get(arch).smoke(), dtype="float32",
-                               remat="none", vocab=VOCAB)
+def smoke(arch, get=get):
+    """``arch``'s smoke cut in float32 (``get``: the port's configs or
+    ``repro``'s); ``<arch>-mixed`` is ``arch`` with ``mixed_cache``."""
+    base = arch.removesuffix(MIXED)
+    return dataclasses.replace(get(base).smoke(), dtype="float32",
+                               remat="none", vocab=VOCABS.get(base, VOCAB),
+                               mixed_cache=arch != base)
 
 
 def _full(t):
@@ -84,34 +105,56 @@ def _local(t):
     return t.to_local() if isinstance(t, DTensor) else t
 
 
-def _serve(cfg, mesh, params, prompt):
-    """Prefill tokens, logits, cache and routes, then DECODES greedy steps
-    (whether each wrote into the cache it was given)."""
+def _prefill(cfg, mesh, pre, params, batch, max_seq):
+    """The prefill step's tokens, cache and routes, and its logits."""
     from torch.distributed.tensor.experimental import implicit_replication
-    pre = make_prefill_step(cfg, mesh, B, MAX_SEQ)
-    dec = make_decode_step(cfg, mesh, B, MAX_SEQ)
-    if mesh.distributed:
-        params = SH.place(params, pre.in_shardings[0])
     out = {}
     with recording_routes() as routes:
-        tok, cache = pre.fn(params, {"tokens": prompt})
+        tok, cache = pre.fn(params, batch)
     out["routes"] = [(_full(i), _full(k)) for i, k in routes]
     out["prefill_tok"] = _full(tok)
     out["prefill_cache"] = {k: _full(v) for k, v in cache.items()}
-    batch = {"tokens": prompt.to(mesh.device)}
+    batch = {k: v.to(mesh.device) for k, v in batch.items()}
     with torch.no_grad():
         if mesh.distributed:
             batch = SH.place(batch, pre.in_shardings[1])
             with implicit_replication():
                 logits, _ = build(cfg).prefill(params, batch,
-                                               max_seq=MAX_SEQ)
+                                               max_seq=max_seq)
         else:
-            logits, _ = build(cfg).prefill(params, batch, max_seq=MAX_SEQ)
+            logits, _ = build(cfg).prefill(params, batch, max_seq=max_seq)
     out["prefill_logits"] = _full(logits)
-    toks, in_place = [_full(tok)[:, None]], True
+    return out, tok, cache
+
+
+def _serve(cfg, mesh, params, inp):
+    """Prefill tokens, logits, cache and routes, then ``inp["decodes"]``
+    greedy steps (whether each wrote into the cache it was given). A
+    mixed cache: its prefill step's error, then the decode steps from a
+    placed ``init_cache`` and the prompt's first tokens."""
+    max_seq = inp["max_seq"]
+    pre = make_prefill_step(cfg, mesh, B, max_seq)
+    dec = make_decode_step(cfg, mesh, B, max_seq)
+    if mesh.distributed:
+        params = SH.place(params, pre.in_shardings[0])
+    batch = {"tokens": inp["prompt"]}
+    if "frames" in inp:
+        batch["frames"] = inp["frames"]
+    if cfg.mixed_cache:
+        with pytest.raises(ValueError) as raised:
+            pre.fn(params, batch)
+        out = {"prefill_raises": str(raised.value), "routes": []}
+        cache = build(cfg).init_cache(B, max_seq, mesh.device)
+        if mesh.distributed:
+            cache = SH.place(cache, dec.in_shardings[2])
+        first = inp["prompt"][:, :1]
+    else:
+        out, tok, cache = _prefill(cfg, mesh, pre, params, batch, max_seq)
+        first = _full(tok)[:, None]
+    toks, in_place = [first], True
     gathered = kernel_ops.GATHERED_KV_BYTES
     gathered.update(dict.fromkeys(gathered, 0))
-    for _ in range(DECODES):
+    for _ in range(inp["decodes"]):
         nxt, new = dec.fn(params, toks[-1], cache)
         in_place &= all(new[k] is cache[k] and _local(new[k]).data_ptr()
                         == _local(cache[k]).data_ptr()
@@ -127,15 +170,16 @@ def _serve(cfg, mesh, params, prompt):
     return out
 
 
-def _train(cfg, mesh, params, batch):
-    """From ``params``: one train step, one compressed train step and one
-    step of two microbatches."""
+def _train(cfg, mesh, params, batch, seq, kinds=TRAIN_KINDS):
+    """From ``params``: of ``kinds``, one train step ("plain"), one
+    compressed train step and one step of two microbatches, built for
+    ``seq``."""
     out = {}
-    for kind in ("plain", "compressed", "micro"):
+    for kind in kinds:
         ocfg = AdamWConfig(**OCFG)
         comp, micro = kind == "compressed", 2 if kind == "micro" else 1
         init = (compressed_adamw if comp else adamw)(ocfg)[0]
-        tr = make_train_step(cfg, mesh, B, S, opt_cfg=ocfg,
+        tr = make_train_step(cfg, mesh, B, seq, opt_cfg=ocfg,
                              compressed_grads=comp, microbatches=micro)
         p = map_tree(torch.clone, params)
         o = init(p)
@@ -164,9 +208,9 @@ def _train(cfg, mesh, params, batch):
 
 def run_steps(cfg, mesh, inp):
     """Every result of one mesh (or of one device)."""
-    res = _serve(cfg, mesh, map_tree(torch.clone, inp["params"]),
-                 inp["prompt"])
-    trained, state, tr = _train(cfg, mesh, inp["params"], inp["batch"])
+    res = _serve(cfg, mesh, map_tree(torch.clone, inp["params"]), inp)
+    trained, state, tr = _train(cfg, mesh, inp["params"], inp["batch"],
+                                inp["seq"], inp["train"])
     res.update(trained)
     return res, state, tr
 
@@ -290,31 +334,50 @@ def _repro_routes(jcfg, jmodel, jp, prompt):
     return got
 
 
-def inputs(params):
+def inputs(params, cfg) -> Dict[str, Any]:
     """The steps' inputs: ``params``, a train batch of B x S tokens and
-    its first PROMPT tokens as the prompt."""
+    its first PROMPT tokens as the prompt, the bundles' ``seq`` (train)
+    and ``max_seq`` (serve), the decode steps and the train steps' kinds.
+    The encoder-decoder: B clips of FRAMES frames from a numpy seed, a
+    batch of FRAMES // 8 tokens, the prompt its first ENCDEC_PROMPT, every
+    bundle built with FRAMES. A mixed cache decodes MIXED_DECODES steps
+    and trains the plain step only: ``mixed_cache`` changes the decode
+    cache alone, so its train steps are its base config's, whose
+    compressed and microbatched steps its own world runs."""
+    seq = FRAMES if cfg.family == "encdec" else S
+    tokens = seq // ENCDEC_DEC_FRac if cfg.family == "encdec" else seq
     batch = {k: torch.from_numpy(v) for k, v in TokenPipeline(
-        vocab=VOCAB, batch=B, seq=S).batch_at(1).items()}
-    return dict(params=params, batch=batch,
-                prompt=batch["tokens"][:, :PROMPT].contiguous())
+        vocab=cfg.vocab, batch=B, seq=tokens).batch_at(1).items()}
+    inp = dict(params=params, batch=batch, seq=seq, max_seq=MAX_SEQ,
+               decodes=MIXED_DECODES if cfg.mixed_cache else DECODES,
+               train=TRAIN_KINDS[:1] if cfg.mixed_cache else TRAIN_KINDS,
+               prompt=batch["tokens"][:, :PROMPT].contiguous())
+    if cfg.family == "encdec":
+        batch["frames"] = inp["frames"] = torch.from_numpy(
+            np.random.default_rng(3).normal(
+                size=(B, FRAMES, cfg.d_model)).astype(np.float32))
+        inp.update(max_seq=FRAMES,
+                   prompt=batch["tokens"][:, :ENCDEC_PROMPT].contiguous())
+    return inp
 
 
 def repro_init(arch):
-    """``repro``'s initial weights for ``arch``'s smoke cut, and the steps'
-    inputs on them (``inp``, the port's weights)."""
+    """``repro``'s initial weights for ``arch``'s smoke cut (whisper's
+    ``perturbed``), and the steps' inputs on them (``inp``, the port's
+    weights)."""
     import jax
 
     from repro.configs import get as jax_get
     from repro.models import build as jax_build
     from repro_torch.models.convert import params_from_numpy
 
-    cfg = smoke(arch)
-    jcfg = dataclasses.replace(jax_get(arch).smoke(), dtype="float32",
-                               remat="none", vocab=VOCAB)
+    cfg, jcfg = smoke(arch), smoke(arch, jax_get)
     jmodel = jax_build(jcfg)
     tree = jax.tree.map(np.asarray, jax.jit(jmodel.init)(
         jax.random.PRNGKey(0)))
-    inp = inputs(params_from_numpy(cfg, tree))
+    if cfg.family == "encdec":
+        tree = perturbed(tree, np.random.default_rng(1))
+    inp = inputs(params_from_numpy(cfg, tree), cfg)
     # copies: ``spawn`` moves the inputs' storage into shared memory, and
     # a JAX array on the CPU may alias the buffer it was made from
     return dict(cfg=cfg, jcfg=jcfg, jmodel=jmodel, inp=inp,
@@ -323,11 +386,42 @@ def repro_init(arch):
                         for k, v in inp["batch"].items()})
 
 
-def reference(init, routes=False, extra=None):
+def _repro_tokens(init):
+    """``repro``'s greedy tokens on the steps' inputs: its jitted prefill's
+    and decode steps' (a mixed cache: decode steps from ``init_cache``
+    and the prompt's first tokens)."""
+    import jax
+    import jax.numpy as jnp
+
+    jmodel, jp, inp = init["jmodel"], init["jp"], init["inp"]
+    decode = jax.jit(jmodel.decode)
+    out = {}
+    if init["cfg"].mixed_cache:
+        cache = jmodel.init_cache(B, inp["max_seq"])
+        tok = jnp.asarray(np.array(inp["prompt"][:, :1].numpy()), jnp.int32)
+    else:
+        batch = {"tokens": jnp.asarray(np.array(inp["prompt"].numpy()))}
+        if "frames" in inp:
+            batch["frames"] = jnp.asarray(np.array(inp["frames"].numpy()))
+        logits, cache = jax.jit(lambda p, b: jmodel.prefill(
+            p, b, inp["max_seq"]))(jp, batch)
+        tok = jnp.argmax(logits, -1).astype(jnp.int32)[:, None]
+        out["jax_prefill_tok"] = torch.from_numpy(np.array(tok[:, 0]))
+    toks = []
+    for _ in range(inp["decodes"]):
+        logits, cache = decode(jp, tok, cache)
+        tok = jnp.argmax(logits, -1).astype(jnp.int32)[:, None]
+        toks.append(np.asarray(tok))
+    out["jax_decode_tok"] = torch.from_numpy(np.concatenate(toks, axis=1))
+    return out
+
+
+def reference(init, routes=False, extra=None, tokens=False):
     """``repro``'s jitted one-device train step's metrics and first moment
-    (and, with ``routes``, its prefill's top-k choices) from ``init``
-    (``repro_init``), and the port's one-device steps (and ``extra``'s
-    entries) on the same inputs."""
+    (and, with ``routes``, its prefill's top-k choices; with ``tokens``,
+    its prefill's and decode steps' tokens) from ``init`` (``repro_init``),
+    and the port's one-device steps (and ``extra``'s entries) on the same
+    inputs."""
     import jax
 
     from repro.launch import make_debug_mesh as jax_mesh
@@ -338,7 +432,7 @@ def reference(init, routes=False, extra=None):
     cfg, inp, jp = init["cfg"], init["inp"], init["jp"]
     ocfg = jopt.AdamWConfig(**OCFG)
     bundle = jax_make_train_step(init["jcfg"], jax_mesh(1, 1), batch=B,
-                                 seq=S, opt_cfg=ocfg)
+                                 seq=inp["seq"], opt_cfg=ocfg)
     _, js, jm = jax.jit(bundle.fn)(jp, jopt.adamw(ocfg)[0](jp),
                                    init["jbatch"])
     out = dict(cfg=cfg, inp=inp,
@@ -348,6 +442,8 @@ def reference(init, routes=False, extra=None):
     if routes:
         out["jax_routes"] = _repro_routes(init["jcfg"], init["jmodel"], jp,
                                           inp["prompt"])
+    if tokens:
+        out.update(_repro_tokens(init))
     one = make_debug_mesh(device="cpu")
     out["one"] = run_steps(cfg, one, inp)[0]
     if extra is not None:
@@ -363,6 +459,10 @@ def near(got, want, rel):
 
 
 def check_prefill(res, one):
+    """Tokens, logits and cache; a mixed cache's prefill error."""
+    if "prefill_raises" in one:
+        assert res["prefill_raises"] == one["prefill_raises"]
+        return
     assert torch.equal(res["prefill_tok"], one["prefill_tok"])
     assert near(res["prefill_logits"], one["prefill_logits"], 1e-5)
     for key, want in one["prefill_cache"].items():
@@ -403,12 +503,18 @@ def check_train(res, one, ref=None):
 
 
 def check_compressed(res, one, ref=None):
+    """The error feedback within 1e-3 of each leaf's largest entry, with
+    the 1e-9 floor of ``check_train``'s first moment: a key projection's
+    bias has a gradient of 0 (it shifts all of a row's logits alike,
+    which softmax ignores), so whisper's hold rounding noise of ~1e-11 on
+    both sides."""
     for want, keys in ((one["c_metrics"], ("loss", "grad_norm")),
                        (ref and ref["jax_metrics"], ("loss",))):
         for key in keys if want else ():
             assert abs(res["c_metrics"][key] - want[key]) \
                 <= 1e-5 * abs(want[key]), key
-    far = sum(int(((g - w).abs() > 1e-3 * float(w.abs().max())).sum())
+    far = sum(int(((g - w).abs() > max(1e-3 * float(w.abs().max()),
+                                       1e-9)).sum())
               for g, w in zip(res["c_error"], one["c_error"], strict=True))
     total = sum(w.numel() for w in one["c_error"])
     assert far <= total // 10_000, (far, total)
